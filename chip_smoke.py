@@ -10,19 +10,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and power limit); exit non-zero without CUDA;
 2. build the CUDA kernels from ``threecrate_tpu_torch/csrc``;
 3. compare each kernel with its plain PyTorch version on the same inputs
-   at the slice's real shapes: the two union-window passes on a
+   at the slices' real shapes: the two union-window passes on a
    1,000,192-point Morton-sorted scan, ``icp_match`` on 1M x 1M with
-   w_tiles=3 at E=0 and E=3;
+   w_tiles=3 at E=0 and E=3, the four FPFH kernels on the 1,000,192
+   sorted points of the registration target (r = 0.5, tile 256);
 4. time each kernel and its plain version (CUDA-event medians);
 5. run ``PerceptionStep()`` on a 1M-point scan pair (target = source +
    (0.05, -0.03, 0.02)) with every launch counter reset just before:
    the shift must come back within 1e-3, valid normals must be unit
-   length, and every kernel must have launched;
+   length, and its kernels must have launched;
 6. time that step (median of 3 after one warm-up) and its peak memory;
-7. run a 2,048-point ``PerceptionStep()``, the exact-kNN path.
+7. run a 2,048-point ``PerceptionStep()``, the exact-kNN path;
+8. run ``RegistrationModel`` (FPFH + RANSAC, then ICP) on a 1M scan pair
+   (source = target rotated 0.35 rad about z and shifted by
+   (2.0, -1.5, 0.3) m) with every launch counter reset just before: the
+   pose must come back (|R'R - I| <= 1e-3, |R't + t'| <= 1e-2 m), each
+   FPFH and union kernel must launch twice (once per cloud) and
+   ``icp_match`` at least once;
+9. time that call (median of 3 after one warm-up), its peak memory, and
+   each stage alone: normals, FPFH, matching, RANSAC, ICP;
+10. run ``RegistrationModel`` on 700 points (the exact FPFH path).
 
-The last two lines are one JSON object with each kernel's launches,
-error and times, then ``{"ok": true, "device": {...}}``.
+The last two lines are one JSON object with each kernel's launches
+(over the runs of phases 5 and 8), error and times, then
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,17 @@ SHIFT = np.array([0.05, -0.03, 0.02], np.float32)
 # differ only by summation order.
 SUM_REL_TOL = 1e-4      # |Δ sum| / scale of the query's neighbourhood
 ICP_ABS_TOL = 1e-4      # metres, on coordinates of magnitude <= ~150 m
+# The FPFH vote and count rows must equal the plain version's bit for
+# bit (integer votes of the same unfused fp32 features); the stage-2
+# weighted sums differ only by summation order.
+FPFH_REL_TOL = 1e-4     # max |Δ| / Σ|row| of the query's 33 sums
+FPFH_RADIUS, FPFH_TILE = 0.5, 256
+FPFH_KERNELS = ("spfh_a", "spfh_b", "fpfh_weight_a", "fpfh_weight_b")
+REG_ANGLE = 0.35
+REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
+REG_CONFIG = dict(ransac_iterations=16384, fpfh_radius=FPFH_RADIUS,
+                  distance_threshold=0.3, refine_with_icp=False,
+                  hypothesis_batch=4096)
 
 
 def log(msg: str) -> None:
@@ -115,6 +137,34 @@ def icp_inputs(dev, n_extra: int, w_tiles: int = 3, tile: int = 128):
     return src_packed.contiguous(), tgt_packed, blk
 
 
+def registration_pair():
+    """The 1M registration pair as numpy arrays: (source, target, R)."""
+    tgt = scan(N_SCAN, 3)
+    c, s = np.cos(REG_ANGLE), np.sin(REG_ANGLE)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    return (tgt @ rot.T + REG_SHIFT).astype(np.float32), tgt, rot
+
+
+def fpfh_inputs(dev):
+    """Phase-3 FPFH inputs: the registration target with the port's
+    normals, Morton-sorted twice and packed as ``_fpfh_fused`` packs it."""
+    from threecrate_tpu_torch.core import PointCloud
+    from threecrate_tpu_torch.ops.features import fused_stage1_inputs
+    from threecrate_tpu_torch.ops.normals import estimate_normals_detailed
+
+    pc = PointCloud.from_numpy(scan(N_SCAN, 3), pad_multiple=FPFH_TILE, device=dev)
+    nrm = estimate_normals_detailed(pc).normals
+    pa, pb, row_a, _ = fused_stage1_inputs(pc.points, pc.mask, nrm, FPFH_TILE)
+    return pa, pb, row_a.to(torch.int32)[None].contiguous()
+
+
+def pose_error(t: np.ndarray, rot: np.ndarray):
+    """(|R'R - I|max, |R't + t'|max) of a recovered src → tgt transform
+    against the applied tgt → src motion (R, REG_SHIFT)."""
+    return (float(np.abs(t[:3, :3] @ rot - np.eye(3)).max()),
+            float(np.abs(t[:3, :3] @ REG_SHIFT + t[:3, 3]).max()))
+
+
 def union_error(got: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor):
     """(rows 0 and 10 bit-equal fraction, max relative sum error, max abs
     error) over valid queries."""
@@ -138,6 +188,7 @@ def main() -> int:
                                                   window_union_a_tiles,
                                                   window_union_b_plain,
                                                   window_union_b_tiles)
+    from threecrate_tpu_torch.kernels import fpfh
     from threecrate_tpu_torch.models import PerceptionStep
     from threecrate_tpu_torch.utils.profiling import median_time
 
@@ -198,6 +249,46 @@ def main() -> int:
         icp_err = max(icp_err, err)
         icp_args[n_extra] = args
 
+    r2 = FPFH_RADIUS * FPFH_RADIUS
+    pa, pb, pos_b = fpfh_inputs(dev)
+    v_a, v_b = pa[3] > 0.5, pb[3] > 0.5
+    fpfh_err = {}
+    stage1 = {}
+    for kname, kern, plain, args, v in (
+            ("spfh_a", fpfh.spfh_a_tiles, fpfh.spfh_a_plain, (pa,), v_a),
+            ("spfh_b", fpfh.spfh_b_tiles, fpfh.spfh_b_plain, (pb, pos_b), v_b)):
+        got = kern(*args, r2, FPFH_TILE)
+        ref = plain(*args, r2, FPFH_TILE)
+        torch.cuda.synchronize()
+        exact = (got == ref).all(0)[v].float().mean().item()
+        fpfh_err[kname] = (got - ref).abs().max().item()
+        log(f"  {kname}: N={pa.shape[1]} vote+count rows bit-equal {exact:.6f} (need 1), "
+            f"max abs err {fpfh_err[kname]:.3e}, mean count {ref[33][v].mean().item():.2f}")
+        check(exact == 1.0, f"{kname} disagrees")
+        stage1[kname] = got
+    # stage 2 on the kernels' SPFH, as _fpfh_fused builds it
+    inv_b = torch.argsort(pos_b[0].long())
+    raw = stage1["spfh_a"].T + stage1["spfh_b"].T[inv_b]
+    spfh = raw[:, :33] / raw[:, 33:].clamp_min(1.0)
+    p2a = torch.cat([pa[0:4], spfh.T]).contiguous()
+    p2b = torch.cat([pb[0:4], spfh[pos_b[0].long()].T]).contiguous()
+    fpfh_args = {"spfh_a": (pa,), "spfh_b": (pb, pos_b),
+                 "fpfh_weight_a": (p2a,), "fpfh_weight_b": (p2b, pos_b)}
+    for kname, kern, plain, v in (
+            ("fpfh_weight_a", fpfh.fpfh_weight_a_tiles, fpfh.fpfh_weight_a_plain, v_a),
+            ("fpfh_weight_b", fpfh.fpfh_weight_b_tiles, fpfh.fpfh_weight_b_plain, v_b)):
+        got = kern(*fpfh_args[kname], r2, FPFH_TILE)
+        ref = plain(*fpfh_args[kname], r2, FPFH_TILE)
+        torch.cuda.synchronize()
+        cnt_exact = (got[33] == ref[33])[v].float().mean().item()
+        rel = ((got[:33] - ref[:33]).abs().amax(0)
+               / ref[:33].abs().sum(0).clamp_min(1e-30))[v].max().item()
+        fpfh_err[kname] = (got - ref).abs().max().item()
+        log(f"  {kname}: count bit-equal {cnt_exact:.6f} (need 1), sums max rel err "
+            f"{rel:.3e} (tol {FPFH_REL_TOL}), max abs err {fpfh_err[kname]:.3e}")
+        check(cnt_exact == 1.0 and rel <= FPFH_REL_TOL, f"{kname} disagrees")
+    del stage1, raw, spfh
+
     log("phase 4: kernel and plain times (CUDA-event medians)")
     times = {
         "union_window_a": (lambda: window_union_a_tiles(pts_a, valid_a, k, tile, band),
@@ -207,6 +298,11 @@ def main() -> int:
         "icp_match": (lambda: icp_match_tiles(*icp_args[0], tile=128, w_tiles=3),
                       lambda: icp_match_plain(*icp_args[0], tile=128, w_tiles=3)),
     }
+    for kname in fpfh_args:
+        kern, plain = getattr(fpfh, kname + "_tiles"), getattr(fpfh, kname + "_plain")
+        args = fpfh_args[kname]
+        times[kname] = (lambda kern=kern, args=args: kern(*args, r2, FPFH_TILE),
+                        lambda plain=plain, args=args: plain(*args, r2, FPFH_TILE))
     ms = {}
     for kname, (kern, plain) in times.items():
         # plain, kernel, kernel, plain: compare within one call, in turns
@@ -218,6 +314,8 @@ def main() -> int:
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms")
     del out_a, ref_a, out_b, ref_b, icp_args, times
+    del fpfh_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, inv_b, got, ref, args
+    torch.cuda.empty_cache()
 
     log("phase 5: PerceptionStep() on the 1M scan pair")
     src = scan(N_SCAN, 0)
@@ -243,6 +341,7 @@ def main() -> int:
     check(bool(((norms[valid_n] - 1).abs() < 1e-3).all()), "normals not unit length")
     check(launches["union_window_a"] == 1 and launches["union_window_b"] == 1,
           "union kernels not launched once each")
+    check(not any(launches[k] for k in FPFH_KERNELS), "FPFH kernels launched")
     check(1 <= launches["icp_match"] <= step.max_iterations,
           "icp_match not launched once per iteration")
 
@@ -271,23 +370,134 @@ def main() -> int:
     check(r2.mse.item() < 1e-4, "2,048-point mse too large")
     check(sum(kernels.launch_counts().values()) == 0, "exact path launched a kernel")
 
+    reg_launches, reg_report = registration_phases(dev, kernels)
+    for kname, n in reg_launches.items():
+        launches[kname] += n
+
     src_of = {"union_window_a": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:564"),
               "union_window_b": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:600"),
               "icp_match": ("threecrate_tpu_torch/csrc/icp_match.cu",
-                            "threecrate_tpu/kernels/icp_pallas.py:113")}
-    errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err}
+                            "threecrate_tpu/kernels/icp_pallas.py:113"),
+              "spfh_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                         "threecrate_tpu/kernels/fpfh_pallas.py:189"),
+              "spfh_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                         "threecrate_tpu/kernels/fpfh_pallas.py:211"),
+              "fpfh_weight_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                                "threecrate_tpu/kernels/fpfh_pallas.py:292"),
+              "fpfh_weight_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                                "threecrate_tpu/kernels/fpfh_pallas.py:314")}
+    errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
+            **fpfh_err}
     report = {"kernels": [
         {"name": kname, "route": "cuda", "source": src_of[kname][0],
          "replaces": src_of[kname][1], "launches": launches[kname],
          "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1]}
         for kname in src_of]}
+    log(f"registration: {json.dumps(reg_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def registration_phases(dev, kernels):
+    """Phases 8-10: ``RegistrationModel`` on the 1M pair (checked, with
+    its launch counts), its times, and a 700-point run on the exact
+    path. Returns (launches of phase 8, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.ops import global_registration as greg
+    from threecrate_tpu_torch.ops import registration
+    from threecrate_tpu_torch.ops.features import (FpfhConfig,
+                                                   extract_fpfh_features_with_normals,
+                                                   match_descriptors)
+    from threecrate_tpu_torch.ops.normals import estimate_normals_detailed
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    log("phase 8: RegistrationModel on the 1M scan pair")
+    src_np, tgt_np, rot = registration_pair()
+    src = tt.PointCloud.from_numpy(src_np, device=dev)
+    tgt = tt.PointCloud.from_numpy(tgt_np, device=dev)
+    model = tt.RegistrationModel(max_iterations=30, **REG_CONFIG)
+    kernels.reset_launch_counts()
+    res = model(src, tgt)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    t = res.transformation.cpu().numpy()
+    r_err, t_err = pose_error(t, rot)
+    log(f"  launches {launches}; |R'R - I| {r_err:.3e} (tol 1e-3), |R't + t'| "
+        f"{t_err:.3e} m (tol 1e-2), ICP iterations {res.iterations}, mse "
+        f"{res.mse.item():.3e}, correspondences {res.correspondences}")
+    check(np.isfinite(t).all() and r_err <= 1e-3 and t_err <= 1e-2,
+          "RegistrationModel pose not recovered")
+    check(all(launches[k] == 2 for k in FPFH_KERNELS),
+          "an FPFH kernel not launched once per cloud")
+    check(launches["union_window_a"] == 2 and launches["union_window_b"] == 2,
+          "union kernels not launched once per cloud")
+    check(launches["icp_match"] >= 1, "icp_match not launched")
+
+    log("phase 9: RegistrationModel time, memory and stages on the 1M pair")
+    torch.cuda.reset_peak_memory_stats()
+    total = median_time(lambda: model(src, tgt), warmup=1, iters=3)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = model.config
+    ncfg = tt.NormalEstimationConfig(k_neighbors=cfg.k_normals)
+    src_n = src.with_normals(estimate_normals_detailed(src, ncfg).normals)
+    tgt_n = tgt.with_normals(estimate_normals_detailed(tgt, ncfg).normals)
+    fcfg = FpfhConfig(radius=cfg.fpfh_radius, band=cfg.fpfh_band)
+    sf = extract_fpfh_features_with_normals(src_n, fcfg)
+    tf = extract_fpfh_features_with_normals(tgt_n, fcfg)
+    stride = -(-src.capacity // cfg.max_query_descriptors)
+    glob = greg.global_registration_with_features(
+        src_n, tgt_n, sf.descriptors, sf.valid, tf.descriptors, tf.valid, cfg)
+    desc_ok = sf.valid.float().mean().item(), tf.valid.float().mean().item()
+    sums = sf.descriptors[sf.valid].reshape(-1, 3, 11).sum(2)
+    check(bool(torch.isfinite(sf.descriptors).all())
+          and bool(((sums - 100).abs() < 1e-2).all()),
+          "FPFH descriptors not normalised")
+    stages = {
+        "normals x2": lambda: [estimate_normals_detailed(c, ncfg) for c in (src, tgt)],
+        "fpfh x2": lambda: [extract_fpfh_features_with_normals(c, fcfg)
+                            for c in (src_n, tgt_n)],
+        "matching": lambda: match_descriptors(
+            sf.descriptors[::stride], sf.valid[::stride], tf.descriptors, tf.valid,
+            mutual=cfg.mutual_check),
+        "matching + ransac": lambda: greg.global_registration_with_features(
+            src_n, tgt_n, sf.descriptors, sf.valid, tf.descriptors, tf.valid, cfg),
+        "icp": lambda: registration.icp_point_to_point(
+            src, tgt, max_iterations=model.max_iterations, init=glob.as_transform()),
+    }
+    stage_ms = {k: 1e3 * median_time(fn, warmup=1, iters=3) for k, fn in stages.items()}
+    stage_ms["ransac"] = stage_ms["matching + ransac"] - stage_ms["matching"]
+    log(f"  RegistrationModel {1e3 * total:.2f} ms median of 3, peak allocated "
+        f"{peak / 2**30:.3f} GiB; RANSAC inlier ratio {glob.inlier_ratio.item():.4f}; "
+        f"valid FPFH share src {desc_ok[0]:.4f} tgt {desc_ok[1]:.4f}")
+    for k, v in stage_ms.items():
+        log(f"  stage {k}: {v:.2f} ms")
+
+    log("phase 10: RegistrationModel on 700 points (exact FPFH path)")
+    rng = np.random.default_rng(4)
+    xy = rng.uniform(-2, 2, (700, 2)).astype(np.float32)
+    z = 0.5 * np.sin(xy[:, 0] * 2.5) * np.cos(xy[:, 1] * 1.5)
+    small = np.stack([xy[:, 0], xy[:, 1], z], -1).astype(np.float32)
+    m = (tt.Transform.from_axis_angle([0, 0, 1.0], 0.6)
+         @ tt.Transform.from_translation([1.5, -0.8, 0.4])).matrix.numpy()
+    moved = (small @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+    kernels.reset_launch_counts()
+    r_small = tt.RegistrationModel(max_iterations=30, ransac_iterations=8192,
+                                   fpfh_radius=0.5, distance_threshold=0.05)(
+        tt.PointCloud.from_numpy(small, device=dev),
+        tt.PointCloud.from_numpy(moved, device=dev))
+    err_small = float(np.abs(r_small.transformation.cpu().numpy() - m).max())
+    log(f"  pose max abs err {err_small:.3e} (tol 0.05), launches "
+        f"{kernels.launch_counts()}")
+    check(err_small <= 0.05, "700-point pose not recovered")
+    check(sum(kernels.launch_counts().values()) == 0, "exact path launched a kernel")
+    report = {"model_ms": 1e3 * total, "peak_gib": peak / 2**30,
+              "pose_err": [r_err, t_err], "stage_ms": stage_ms}
+    return launches, report
 
 
 if __name__ == "__main__":

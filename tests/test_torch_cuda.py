@@ -9,7 +9,10 @@ runs where JAX is not installed:
 Stated tolerances: counts, radii and pass B's use_b flag bit-equal (the
 kernel and the plain version evaluate the same unfused fp32 operations);
 central sums within 1e-4 of the neighbourhood's scale (summation
-order); icp_match outputs within 1e-6.
+order); icp_match outputs within 1e-6; FPFH vote and count rows
+bit-equal, the stage-2 weighted sums within 1e-4 of each point's Σ|row|;
+a small ``RegistrationModel`` recovers its pose within 1e-3 on the card
+and on the CPU.
 """
 
 import numpy as np
@@ -19,10 +22,12 @@ torch = pytest.importorskip("torch")
 
 import threecrate_tpu_torch as tt  # noqa: E402
 from threecrate_tpu_torch import kernels  # noqa: E402
+from threecrate_tpu_torch.kernels import fpfh  # noqa: E402
 from threecrate_tpu_torch.kernels.icp import icp_match_plain, icp_match_tiles  # noqa: E402
 from threecrate_tpu_torch.kernels.knn import (  # noqa: E402
     window_union_a_plain, window_union_a_tiles, window_union_b_plain,
     window_union_b_tiles)
+from threecrate_tpu_torch.ops import features as tf  # noqa: E402
 from threecrate_tpu_torch.ops import morton  # noqa: E402
 from threecrate_tpu_torch.ops import normals as tn  # noqa: E402
 from threecrate_tpu_torch.ops import registration as tr  # noqa: E402
@@ -110,9 +115,16 @@ def test_wrappers_count_launches(cuda):
                          torch.ones(1, 512, device=cuda), K, TILE, BAND)
     icp_match_tiles(torch.cat([x, v]), torch.cat([x, v]),
                     torch.zeros(4, dtype=torch.int32, device=cuda), 128, 3)
+    p7, p37 = torch.zeros(7, 512, device=cuda), torch.zeros(37, 512, device=cuda)
+    pos = torch.zeros(1, 512, dtype=torch.int32, device=cuda)
+    fpfh.spfh_a_tiles(p7, 0.1, TILE)
+    fpfh.spfh_b_tiles(p7, pos, 0.1, TILE)
+    fpfh.fpfh_weight_a_tiles(p37, 0.1, TILE)
+    fpfh.fpfh_weight_b_tiles(p37, pos, 0.1, TILE)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"union_window_a": 1, "union_window_b": 1,
-                                       "icp_match": 1}
+                                       "icp_match": 1, "spfh_a": 1, "spfh_b": 1,
+                                       "fpfh_weight_a": 1, "fpfh_weight_b": 1}
 
 
 def test_step_on_card_matches_cpu(cuda, monkeypatch):
@@ -133,3 +145,80 @@ def test_step_on_card_matches_cpu(cuda, monkeypatch):
     cos = (gpu.normals.cpu() * cpu.normals).sum(1)
     valid = cpu.normals.norm(dim=1) > 0
     assert (cos[valid] > np.cos(np.radians(1.0))).float().mean() >= 0.99
+
+
+def _fpfh_inputs(cuda, n, seed, radius=0.5):
+    """Stage-1 packed rows of a kitti-like scan with the port's normals."""
+    pc = tt.PointCloud.from_numpy(_scan(n, seed), pad_multiple=TILE, device=cuda)
+    nrm = tn.estimate_normals_detailed(pc).normals
+    pa, pb, row_a, _ = tf.fused_stage1_inputs(pc.points, pc.mask, nrm, TILE)
+    return pa, pb, row_a.to(torch.int32)[None].contiguous(), radius * radius
+
+
+@pytest.mark.parametrize("n,radius", [(16_640, 1.5), (70_000, 0.5)])
+def test_fpfh_kernels_match_plain(cuda, n, radius):
+    pa, pb, pos, r2 = _fpfh_inputs(cuda, n, 4, radius)
+    sa, ra = fpfh.spfh_a_tiles(pa, r2, TILE), fpfh.spfh_a_plain(pa, r2, TILE)
+    sb, rb = fpfh.spfh_b_tiles(pb, pos, r2, TILE), fpfh.spfh_b_plain(pb, pos, r2, TILE)
+    assert torch.equal(sa, ra) and torch.equal(sb, rb)
+    assert ra[33][pa[3] > 0.5].mean() > 5
+    inv_b = torch.argsort(pos[0].long())
+    raw = sa.T + sb.T[inv_b]
+    spfh = raw[:, :33] / raw[:, 33:].clamp_min(1)
+    p2a = torch.cat([pa[0:4], spfh.T]).contiguous()
+    p2b = torch.cat([pb[0:4], spfh[pos[0].long()].T]).contiguous()
+    for got, ref in ((fpfh.fpfh_weight_a_tiles(p2a, r2, TILE),
+                      fpfh.fpfh_weight_a_plain(p2a, r2, TILE)),
+                     (fpfh.fpfh_weight_b_tiles(p2b, pos, r2, TILE),
+                      fpfh.fpfh_weight_b_plain(p2b, pos, r2, TILE))):
+        assert torch.equal(got[33], ref[33])
+        scale = ref[:33].abs().sum(0).clamp_min(1e-30)
+        assert ((got[:33] - ref[:33]).abs().amax(0) / scale).max().item() <= 1e-4
+
+
+def test_fpfh_kernels_other_tiles(cuda):
+    """tile 128 and 512 (512 needs more than 48 KB of shared memory)."""
+    for tile in (128, 512):
+        pc = tt.PointCloud.from_numpy(_scan(8192, 5), pad_multiple=tile, device=cuda)
+        nrm = tn.estimate_normals_detailed(pc).normals
+        pa, pb, row_a, _ = tf.fused_stage1_inputs(pc.points, pc.mask, nrm, tile)
+        pos = row_a.to(torch.int32)[None].contiguous()
+        assert torch.equal(fpfh.spfh_a_tiles(pa, 0.25, tile),
+                           fpfh.spfh_a_plain(pa, 0.25, tile))
+        assert torch.equal(fpfh.spfh_b_tiles(pb, pos, 0.25, tile),
+                           fpfh.spfh_b_plain(pb, pos, 0.25, tile))
+        p2 = torch.cat([pb[0:4], torch.rand(33, pb.shape[1], device=cuda)]).contiguous()
+        got, ref = fpfh.fpfh_weight_b_tiles(p2, pos, 0.25, tile), \
+            fpfh.fpfh_weight_b_plain(p2, pos, 0.25, tile)
+        assert torch.equal(got[33], ref[33])
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def test_registration_model_on_card(cuda, monkeypatch):
+    """A 16,640-point RegistrationModel with every size threshold lowered,
+    so all four FPFH kernels run (once per cloud), then the same on the
+    CPU's plain versions: both recover the pose."""
+    monkeypatch.setattr(tn, "AUTO_WINDOW_THRESHOLD", 4096)
+    monkeypatch.setattr(tf, "FUSED_FPFH_THRESHOLD", 4096)
+    monkeypatch.setattr(tr, "CORRESPONDENCE_WINDOW_THRESHOLD", 2 ** 20)
+    tgt = _scan(16_640, 6)
+    rot = tt.Transform.from_axis_angle([0, 0, 1.0], 0.35).matrix.numpy()
+    shift = np.array([2.0, -1.5, 0.3], np.float32)
+    src = (tgt @ rot[:3, :3].T + shift).astype(np.float32)
+    cfg = dict(ransac_iterations=4096, fpfh_radius=0.5, distance_threshold=0.3,
+               refine_with_icp=False, hypothesis_batch=2048)
+    for dev in (cuda, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        res = tt.RegistrationModel(max_iterations=30, **cfg)(
+            tt.PointCloud.from_numpy(src, device=dev), tt.PointCloud.from_numpy(tgt, device=dev))
+        counts = kernels.launch_counts()
+        t = res.transformation.cpu().numpy()
+        assert np.abs(t[:3, :3] @ rot[:3, :3] - np.eye(3)).max() <= 1e-3
+        assert np.abs(t[:3, :3] @ shift + t[:3, 3]).max() <= 1e-2
+        if dev.type == "cuda":
+            assert all(counts[k] == 2 for k in ("spfh_a", "spfh_b", "fpfh_weight_a",
+                                                "fpfh_weight_b", "union_window_a",
+                                                "union_window_b"))
+            assert counts["icp_match"] >= 1
+        else:
+            assert not any(counts.values())

@@ -239,8 +239,9 @@ def test_cpu_wrappers_never_build_or_count(monkeypatch):
     x = rng.normal(0, 1, (2048, 3)).astype(np.float32)
     m = np.ones(2048, bool)
     tt.PerceptionStep(max_iterations=3, device="cpu")(x, m, x + 0.01, m)
-    assert kernels.launch_counts() == {"union_window_a": 0, "union_window_b": 0,
-                                       "icp_match": 0}
+    counts = kernels.launch_counts()
+    assert {"union_window_a", "union_window_b", "icp_match"} <= set(counts)
+    assert not any(counts.values())
 
 
 def test_wrappers_refuse_bad_shapes():

@@ -2,10 +2,12 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). This slice covers ``PerceptionStep``:
-union-window normals and static-sort point-to-point ICP, with the data
-model, Morton keys, small linear algebra and exact neighbour search
-they need. Modules mirror the JAX package's layout and public names.
+for NVIDIA Hopper (``csrc/``). Two slices are ported:
+``PerceptionStep`` (union-window normals and static-sort point-to-point
+ICP) and ``RegistrationModel`` (fused-window FPFH, descriptor matching,
+batched RANSAC, then ICP), with the data model, Morton keys, small
+linear algebra and exact neighbour search they need. Modules mirror the
+JAX package's layout and public names.
 """
 
 __version__ = "0.1.0"
@@ -23,7 +25,11 @@ from .core import (
     UnsupportedFormatError,
     VisualizationError,
 )
-from .models import PerceptionResult, PerceptionStep
+from .models import PerceptionResult, PerceptionStep, RegistrationModel
+from .ops.features import (FpfhConfig, FpfhResult, extract_fpfh_features,
+                           extract_fpfh_features_with_normals, match_descriptors)
+from .ops.global_registration import (GlobalRegistrationConfig,
+                                      GlobalRegistrationResult, global_registration)
 from .ops.normals import (NormalEstimationConfig, estimate_normals,
                           estimate_normals_detailed,
                           estimate_normals_with_config)
@@ -32,6 +38,9 @@ from .ops.registration import ICPResult, icp, icp_point_to_point
 __all__ = [
     "core", "interop", "kernels", "models", "ops", "utils",
     "PointCloud", "Transform", "PerceptionStep", "PerceptionResult",
+    "RegistrationModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
+    "extract_fpfh_features_with_normals", "match_descriptors",
+    "GlobalRegistrationConfig", "GlobalRegistrationResult", "global_registration",
     "NormalEstimationConfig", "estimate_normals", "estimate_normals_detailed",
     "estimate_normals_with_config", "ICPResult", "icp", "icp_point_to_point",
     "ThreeCrateError", "IoError", "InvalidDataError", "AlgorithmError",

@@ -33,6 +33,24 @@ class Transform:
         return cls(_as_matrix(m))
 
     @classmethod
+    def from_translation(cls, t) -> "Transform":
+        m = torch.eye(4)
+        m[:3, 3] = torch.as_tensor(t, dtype=torch.float32)
+        return cls(m)
+
+    @classmethod
+    def from_rotation_matrix(cls, r, t=None) -> "Transform":
+        m = torch.eye(4)
+        m[:3, :3] = torch.as_tensor(r, dtype=torch.float32)
+        if t is not None:
+            m[:3, 3] = torch.as_tensor(t, dtype=torch.float32)
+        return cls(m)
+
+    @classmethod
+    def from_axis_angle(cls, axis, angle, t=None) -> "Transform":
+        return cls.from_rotation_matrix(axis_angle_to_matrix(axis, angle), t)
+
+    @classmethod
     def from_exp_coords(cls, xi) -> "Transform":
         """se(3) exponential of a 6-vector ``(rx, ry, rz, tx, ty, tz)``."""
         return cls(se3_exp(torch.as_tensor(xi, dtype=torch.float32)))
@@ -75,6 +93,16 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([v[..., 2], zero, -v[..., 0]], dim=-1),
         torch.stack([-v[..., 1], v[..., 0], zero], dim=-1),
     ], dim=-2)
+
+
+def axis_angle_to_matrix(axis, angle) -> torch.Tensor:
+    """Rodrigues rotation; ``axis`` need not be normalised."""
+    axis = torch.as_tensor(axis, dtype=torch.float32)
+    axis = axis / torch.clamp_min(torch.linalg.vector_norm(axis), 1e-30)
+    angle = torch.as_tensor(angle, dtype=torch.float32)
+    k = skew(axis)
+    eye = torch.eye(3, dtype=torch.float32, device=axis.device)
+    return eye + torch.sin(angle) * k + (1 - torch.cos(angle)) * fp32_matmul(k, k)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,306 @@
+// Fused FPFH window kernels for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels spfh_a_tiles, spfh_b_tiles,
+// fpfh_weight_a_tiles and fpfh_weight_b_tiles of
+// threecrate_tpu/kernels/fpfh_pallas.py (bodies _pair_hist with
+// _atan2_approx, and _weight_body). The caller (ops/features.py,
+// _fpfh_fused) Morton-sorts the cloud twice and pads it to a multiple of
+// the tile; each block then serves one tile of queries against the
+// prev/self/next tiles of the sorted order.
+//
+// Layout: packed rows (R, n) row-major, R = 7 for stage 1 ([x, y, z,
+// valid, nx, ny, nz]) and 37 for stage 2 ([x, y, z, valid, spfh(33)]);
+// pass-A positions (n) int32; outputs (34, n) row-major, all in sorted
+// order.
+//
+// Per query (one thread each, one block per tile), over the 3*tile
+// window candidates with valid & d2 <= r2 & d2 > 1e-12 (pass B: and the
+// candidate's pass-A tile more than one tile from the query's):
+//   stage 1: the PCL pair features (theta, cos phi, cos alpha) binned
+//            into 3 x 11 vote counters kept in shared memory, plus the
+//            count;
+//   stage 2: sum of (1/d) * spfh(candidate) into 33 register
+//            accumulators, plus the count.
+// The window is staged one tile-wide segment at a time (prev, self,
+// next), so a block needs (8 + 33) * tile floats of shared memory in
+// stage 1 and 38 * tile in stage 2: 42 KB and 39 KB at tile 256.
+//
+// Every operation of the features and of the selection is rounded on its
+// own (the _rn intrinsics keep nvcc from contracting products into FMAs,
+// and 1/sqrt is a correctly rounded division of a correctly rounded
+// square root), in the order the plain PyTorch versions (kernels/fpfh.py)
+// evaluate them, so the vote and count rows equal theirs bit for bit.
+// _atan2_approx is reproduced, not atan2f: its ~5e-3 rad error moves
+// votes across bin edges.
+//
+// What bounds it: fp32 ALU. Stage 1 evaluates ~100 unfused operations
+// for each in-radius pair and ~12 for each other candidate; stage 2 a
+// distance and, in radius, 33 FMAs with broadcast shared-memory reads.
+// Device memory traffic is ~(4 * R * 3 + 136) bytes per query. Register
+// tiling across queries and tensor cores for the stage-2 sum are later
+// work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBins = 11;
+constexpr int kHist = 3 * kBins;
+constexpr float kPi = 3.1415927410125732f;      // float32(pi)
+constexpr float kHalfPi = 1.5707963705062866f;  // float32(pi / 2)
+constexpr float kTwoPi = 6.2831854820251465f;   // float32(2 pi)
+
+__device__ __forceinline__ float rsqrt_rn(float x) {
+  return __fdiv_rn(1.f, __fsqrt_rn(fmaxf(x, 1e-24f)));
+}
+
+// ((a0*b0 + a1*b1) + a2*b2), each operation rounded on its own.
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
+                                      float b1, float b2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)),
+                   __fmul_rn(a2, b2));
+}
+
+// a*b - c*d, each operation rounded on its own.
+__device__ __forceinline__ float mul_sub(float a, float b, float c, float d) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+// _atan2_approx of fpfh_pallas.py: odd minimax atan on [0, 1], Horner
+// form, then the quadrant corrections.
+__device__ float atan2_approx(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float z = __fdiv_rn(fminf(ax, ay), fmaxf(fmaxf(ax, ay), 1e-30f));
+  const float z2 = __fmul_rn(z, z);
+  float p = __fmul_rn(z2, 0.0208351f);
+  p = __fmul_rn(z2, __fadd_rn(-0.0851330f, p));
+  p = __fmul_rn(z2, __fadd_rn(0.1801410f, p));
+  p = __fmul_rn(z2, __fadd_rn(-0.3302995f, p));
+  float t = __fmul_rn(z, __fadd_rn(0.9998660f, p));
+  if (ay > ax) t = __fsub_rn(kHalfPi, t);
+  if (x < 0.f) t = __fsub_rn(kPi, t);
+  return y < 0.f ? -t : t;
+}
+
+// Scaled feature -> bin: truncation toward zero, clipped to [0, 10].
+__device__ __forceinline__ int bin_of(float scaled) {
+  return min(max(static_cast<int>(scaled), 0), kBins - 1);
+}
+
+struct Query {
+  float x, y, z;
+  int tile_a;  // pass-A tile of the query (pass B only)
+};
+
+// Stage rows [0, rows) of the sorted columns of candidate tile ct into
+// seg (rows x tile), and their pass-A positions into pos when given.
+// Columns of a tile outside [0, n_t) are never read (the caller skips
+// the segment).
+__device__ __forceinline__ void load_segment(const float* __restrict__ packed,
+                                             const int* __restrict__ pos_a,
+                                             int n, int rows, int ct,
+                                             float* seg, int* pos) {
+  const int tile = blockDim.x;
+  const long col = static_cast<long>(ct) * tile + threadIdx.x;
+  for (int r = 0; r < rows; ++r) seg[r * tile + threadIdx.x] = packed[r * static_cast<long>(n) + col];
+  if (pos_a != nullptr) pos[threadIdx.x] = pos_a[col];
+}
+
+// d2 of candidate c of the staged segment, or -1 when it is not
+// selected: invalid, inside the query's pass-A window (pass B), out of
+// radius, or a duplicate of the query.
+template <bool kPassB>
+__device__ __forceinline__ float select_d2(const float* seg, const int* pos, int c,
+                                           const Query& q, int shift, float r2,
+                                           float& dx, float& dy, float& dz) {
+  const int tile = blockDim.x;
+  if (!(seg[3 * tile + c] > 0.5f)) return -1.f;
+  if (kPassB) {
+    const int dt = static_cast<int>(static_cast<unsigned>(pos[c]) >> shift) - q.tile_a;
+    if (dt >= -1 && dt <= 1) return -1.f;
+  }
+  dx = __fsub_rn(seg[c], q.x);
+  dy = __fsub_rn(seg[tile + c], q.y);
+  dz = __fsub_rn(seg[2 * tile + c], q.z);
+  const float d2 = dot3(dx, dy, dz, dx, dy, dz);
+  return (d2 <= r2 && d2 > 1e-12f) ? d2 : -1.f;
+}
+
+template <bool kPassB>
+__device__ __forceinline__ Query load_query(const float* __restrict__ packed,
+                                            const int* __restrict__ pos_a, int n,
+                                            long col, int shift) {
+  Query q;
+  q.x = packed[col];
+  q.y = packed[n + col];
+  q.z = packed[2L * n + col];
+  q.tile_a = kPassB ? static_cast<int>(static_cast<unsigned>(pos_a[col]) >> shift) : 0;
+  return q;
+}
+
+// Stage 1: rows [theta bins(11), cos phi bins(11), cos alpha bins(11),
+// count].
+template <bool kPassB>
+__global__ void spfh_kernel(const float* __restrict__ packed,
+                            const int* __restrict__ pos_a,
+                            float* __restrict__ out, int n, float r2) {
+  extern __shared__ float smem[];
+  const int tile = blockDim.x;
+  const int i = threadIdx.x;
+  const int n_t = n / tile;
+  float* seg = smem;                                        // (7, tile)
+  int* pos = reinterpret_cast<int*>(smem + 7 * tile);       // (tile)
+  int* hist = reinterpret_cast<int*>(smem + 8 * tile);      // (33, tile)
+  const int shift = __ffs(tile) - 1;  // log2(tile): tile is a power of two
+  const long col = static_cast<long>(blockIdx.x) * tile + i;
+  const Query q = load_query<kPassB>(packed, pos_a, n, col, shift);
+  const float qn0 = packed[4L * n + col];
+  const float qn1 = packed[5L * n + col];
+  const float qn2 = packed[6L * n + col];
+  const float theta_scale = __fdiv_rn(static_cast<float>(kBins), kTwoPi);
+  const float cos_scale = 0.5f * kBins;
+  for (int b = 0; b < kHist; ++b) hist[b * tile + i] = 0;
+  int cnt = 0;
+
+  for (int s = 0; s < 3; ++s) {
+    const int ct = static_cast<int>(blockIdx.x) - 1 + s;
+    if (ct < 0 || ct >= n_t) continue;  // block-uniform
+    __syncthreads();  // the previous segment is no longer read
+    load_segment(packed, pos_a, n, 7, ct, seg, pos);
+    __syncthreads();
+    for (int c = 0; c < tile; ++c) {
+      float dx, dy, dz;
+      const float d2 = select_d2<kPassB>(seg, pos, c, q, shift, r2, dx, dy, dz);
+      if (d2 < 0.f) continue;
+      const float inv_d = rsqrt_rn(d2);
+      float ux = __fmul_rn(dx, inv_d);
+      float uy = __fmul_rn(dy, inv_d);
+      float uz = __fmul_rn(dz, inv_d);
+      const float cn0 = seg[4 * tile + c];
+      const float cn1 = seg[5 * tile + c];
+      const float cn2 = seg[6 * tile + c];
+      const float a1 = dot3(qn0, qn1, qn2, ux, uy, uz);
+      const float a2 = dot3(cn0, cn1, cn2, ux, uy, uz);
+      // anchor the frame at the point whose normal is better aligned
+      // with the connecting line
+      const bool swap = fabsf(a1) < fabsf(a2);
+      const float nsx = swap ? cn0 : qn0, nsy = swap ? cn1 : qn1, nsz = swap ? cn2 : qn2;
+      const float ntx = swap ? qn0 : cn0, nty = swap ? qn1 : cn1, ntz = swap ? qn2 : cn2;
+      if (swap) {
+        ux = -ux;
+        uy = -uy;
+        uz = -uz;
+      }
+      const float f3 = dot3(nsx, nsy, nsz, ux, uy, uz);
+      float vx = mul_sub(uy, nsz, uz, nsy);
+      float vy = mul_sub(uz, nsx, ux, nsz);
+      float vz = mul_sub(ux, nsy, uy, nsx);
+      const float inv_v = rsqrt_rn(dot3(vx, vy, vz, vx, vy, vz));
+      vx = __fmul_rn(vx, inv_v);
+      vy = __fmul_rn(vy, inv_v);
+      vz = __fmul_rn(vz, inv_v);
+      const float wx = mul_sub(nsy, vz, nsz, vy);
+      const float wy = mul_sub(nsz, vx, nsx, vz);
+      const float wz = mul_sub(nsx, vy, nsy, vx);
+      const float f2 = dot3(vx, vy, vz, ntx, nty, ntz);
+      const float f1 = atan2_approx(dot3(wx, wy, wz, ntx, nty, ntz),
+                                    dot3(nsx, nsy, nsz, ntx, nty, ntz));
+      ++hist[bin_of(__fmul_rn(__fadd_rn(f1, kPi), theta_scale)) * tile + i];
+      ++hist[(kBins + bin_of(__fmul_rn(__fadd_rn(f2, 1.f), cos_scale))) * tile + i];
+      ++hist[(2 * kBins + bin_of(__fmul_rn(__fadd_rn(f3, 1.f), cos_scale))) * tile + i];
+      ++cnt;
+    }
+  }
+  for (int b = 0; b < kHist; ++b) {
+    out[b * static_cast<long>(n) + col] = static_cast<float>(hist[b * tile + i]);
+  }
+  out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
+}
+
+// Stage 2: rows [sum (1/d) * spfh(33), count].
+template <bool kPassB>
+__global__ void fpfh_weight_kernel(const float* __restrict__ packed,
+                                   const int* __restrict__ pos_a,
+                                   float* __restrict__ out, int n, float r2) {
+  extern __shared__ float smem[];
+  const int tile = blockDim.x;
+  const int n_t = n / tile;
+  float* seg = smem;                                         // (37, tile)
+  int* pos = reinterpret_cast<int*>(smem + (4 + kHist) * tile);
+  const int shift = __ffs(tile) - 1;
+  const long col = static_cast<long>(blockIdx.x) * tile + threadIdx.x;
+  const Query q = load_query<kPassB>(packed, pos_a, n, col, shift);
+  float acc[kHist];
+#pragma unroll
+  for (int j = 0; j < kHist; ++j) acc[j] = 0.f;
+  int cnt = 0;
+
+  for (int s = 0; s < 3; ++s) {
+    const int ct = static_cast<int>(blockIdx.x) - 1 + s;
+    if (ct < 0 || ct >= n_t) continue;  // block-uniform
+    __syncthreads();
+    load_segment(packed, pos_a, n, 4 + kHist, ct, seg, pos);
+    __syncthreads();
+    for (int c = 0; c < tile; ++c) {
+      float dx, dy, dz;
+      const float d2 = select_d2<kPassB>(seg, pos, c, q, shift, r2, dx, dy, dz);
+      if (d2 < 0.f) continue;
+      const float w = rsqrt_rn(d2);
+      const float* spfh = seg + 4 * tile + c;
+#pragma unroll
+      for (int j = 0; j < kHist; ++j) acc[j] = fmaf(w, spfh[j * tile], acc[j]);
+      ++cnt;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kHist; ++j) out[j * static_cast<long>(n) + col] = acc[j];
+  out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem_rows, const float* packed,
+                   const int* pos_a, float* out, int n, int tile, float r2,
+                   void* stream) {
+  const size_t smem = static_cast<size_t>(smem_rows) * tile * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n / tile, tile, smem, static_cast<cudaStream_t>(stream)>>>(packed, pos_a,
+                                                                      out, n, r2);
+  return cudaGetLastError();
+}
+
+constexpr int kSpfhSmemRows = 8 + kHist;        // segment (7) + pos + votes
+constexpr int kWeightSmemRows = 4 + kHist + 1;  // segment (37) + pos
+
+}  // namespace
+
+// The wrappers (kernels/fpfh.py) check shapes, dtypes and devices, that
+// tile is a power of two <= 1024 dividing n, and the shared-memory size;
+// r2 arrives rounded to fp32.
+extern "C" int tc_spfh_a(const float* packed, float* out, int n, int tile, float r2,
+                         void* stream) {
+  return launch(spfh_kernel<false>, kSpfhSmemRows, packed, nullptr, out, n, tile, r2,
+                stream);
+}
+
+extern "C" int tc_spfh_b(const float* packed, const int* pos_a, float* out, int n,
+                         int tile, float r2, void* stream) {
+  return launch(spfh_kernel<true>, kSpfhSmemRows, packed, pos_a, out, n, tile, r2,
+                stream);
+}
+
+extern "C" int tc_fpfh_weight_a(const float* packed, float* out, int n, int tile,
+                                float r2, void* stream) {
+  return launch(fpfh_weight_kernel<false>, kWeightSmemRows, packed, nullptr, out, n,
+                tile, r2, stream);
+}
+
+extern "C" int tc_fpfh_weight_b(const float* packed, const int* pos_a, float* out,
+                                int n, int tile, float r2, void* stream) {
+  return launch(fpfh_weight_kernel<true>, kWeightSmemRows, packed, pos_a, out, n,
+                tile, r2, stream);
+}

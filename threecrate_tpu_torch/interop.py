@@ -3,11 +3,15 @@
 ``cloud_from_numpy`` and ``transform_from_numpy`` take a JAX
 ``PointCloud`` or ``Transform`` read as numpy arrays (padding and mask
 included, so both packages see the same capacity) and build the port's
-types; ``cloud_to_numpy`` and ``transform_to_numpy`` go back.
+types; ``cloud_to_numpy`` and ``transform_to_numpy`` go back. The
+system has no learned weights: besides the clouds, the state both
+packages share is their configs, which ``fpfh_config_from`` and
+``global_registration_config_from`` carry over field by field.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -15,6 +19,8 @@ import torch
 
 from .core.point_cloud import PointCloud
 from .core.transform import Transform
+from .ops.features import FpfhConfig, FpfhResult
+from .ops.global_registration import GlobalRegistrationConfig
 
 
 def cloud_from_numpy(points, mask, attrs: Optional[Dict] = None,
@@ -41,3 +47,22 @@ def cloud_to_numpy(cloud: PointCloud) -> Tuple[np.ndarray, np.ndarray,
 
 def transform_to_numpy(t: Transform) -> np.ndarray:
     return t.matrix.cpu().numpy()
+
+
+def _config_from(cls, config):
+    return cls(**{f.name: getattr(config, f.name) for f in dataclasses.fields(cls)})
+
+
+def fpfh_config_from(config) -> FpfhConfig:
+    """The port's ``FpfhConfig`` with the fields of a JAX ``FpfhConfig``."""
+    return _config_from(FpfhConfig, config)
+
+
+def global_registration_config_from(config) -> GlobalRegistrationConfig:
+    """The port's ``GlobalRegistrationConfig`` with the fields of a JAX one."""
+    return _config_from(GlobalRegistrationConfig, config)
+
+
+def fpfh_result_to_numpy(res: FpfhResult) -> Tuple[np.ndarray, np.ndarray]:
+    """(descriptors (N, 33), valid (N,)) of a port ``FpfhResult``."""
+    return res.descriptors.cpu().numpy(), res.valid.cpu().numpy()

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each with
 its plain PyTorch version and a launch counter on its wrapper."""
 
-from . import icp, knn
+from . import fpfh, icp, knn
+from .fpfh import (fpfh_weight_a_tiles, fpfh_weight_b_tiles, spfh_a_tiles,
+                   spfh_b_tiles)
 from .icp import icp_match_tiles
 from .knn import window_union_a_tiles, window_union_b_tiles
 
@@ -10,6 +12,10 @@ WRAPPERS = {
     "union_window_a": window_union_a_tiles,
     "union_window_b": window_union_b_tiles,
     "icp_match": icp_match_tiles,
+    "spfh_a": spfh_a_tiles,
+    "spfh_b": spfh_b_tiles,
+    "fpfh_weight_a": fpfh_weight_a_tiles,
+    "fpfh_weight_b": fpfh_weight_b_tiles,
 }
 
 

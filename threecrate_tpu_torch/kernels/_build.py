@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build
-happens at the first launch, never at import, into
-``kernels/build/`` beside this file; the library's name carries a hash
-of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded. No fast math and no flush-to-zero: the ICP
-kernel relies on its 2e19 sentinels overflowing to +inf.
+Each ``csrc/*.cu`` source compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``. The build happens at the first
+launch, never at import, into ``kernels/build/`` beside this file; the
+library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded. No fast math and
+no flush-to-zero: the ICP kernel relies on its 2e19 sentinels
+overflowing to +inf.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ from ..core.errors import DeviceError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # pts, valid, out, n, tile, k, band, stream
     "tc_union_window_a": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -37,6 +39,12 @@ _SIGNATURES = {
     "tc_union_window_b": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # src, tgt, window_start, out, ns, nt, rows, tile, w_tiles, stream
     "tc_icp_match": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # packed, out, n, tile, r2, stream
+    "tc_spfh_a": (_P, _P, _I, _I, _F, _P),
+    "tc_fpfh_weight_a": (_P, _P, _I, _I, _F, _P),
+    # packed, pos_a, out, n, tile, r2, stream
+    "tc_spfh_b": (_P, _P, _P, _I, _I, _F, _P),
+    "tc_fpfh_weight_b": (_P, _P, _P, _I, _I, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,18 +81,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # build under a unique name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise DeviceError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    # build under unique names, then rename: a concurrent build never
+    # loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        stderr = [p.communicate()[1] for p in procs]
+        failed = [f"{p.args[-1]}: {err}" for p, err in zip(procs, stderr)
+                  if p.returncode != 0]
+        if failed:
+            raise DeviceError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(tmp_dir, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise DeviceError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -50,14 +50,14 @@ def _check(sorted_pts_t, sorted_valid, k, tile, band, extra=()):
 
 
 def _window(row: torch.Tensor, t0: int, t1: int, tile: int, fill):
-    """(T, 3·tile) prev/self/next columns of query tiles t0..t1-1, with
-    the columns before the first and after the last tile set to
-    ``fill``."""
-    n = row.shape[0]
+    """(..., T, 3·tile) prev/self/next columns of query tiles t0..t1-1
+    of a (..., N) array, with the columns before the first and after the
+    last tile set to ``fill``."""
+    n = row.shape[-1]
     tiles = torch.arange(t0, t1, device=row.device)
     cols = (tiles[:, None] - 1) * tile + torch.arange(3 * tile, device=row.device)
     inside = (cols >= 0) & (cols < n)
-    return torch.where(inside, row[cols.clamp(0, n - 1)], fill)
+    return torch.where(inside, row[..., cols.clamp(0, n - 1)], fill)
 
 
 def _band_bound_plain(d2v: torch.Tensor, k: int, band: int, tile: int):

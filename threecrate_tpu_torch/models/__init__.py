@@ -1,5 +1,5 @@
 """Pipeline models."""
 
-from .perception import PerceptionResult, PerceptionStep
+from .perception import PerceptionResult, PerceptionStep, RegistrationModel
 
-__all__ = ["PerceptionResult", "PerceptionStep"]
+__all__ = ["PerceptionResult", "PerceptionStep", "RegistrationModel"]

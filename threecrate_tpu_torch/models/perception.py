@@ -1,4 +1,5 @@
-"""PerceptionStep: normals + ICP scan-pair alignment.
+"""PerceptionStep (normals + ICP scan-pair alignment) and
+RegistrationModel (global FPFH + RANSAC initialisation, then ICP).
 
 Counterpart of ``threecrate_tpu.models.perception.PerceptionStep``:
 the target's normals (the two-window union at 65,536 points and above,
@@ -15,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import global_registration
 from ..ops import normals as normals_mod
 from ..ops import registration
 
@@ -61,3 +63,26 @@ class PerceptionStep:
             src, src_mask, tgt, tgt_mask, torch.eye(4), self.max_iterations,
             self.conv_thresh, torch.inf, window=use_window)
         return PerceptionResult(t, mse, nrm, curv)
+
+
+class RegistrationModel:
+    """Global initialisation (FPFH + RANSAC, ``global_registration``)
+    followed by point-to-point ICP refinement: counterpart of the JAX
+    ``RegistrationModel``.
+
+    >>> model = RegistrationModel(max_iterations=30, fpfh_radius=0.5)
+    >>> res = model(source_cloud, target_cloud)   # an ICPResult
+
+    The keyword arguments build a ``GlobalRegistrationConfig``; the
+    clouds' device is where every step runs.
+    """
+
+    def __init__(self, max_iterations: int = 30, **global_config):
+        self.max_iterations = int(max_iterations)
+        self.config = global_registration.GlobalRegistrationConfig(**global_config)
+
+    def __call__(self, source, target) -> registration.ICPResult:
+        init = global_registration.global_registration(source, target, self.config)
+        return registration.icp_point_to_point(
+            source, target, max_iterations=self.max_iterations,
+            init=init.as_transform())

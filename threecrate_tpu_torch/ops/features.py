@@ -1,0 +1,330 @@
+"""FPFH descriptors (33-d) and descriptor matching.
+
+Counterpart of the FPFH half of ``threecrate_tpu.ops.features``. Two
+routes, chosen as in the JAX package:
+
+* above ``FUSED_FPFH_THRESHOLD`` points (or ``method="window"``), the
+  fused window path ``_fpfh_fused``: the cloud is Morton-sorted twice
+  and the FPFH kernels (``kernels.fpfh``) bin the Darboux pair features
+  and weight the neighbours' SPFHs directly from each query's window
+  candidates, with the two passes' sums added (a fixed radius makes the
+  two-window union exact);
+* below it, the exact path ``_fpfh``: a capped radius search
+  (``ops.neighbors.radius_neighbors``), the pair features with a true
+  atan2, one-hot histograms (hard, or PCL-style soft binning) and the
+  weighted neighbour sum, in blocks of 16,384 points.
+
+``match_descriptors`` is the nearest neighbour in descriptor space, one
+matmul for small problems and the tiled ``knn`` above 2^26 pairs.
+
+Not ported yet, each raising ``NotImplementedError`` naming its
+kernels: a resolved ``band`` rung of the fused path
+(``spfh_band_a_tiles``/``spfh_band_b_tiles``), the staged window path
+(``knn_window_tiles``) and SHOT/USC.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.errors import InvalidDataError
+from ..core.point_cloud import PointCloud
+from ..utils import padding
+from . import morton, neighbors
+from .linalg import fp32_matmul
+from .normals import NormalEstimationConfig, estimate_normals_detailed
+
+FPFH_DIM = 33
+N_BINS_FPFH = 11
+FUSED_FPFH_THRESHOLD = 262144   # capacity above which "auto" takes the fused path
+
+
+@dataclasses.dataclass(frozen=True)
+class FpfhConfig:
+    """The JAX package's config, field for field: ``method`` is "auto"
+    (fused window path above ``FUSED_FPFH_THRESHOLD`` points, else
+    exact), "exact" or "window"; ``soft_binning`` takes the staged path;
+    ``band`` ("auto", None or a rung) restricts the fused SPFH stage to
+    ±band sorted positions, None being the exact full window."""
+
+    radius: float = 0.25
+    max_neighbors: int = 64
+    n_bins: int = 11
+    method: str = "auto"
+    soft_binning: bool = False
+    band: Optional[object] = "auto"
+
+
+class FpfhResult(NamedTuple):
+    descriptors: torch.Tensor  # (N, 33)
+    valid: torch.Tensor        # (N,)
+
+
+def pair_features(p1, n1, p2, n2):
+    """Darboux-frame angles for point pairs, with PCL's swap that anchors
+    the frame at the point whose normal is better aligned with the
+    connecting line. Returns (f1=θ∈[-π,π], f2=cos φ, f3=cos α, f4=distance)."""
+    d = p2 - p1
+    f4 = torch.linalg.vector_norm(d, dim=-1)
+    dn = d / torch.clamp_min(f4, 1e-12)[..., None]
+    a1 = (n1 * dn).sum(-1)
+    a2 = (n2 * dn).sum(-1)
+    swap = (a1.abs() < a2.abs())[..., None]
+    ns = torch.where(swap, n2, n1)
+    nt = torch.where(swap, n1, n2)
+    dn = torch.where(swap, -dn, dn)
+    f3 = (ns * dn).sum(-1)
+    v = torch.linalg.cross(dn, ns)
+    v = v / torch.clamp_min(torch.linalg.vector_norm(v, dim=-1, keepdim=True), 1e-12)
+    w = torch.linalg.cross(ns, v)
+    f2 = (v * nt).sum(-1)
+    f1 = torch.atan2((w * nt).sum(-1), (ns * nt).sum(-1))
+    return f1, f2, f3, f4
+
+
+def _hist(values, lo, hi, n_bins, weights, soft=False):
+    """(..., K) values → (..., n_bins) weighted histogram; ``soft=True``
+    splits each vote linearly between the two adjacent bins."""
+    t = (values - lo) / (hi - lo)
+    out = torch.zeros(values.shape[:-1] + (n_bins,), dtype=torch.float32,
+                      device=values.device)
+    if not soft:
+        idx = (t * n_bins).to(torch.int32).clamp(0, n_bins - 1).long()
+        return out.scatter_add_(-1, idx, weights)
+    pos = torch.clamp(t * n_bins - 0.5, 0.0, float(n_bins - 1))
+    lo_i = pos.to(torch.int32)
+    hi_i = torch.clamp_max(lo_i + 1, n_bins - 1)
+    frac = pos - lo_i
+    out.scatter_add_(-1, lo_i.long(), weights * (1 - frac))
+    return out.scatter_add_(-1, hi_i.long(), weights * frac)
+
+
+def _renormalise(fpfh):
+    """Each 11-bin sub-histogram scaled to sum to 100 (PCL convention)."""
+    blocks = fpfh.reshape(fpfh.shape[0], 3, -1)
+    s = torch.clamp_min(blocks.sum(2, keepdim=True), 1e-12)
+    return (blocks / s * 100.0).reshape(fpfh.shape)
+
+
+def _inverse(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return inv
+
+
+def fused_stage1_inputs(points, mask, normals_arr, tile=256):
+    """Pass-A and pass-B packed stage-1 rows of the fused path.
+
+    Returns ``(packed_a (7, N), packed_b (7, N), row_a, perm_a)``: the
+    cloud padded to a multiple of ``tile``, Morton-sorted (pass A) with
+    rows [x, y, z, valid, nx, ny, nz], the same rows in pass-B order,
+    the pass-A row of each pass-B row and the input row of each pass-A
+    row.
+    """
+    n = points.shape[0]
+    n_pad = padding.round_up(n, tile)
+    pts = torch.zeros((n_pad, 3), dtype=torch.float32, device=points.device)
+    pts[:n] = points
+    nrm = torch.zeros((n_pad, 3), dtype=torch.float32, device=points.device)
+    nrm[:n] = normals_arr
+    mask_p = torch.zeros(n_pad, dtype=torch.bool, device=points.device)
+    mask_p[:n] = mask
+    perm_a = torch.sort(morton.morton_keys(pts, mask_p, pass_index=0),
+                        stable=True).indices
+    pts_a = pts[perm_a]
+    am = mask_p[perm_a]
+    packed_a = torch.cat([pts_a.T, am.to(torch.float32)[None],
+                          nrm[perm_a].T]).contiguous()
+    row_a = torch.sort(morton.morton_keys(pts_a, am, pass_index=1),
+                       stable=True).indices
+    return packed_a, packed_a[:, row_a].contiguous(), row_a, perm_a
+
+
+def _fpfh_fused(points, mask, normals_arr, radius: float, tile=256, band=None):
+    """Fused window FPFH over every in-radius window candidate, in input
+    order: ``(descriptors (N, 33), valid (N,))``."""
+    from ..kernels.fpfh import (fpfh_weight_a_tiles, fpfh_weight_b_tiles,
+                                spfh_a_tiles, spfh_b_tiles)
+
+    if band is not None:
+        raise NotImplementedError(
+            f"FPFH band={band} needs the spfh_band_a_tiles/spfh_band_b_tiles "
+            "kernels, still to be ported (ROADMAP.md, section 2, item 7); "
+            "use band=None for the exact full window")
+    n = points.shape[0]
+    r2 = float(radius) * float(radius)
+    packed_a, packed_b, row_a, perm_a = fused_stage1_inputs(
+        points, mask, normals_arr, tile)
+    pos_a = row_a.to(torch.int32)[None].contiguous()
+    spfh_a = spfh_a_tiles(packed_a, r2, tile)                   # (34, N) A-order
+    spfh_b = spfh_b_tiles(packed_b, pos_a, r2, tile)            # (34, N) B-order
+
+    inv_b = _inverse(row_a)
+    spfh_raw = spfh_a.T + spfh_b.T[inv_b]                       # (N, 34) A-order
+    cnt = spfh_raw[:, 33]
+    spfh = spfh_raw[:, :33] / torch.clamp_min(cnt, 1.0)[:, None]
+
+    # stage 2: FPFH(p) = SPFH(p) + (1/k)·Σ (1/d)·SPFH(q)
+    w_a = fpfh_weight_a_tiles(torch.cat([packed_a[0:4], spfh.T]).contiguous(),
+                              r2, tile)
+    w_b = fpfh_weight_b_tiles(torch.cat([packed_b[0:4], spfh[row_a].T]).contiguous(),
+                              pos_a, r2, tile)
+    w_raw = w_a.T + w_b.T[inv_b]                                # (N, 34)
+    k_eff = torch.clamp_min(w_raw[:, 33], 1.0)
+    fpfh = spfh + w_raw[:, :33] / k_eff[:, None]
+
+    valid_s = (packed_a[3] > 0.5) & (cnt >= 3)
+    desc_s = torch.where(valid_s[:, None], _renormalise(fpfh), 0.0)
+    inv_a = _inverse(perm_a)
+    return desc_s[inv_a][:n], valid_s[inv_a][:n] & mask
+
+
+def _fpfh(points, mask, normals_arr, radius, max_neighbors: int, n_bins: int,
+          window=False, soft=False, block=16384):
+    """Staged FPFH over a capped radius search, ``block`` rows at a time:
+    ``(descriptors (N, 3·n_bins), valid (N,))``."""
+    if window:
+        res = neighbors.radius_neighbors_window(points, mask, radius, max_neighbors,
+                                                exclude_self=True)
+    else:
+        res = neighbors.radius_neighbors(points, mask, points, mask, radius,
+                                         max_neighbors, exclude_self=True)
+    idx, ok, dist = res.indices, res.mask, res.distances
+    n = points.shape[0]
+    spfh = torch.empty((n, 3 * n_bins), dtype=torch.float32, device=points.device)
+    for b0 in range(0, n, block):
+        sl = slice(b0, b0 + block)
+        f1, f2, f3, _ = pair_features(points[sl, None, :], normals_arr[sl, None, :],
+                                      points[idx[sl]], normals_arr[idx[sl]])
+        w = ok[sl].to(torch.float32)
+        h = torch.cat([_hist(f1, -math.pi, math.pi, n_bins, w, soft),
+                       _hist(f2, -1.0, 1.0, n_bins, w, soft),
+                       _hist(f3, -1.0, 1.0, n_bins, w, soft)], -1)
+        spfh[sl] = h / torch.clamp_min(w.sum(1, keepdim=True), 1.0)
+
+    fpfh = torch.empty_like(spfh)
+    for b0 in range(0, n, block):
+        sl = slice(b0, b0 + block)
+        inv_d = torch.where(ok[sl] & (dist[sl] > 1e-12), 1.0 / dist[sl], 0.0)
+        k_eff = torch.clamp_min(ok[sl].sum(1, keepdim=True), 1)
+        fpfh[sl] = spfh[sl] + torch.einsum("nk,nkd->nd", inv_d, spfh[idx[sl]]) / k_eff
+
+    desc = _renormalise(fpfh)
+    valid = mask & (ok.sum(1) >= 3)
+    return torch.where(valid[:, None], desc, 0.0), valid
+
+
+# Band rungs for FpfhConfig(band="auto"): the candidate capacity of rung
+# b is ~2·(2·b+1) over the two-pass union; a rung qualifies when it
+# covers the measured mean in-radius neighbour count with a 2x margin.
+_FPFH_BAND_LADDER = (16, 32, 48, 64)
+
+
+def expected_in_radius_count(points, mask, radius: float, n_query: int = 1024,
+                             n_ref: int = 16384) -> float:
+    """Host-side estimate of the mean in-radius neighbour count: a
+    deterministic strided subsample of up to ``n_query`` queries against
+    up to ``n_ref`` reference points, counts rescaled by the subsampling
+    ratio, minus self. NumPy on the host, as the JAX package."""
+    pts = np.asarray(points.detach().cpu().numpy(), dtype=np.float32)
+    pts = pts[np.asarray(mask.detach().cpu().numpy(), dtype=bool)]
+    n = pts.shape[0]
+    if n < 16:
+        return 0.0
+    q = pts[::max(1, n // n_query)][:n_query]
+    ref = pts[::max(1, n // n_ref)][:n_ref]
+    scale = n / ref.shape[0]
+    r2 = float(radius) * float(radius)
+    total = 0.0
+    for s in range(0, q.shape[0], 128):
+        blk = q[s:s + 128]
+        d2 = ((blk[:, None, :] - ref[None, :, :]) ** 2).sum(-1)
+        total += float((d2 <= r2).sum())
+    return max(total / q.shape[0] * scale - 1.0, 0.0)
+
+
+def _resolve_fpfh_band(band, points, mask, radius: float):
+    """Resolve FpfhConfig.band="auto" to a ladder rung or None."""
+    if band != "auto":
+        return band
+    est = expected_in_radius_count(points, mask, radius)
+    for b in _FPFH_BAND_LADDER:
+        if 2 * (2 * b + 1) >= 2.0 * est:
+            return b
+    return None
+
+
+def extract_fpfh_features_with_normals(cloud: PointCloud,
+                                       config: FpfhConfig = FpfhConfig()
+                                       ) -> FpfhResult:
+    """FPFH over a cloud that already carries normals."""
+    if cloud.normals is None:
+        raise InvalidDataError("FPFH requires normals on the cloud")
+    window = (config.method == "window"
+              or (config.method == "auto" and cloud.capacity > FUSED_FPFH_THRESHOLD))
+    if window and config.n_bins == N_BINS_FPFH and not config.soft_binning:
+        band = _resolve_fpfh_band(config.band, cloud.points, cloud.mask,
+                                  float(config.radius))
+        desc, valid = _fpfh_fused(cloud.points, cloud.mask, cloud.normals,
+                                  float(config.radius), band=band)
+    else:
+        desc, valid = _fpfh(cloud.points, cloud.mask, cloud.normals,
+                            config.radius, config.max_neighbors, config.n_bins,
+                            window, config.soft_binning)
+    return FpfhResult(desc, valid)
+
+
+def extract_fpfh_features(cloud: PointCloud, config: FpfhConfig = FpfhConfig(),
+                          k_normals: int = 10) -> FpfhResult:
+    """Normals + FPFH convenience entry."""
+    if cloud.normals is None:
+        nres = estimate_normals_detailed(
+            cloud, NormalEstimationConfig(k_neighbors=k_normals))
+        cloud = cloud.with_normals(nres.normals)
+    return extract_fpfh_features_with_normals(cloud, config)
+
+
+def _shot_not_ported(*args, **kwargs):
+    raise NotImplementedError(
+        "SHOT/USC descriptors need the shot_moments_a/b_tiles and "
+        "shot_hist_a/b_tiles kernels, still to be ported (ROADMAP.md, "
+        "section 2, items 9-10)")
+
+
+extract_shot_features = _shot_not_ported
+extract_usc_features = _shot_not_ported
+
+
+def match_descriptors(desc_a, valid_a, desc_b, valid_b, mutual: bool = False):
+    """Nearest neighbour of each ``desc_a`` row among the valid
+    ``desc_b`` rows: ``(index into b (N,), distance, valid)``.
+    ``mutual=True`` keeps only cross-checked pairs. Up to 2^26 pair
+    products it is one fp32 matmul; above, the tiled ``neighbors.knn``,
+    which never forms a distance matrix wider than its ``db_tile``."""
+    na, nb = desc_a.shape[0], desc_b.shape[0]
+    rows_a = torch.arange(na, device=desc_a.device)
+    if na * nb > 2 ** 26:
+        res = neighbors.knn(desc_b, valid_b, desc_a, valid_a, 1)
+        j = res.indices[:, 0]
+        dist = res.distances[:, 0]
+        ok = valid_a & res.mask[:, 0] & torch.isfinite(dist)
+        if mutual:
+            back = neighbors.knn(desc_a, valid_a, desc_b, valid_b, 1)
+            ok = ok & (back.indices[:, 0][j] == rows_a)
+        return j, torch.where(ok, dist, torch.inf), ok
+    an = (desc_a * desc_a).sum(1)
+    bn = (desc_b * desc_b).sum(1)
+    d2 = an[:, None] + bn[None, :] - 2.0 * fp32_matmul(desc_a, desc_b.T)
+    d2 = torch.where(valid_b[None, :], d2, torch.inf)
+    j = torch.argmin(d2, dim=1)
+    dist = torch.sqrt(torch.clamp_min(torch.gather(d2, 1, j[:, None])[:, 0], 0.0))
+    ok = valid_a & torch.isfinite(dist)
+    if mutual:
+        back = torch.argmin(torch.where(valid_a[:, None], d2, torch.inf), dim=0)
+        ok = ok & (back[j] == rows_a)
+    return j, torch.where(ok, dist, torch.inf), ok

@@ -153,6 +153,28 @@ def kabsch(source: torch.Tensor, target: torch.Tensor,
     return kabsch_from_moments(moments).to(source.device)
 
 
+def kabsch_batched(source: torch.Tensor, target: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """``kabsch`` over a batch: ``(H, K, 3)`` point sets and ``(H, K)``
+    weights → ``(H, 4, 4)`` transforms, with the det<0 reflection fix,
+    all on the inputs' device (the JAX package's ``vmap(kabsch)``)."""
+    w = weights.to(source.dtype)
+    wsum = torch.clamp_min(w.sum(-1), _EPS)[:, None]
+    mu_s = (source * w[..., None]).sum(-2) / wsum
+    mu_t = (target * w[..., None]).sum(-2) / wsum
+    ds = (source - mu_s[:, None]) * w[..., None]
+    h = fp32_matmul(ds.transpose(-1, -2), target - mu_t[:, None])   # (H, 3, 3)
+    u, _, vt = torch.linalg.svd(h)
+    v, ut = vt.transpose(-1, -2), u.transpose(-1, -2)
+    d = torch.sign(_det3(fp32_matmul(v, ut)))
+    diag = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
+    r = fp32_matmul(fp32_matmul(v, diag), ut)
+    m = torch.eye(4, dtype=h.dtype, device=h.device).repeat(h.shape[0], 1, 1)
+    m[:, :3, :3] = r
+    m[:, :3, 3] = mu_t - fp32_matmul(r, mu_s[..., None])[..., 0]
+    return m
+
+
 def transform_points(matrix: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply a (4, 4) homogeneous matrix to (..., 3) points, in fp32."""
     return fp32_matmul(points, matrix[:3, :3].T) + matrix[:3, 3]
