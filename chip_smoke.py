@@ -13,27 +13,50 @@ Phases, in order; any failed check raises and the script exits non-zero:
    at the slices' real shapes: the two union-window passes on a
    1,000,192-point Morton-sorted scan, ``icp_match`` on 1M x 1M with
    w_tiles=3 at E=0 and E=3, the four FPFH kernels on the 1,000,192
-   sorted points of the registration target (r = 0.5, tile 256);
+   sorted points of the registration target (r = 0.5, tile 256), the
+   two banded SPFH kernels on the same points (r = 0.25, band 48, tile
+   256), ``knn_window_tiles`` on the sorted 1M scan (tile 128) at k = 10,
+   k = 10 with coordinates, k = 9 and k = 64 with self excluded;
 4. time each kernel and its plain version (CUDA-event medians);
 5. run ``PerceptionStep()`` on a 1M-point scan pair (target = source +
    (0.05, -0.03, 0.02)) with every launch counter reset just before:
    the shift must come back within 1e-3, valid normals must be unit
-   length, and its kernels must have launched;
+   length, and its kernels (and no others) must have launched;
 6. time that step (median of 3 after one warm-up) and its peak memory;
 7. run a 2,048-point ``PerceptionStep()``, the exact-kNN path;
 8. run ``RegistrationModel`` (FPFH + RANSAC, then ICP) on a 1M scan pair
    (source = target rotated 0.35 rad about z and shifted by
    (2.0, -1.5, 0.3) m) with every launch counter reset just before: the
    pose must come back (|R'R - I| <= 1e-3, |R't + t'| <= 1e-2 m), each
-   FPFH and union kernel must launch twice (once per cloud) and
-   ``icp_match`` at least once;
+   FPFH and union kernel must launch twice (once per cloud),
+   ``icp_match`` at least once, the banded and window kNN kernels never;
 9. time that call (median of 3 after one warm-up), its peak memory, and
    each stage alone: normals, FPFH, matching, RANSAC, ICP;
-10. run ``RegistrationModel`` on 700 points (the exact FPFH path).
+10. run ``RegistrationModel`` on 700 points (the exact FPFH path);
+11. ``extract_fpfh_features(target)`` with default settings on the 1M
+    registration target: ``band="auto"`` must resolve to a rung (48
+    there), union, band and weight kernels launch once each, the
+    full-window SPFH kernels never; descriptors normalised, valid share
+    > 0.9, median cosine >= 0.99 against ``band=None`` on the same cloud
+    and normals; times of both band settings and peak memory;
+12. ``method="window"`` normals on the 1M scan: ``knn_window`` twice,
+    the union kernels never, valid share > 0.99, unit normals, median
+    |cos| >= 0.999 against the default union normals; time;
+13. ``statistical_outlier_removal`` with defaults (k = 8, std 1.0) on
+    the 1M scan: ``knn_window`` twice; on a strided subset of 16,384
+    points the window path's mean neighbour distance agrees with the
+    exact one (``neighbors.knn`` candidates, distances recomputed as
+    direct differences) within 1e-4 relative on >= 80% (a point whose 8
+    neighbours the two passes do not all find differs) and is not below
+    it on >= 99.9%; time;
+14. ``extract_fpfh_features_with_normals(FpfhConfig(soft_binning=True))``
+    on the 1M target (the staged window FPFH): ``knn_window`` twice at
+    k = 64 with self excluded, no FPFH kernel; descriptors normalised;
+    time and peak memory.
 
-The last two lines are one JSON object with each kernel's launches
-(over the runs of phases 5 and 8), error and times, then
-``{"ok": true, "device": {...}}``.
+The last three lines are the card (nvidia-smi's name and power limit),
+one JSON object with each kernel's launches (over the runs of phases 5,
+8 and 11-14), error and times, then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -59,6 +82,16 @@ ICP_ABS_TOL = 1e-4      # metres, on coordinates of magnitude <= ~150 m
 FPFH_REL_TOL = 1e-4     # max |Δ| / Σ|row| of the query's 33 sums
 FPFH_RADIUS, FPFH_TILE = 0.5, 256
 FPFH_KERNELS = ("spfh_a", "spfh_b", "fpfh_weight_a", "fpfh_weight_b")
+BAND_RADIUS, BAND = 0.25, 48    # the rung "auto" picks on the registration target
+BAND_KERNELS = ("spfh_band_a", "spfh_band_b")
+# knn_window_tiles configurations of the window paths (k, with_coords,
+# exclude_self), all at tile 128: method="window" normals (k = 10), its
+# coordinate output, outlier removal (k + 1 = 9) and the staged FPFH
+# (max_neighbors = 64, self excluded). -d^2, ids and coordinates must
+# equal the plain version's in every slot.
+KNN_CONFIGS = {"k=10": (10, False, False), "k=10 coords": (10, True, False),
+               "k=9": (9, False, False), "k=64 exclude_self": (64, False, True)}
+KNN_TILE = 128
 REG_ANGLE = 0.35
 REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
 REG_CONFIG = dict(ransac_iterations=16384, fpfh_radius=FPFH_RADIUS,
@@ -88,7 +121,8 @@ def scan(n: int, seed: int) -> np.ndarray:
 
 def sorted_scan(dev):
     """Phase-3 inputs: the 1M scan padded to a multiple of 256 and
-    Morton-sorted (pass A), plus the pass-B order, on the card."""
+    Morton-sorted (pass A), its validity, the pass-B order and the
+    pass-A permutation (each sorted column's original row), on the card."""
     from threecrate_tpu_torch.ops import morton
     from threecrate_tpu_torch.utils.padding import round_up
 
@@ -101,7 +135,7 @@ def sorted_scan(dev):
     perm = torch.sort(morton.morton_keys(p, m, 0), stable=True).indices
     pa, va = p[perm], m[perm]
     row_a = torch.sort(morton.morton_keys(pa, va, 1), stable=True).indices
-    return pa, va.float(), row_a
+    return pa, va.float(), row_a, perm
 
 
 def icp_inputs(dev, n_extra: int, w_tiles: int = 3, tile: int = 128):
@@ -165,11 +199,17 @@ def pose_error(t: np.ndarray, rot: np.ndarray):
             float(np.abs(t[:3, :3] @ REG_SHIFT + t[:3, 3]).max()))
 
 
+def share(eq: torch.Tensor) -> float:
+    """Share of True in a bool tensor, counted in integers (a float mean
+    of ~1M ones on the card need not come out as exactly 1.0)."""
+    return int(eq.sum().item()) / eq.numel()
+
+
 def union_error(got: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor):
     """(rows 0 and 10 bit-equal fraction, max relative sum error, max abs
     error) over valid queries."""
     g, r = got[:, valid], ref[:, valid]
-    exact = ((g[0] == r[0]) & (g[10] == r[10])).float().mean().item()
+    exact = share((g[0] == r[0]) & (g[10] == r[10]))
     tr = (r[4] + r[5] + r[6]).clamp_min(1e-30)
     scale = torch.cat([(tr * r[0].clamp_min(1)).sqrt().expand(3, -1), tr.expand(6, -1)])
     rel = ((g[1:10] - r[1:10]).abs() / scale).max().item()
@@ -189,6 +229,7 @@ def main() -> int:
                                                   window_union_b_plain,
                                                   window_union_b_tiles)
     from threecrate_tpu_torch.kernels import fpfh
+    from threecrate_tpu_torch.kernels.knn_window import knn_window_plain, knn_window_tiles
     from threecrate_tpu_torch.models import PerceptionStep
     from threecrate_tpu_torch.utils.profiling import median_time
 
@@ -206,7 +247,7 @@ def main() -> int:
 
     log("phase 3: kernel vs plain at full size")
     k, tile, band = 10, 256, 16
-    pa, va, row_a = sorted_scan(dev)
+    pa, va, row_a, perm_a = sorted_scan(dev)
     pts_a = pa.T.contiguous()
     valid_a = va[None].contiguous()
     out_a = window_union_a_tiles(pts_a, valid_a, k, tile, band)
@@ -234,6 +275,24 @@ def main() -> int:
         f"use_b share {use_b_share:.4f}")
     check(eb[0] == 1.0 and eb[1] <= SUM_REL_TOL, "union_window_b disagrees")
 
+    ids_a = perm_a.to(torch.int32)[None].contiguous()
+    knn_err = 0.0
+    for cname, (kk, coords, excl) in KNN_CONFIGS.items():
+        got = knn_window_tiles(pts_a, valid_a, ids_a, kk, KNN_TILE, with_coords=coords,
+                               exclude_self=excl)
+        ref = knn_window_plain(pts_a, valid_a, ids_a, kk, KNN_TILE, with_coords=coords,
+                               exclude_self=excl)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        fin = torch.isfinite(ref[0])
+        err = (got[0][fin] - ref[0][fin]).abs().max().item()
+        knn_err = max(knn_err, err)
+        log(f"  knn_window {cname}: N={pts_a.shape[1]} outputs bit-equal {equal} (need "
+            f"True), finite slots {fin.float().mean().item():.5f}, max abs err of -d2 "
+            f"{err:.3e}")
+        check(equal, f"knn_window {cname} disagrees")
+    del got, ref, fin
+
     icp_err = 0.0
     icp_args = {}
     for n_extra in (0, 3):
@@ -260,7 +319,7 @@ def main() -> int:
         got = kern(*args, r2, FPFH_TILE)
         ref = plain(*args, r2, FPFH_TILE)
         torch.cuda.synchronize()
-        exact = (got == ref).all(0)[v].float().mean().item()
+        exact = share((got == ref).all(0)[v])
         fpfh_err[kname] = (got - ref).abs().max().item()
         log(f"  {kname}: N={pa.shape[1]} vote+count rows bit-equal {exact:.6f} (need 1), "
             f"max abs err {fpfh_err[kname]:.3e}, mean count {ref[33][v].mean().item():.2f}")
@@ -280,7 +339,7 @@ def main() -> int:
         got = kern(*fpfh_args[kname], r2, FPFH_TILE)
         ref = plain(*fpfh_args[kname], r2, FPFH_TILE)
         torch.cuda.synchronize()
-        cnt_exact = (got[33] == ref[33])[v].float().mean().item()
+        cnt_exact = share((got[33] == ref[33])[v])
         rel = ((got[:33] - ref[:33]).abs().amax(0)
                / ref[:33].abs().sum(0).clamp_min(1e-30))[v].max().item()
         fpfh_err[kname] = (got - ref).abs().max().item()
@@ -288,6 +347,21 @@ def main() -> int:
             f"{rel:.3e} (tol {FPFH_REL_TOL}), max abs err {fpfh_err[kname]:.3e}")
         check(cnt_exact == 1.0 and rel <= FPFH_REL_TOL, f"{kname} disagrees")
     del stage1, raw, spfh
+
+    rb2 = BAND_RADIUS * BAND_RADIUS
+    band_args = {"spfh_band_a": (pa,),
+                 "spfh_band_b": (torch.cat([pb, pos_b.to(torch.float32)]).contiguous(),)}
+    for kname in BAND_KERNELS:
+        kern, plain = getattr(fpfh, kname + "_tiles"), getattr(fpfh, kname + "_plain")
+        got = kern(*band_args[kname], rb2, BAND, FPFH_TILE)
+        ref = plain(*band_args[kname], rb2, BAND, FPFH_TILE)
+        torch.cuda.synchronize()
+        exact = share((got == ref).all(0))
+        fpfh_err[kname] = (got - ref).abs().max().item()
+        log(f"  {kname}: N={pa.shape[1]} r={BAND_RADIUS} band={BAND} all 34 rows bit-equal "
+            f"{exact:.6f} (need 1), max abs err {fpfh_err[kname]:.3e}, mean count "
+            f"{ref[33][v_a if kname == 'spfh_band_a' else v_b].mean().item():.2f}")
+        check(exact == 1.0, f"{kname} disagrees")
 
     log("phase 4: kernel and plain times (CUDA-event medians)")
     times = {
@@ -303,6 +377,15 @@ def main() -> int:
         args = fpfh_args[kname]
         times[kname] = (lambda kern=kern, args=args: kern(*args, r2, FPFH_TILE),
                         lambda plain=plain, args=args: plain(*args, r2, FPFH_TILE))
+    for kname in BAND_KERNELS:
+        kern, plain = getattr(fpfh, kname + "_tiles"), getattr(fpfh, kname + "_plain")
+        args = band_args[kname]
+        times[kname] = (lambda kern=kern, args=args: kern(*args, rb2, BAND, FPFH_TILE),
+                        lambda plain=plain, args=args: plain(*args, rb2, BAND, FPFH_TILE))
+    for cname, (kk, coords, excl) in KNN_CONFIGS.items():
+        knn_args = (pts_a, valid_a, ids_a, kk, KNN_TILE, coords, excl)
+        times["knn_window " + cname] = (lambda a=knn_args: knn_window_tiles(*a),
+                                        lambda a=knn_args: knn_window_plain(*a))
     ms = {}
     for kname, (kern, plain) in times.items():
         # plain, kernel, kernel, plain: compare within one call, in turns
@@ -313,8 +396,9 @@ def main() -> int:
         ms[kname] = (1e3 * (k1 + k2) / 2, 1e3 * (p1 + p2) / 2)
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms")
-    del out_a, ref_a, out_b, ref_b, icp_args, times
-    del fpfh_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, inv_b, got, ref, args
+    ms["knn_window"] = ms["knn_window k=10"]     # method="window" normals' shape
+    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args
+    del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, inv_b, got, ref, args
     torch.cuda.empty_cache()
 
     log("phase 5: PerceptionStep() on the 1M scan pair")
@@ -341,7 +425,8 @@ def main() -> int:
     check(bool(((norms[valid_n] - 1).abs() < 1e-3).all()), "normals not unit length")
     check(launches["union_window_a"] == 1 and launches["union_window_b"] == 1,
           "union kernels not launched once each")
-    check(not any(launches[k] for k in FPFH_KERNELS), "FPFH kernels launched")
+    check(not any(launches[k] for k in FPFH_KERNELS + BAND_KERNELS + ("knn_window",)),
+          "FPFH, banded SPFH or window kNN kernels launched")
     check(1 <= launches["icp_match"] <= step.max_iterations,
           "icp_match not launched once per iteration")
 
@@ -371,8 +456,9 @@ def main() -> int:
     check(sum(kernels.launch_counts().values()) == 0, "exact path launched a kernel")
 
     reg_launches, reg_report = registration_phases(dev, kernels)
-    for kname, n in reg_launches.items():
-        launches[kname] += n
+    win_launches, win_report = window_phases(dev, kernels)
+    for kname in launches:
+        launches[kname] += reg_launches[kname] + win_launches[kname]
 
     src_of = {"union_window_a": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:564"),
@@ -387,15 +473,22 @@ def main() -> int:
               "fpfh_weight_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
                                 "threecrate_tpu/kernels/fpfh_pallas.py:292"),
               "fpfh_weight_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
-                                "threecrate_tpu/kernels/fpfh_pallas.py:314")}
+                                "threecrate_tpu/kernels/fpfh_pallas.py:314"),
+              "spfh_band_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                              "threecrate_tpu/kernels/fpfh_pallas.py:444"),
+              "spfh_band_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                              "threecrate_tpu/kernels/fpfh_pallas.py:468"),
+              "knn_window": ("threecrate_tpu_torch/csrc/knn_window.cu",
+                             "threecrate_tpu/kernels/knn_pallas.py:645")}
     errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
-            **fpfh_err}
+            "knn_window": knn_err, **fpfh_err}
     report = {"kernels": [
         {"name": kname, "route": "cuda", "source": src_of[kname][0],
          "replaces": src_of[kname][1], "launches": launches[kname],
          "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1]}
         for kname in src_of]}
     log(f"registration: {json.dumps(reg_report)}")
+    log(f"window paths: {json.dumps(win_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -437,6 +530,8 @@ def registration_phases(dev, kernels):
     check(launches["union_window_a"] == 2 and launches["union_window_b"] == 2,
           "union kernels not launched once per cloud")
     check(launches["icp_match"] >= 1, "icp_match not launched")
+    check(not any(launches[k] for k in BAND_KERNELS + ("knn_window",)),
+          "banded SPFH or window kNN kernels launched (fpfh_band=None)")
 
     log("phase 9: RegistrationModel time, memory and stages on the 1M pair")
     torch.cuda.reset_peak_memory_stats()
@@ -498,6 +593,162 @@ def registration_phases(dev, kernels):
     report = {"model_ms": 1e3 * total, "peak_gib": peak / 2**30,
               "pose_err": [r_err, t_err], "stage_ms": stage_ms}
     return launches, report
+
+
+def window_phases(dev, kernels):
+    """Phases 11-14: the default FPFH (a band rung) on the 1M registration
+    target, ``method="window"`` normals and statistical outlier removal on
+    the 1M scan, and the staged window FPFH on the target. Returns
+    (launches summed over the four checked runs, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.ops import filtering, neighbors
+    from threecrate_tpu_torch.ops.features import FpfhConfig, _resolve_fpfh_band
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+
+    def run(fn):
+        """fn() with the launch counters reset just before and read just after."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for kname, n in counts.items():
+            total[kname] += n
+        return out, counts
+
+    def only(counts, expected):
+        return all(counts[k] == expected.get(k, 0) for k in counts)
+
+    def normalised(res):
+        d = res.descriptors[res.valid].reshape(-1, 3, 11)
+        return bool(torch.isfinite(res.descriptors).all()) and bool(
+            ((d.sum(2) - 100).abs() < 1e-2).all())
+
+    log("phase 11: extract_fpfh_features(target), default settings, on the 1M target")
+    _, tgt_np, _ = registration_pair()
+    tgt = tt.PointCloud.from_numpy(tgt_np, device=dev)
+    band = _resolve_fpfh_band("auto", tgt.points, tgt.mask, FpfhConfig().radius)
+    res, counts = run(lambda: tt.extract_fpfh_features(tgt))
+    valid_share = res.valid.float().sum().item() / N_SCAN
+    log(f"  resolved band {band} (expect {BAND}); launches {counts}")
+    check(band == BAND, f"band='auto' resolved to {band}, not {BAND}")
+    check(only(counts, {"union_window_a": 1, "union_window_b": 1, "spfh_band_a": 1,
+                        "spfh_band_b": 1, "fpfh_weight_a": 1, "fpfh_weight_b": 1}),
+          "default FPFH did not launch exactly union, band and weight kernels once each")
+    check(normalised(res), "default FPFH descriptors not finite or not normalised")
+    tgt_n = tgt.with_normals(tt.estimate_normals_detailed(tgt).normals)
+    full = tt.extract_fpfh_features_with_normals(tgt_n, FpfhConfig(band=None))
+    # a point is valid with >= 3 in-radius neighbours: at r = 0.25 on this
+    # scan about 73% of points have that many at all, so the banded share
+    # is held against the full window's
+    full_share = full.valid.float().sum().item() / N_SCAN
+    log(f"  valid share {valid_share:.4f}, full window (band=None) {full_share:.4f} "
+        f"(need >= 0.97 of it)")
+    check(valid_share >= 0.97 * full_share, "banding lost valid descriptors")
+    both = full.valid & res.valid
+    da, db = res.descriptors[both], full.descriptors[both]
+    cos = (da * db).sum(1) / (da.norm(dim=1) * db.norm(dim=1)).clamp_min(1e-12)
+    med_cos, share99 = cos.median().item(), (cos > 0.99).float().mean().item()
+    log(f"  cosine vs band=None on the same cloud and normals: median {med_cos:.6f} "
+        f"(need >= 0.99), share above 0.99 {share99:.4f}")
+    check(med_cos >= 0.99, "banded FPFH too far from the full window")
+    del full, da, db, cos, both
+    torch.cuda.reset_peak_memory_stats()
+    t_default = median_time(lambda: tt.extract_fpfh_features(tgt), warmup=1, iters=3)
+    peak_default = torch.cuda.max_memory_allocated()
+    t_band = median_time(lambda: tt.extract_fpfh_features_with_normals(tgt_n, FpfhConfig()),
+                         warmup=1, iters=3)
+    t_full = median_time(lambda: tt.extract_fpfh_features_with_normals(
+        tgt_n, FpfhConfig(band=None)), warmup=1, iters=3)
+    log(f"  extract_fpfh_features (normals included) {1e3 * t_default:.2f} ms median of 3, "
+        f"peak allocated {peak_default / 2**30:.3f} GiB; FPFH on given normals: band "
+        f"{band} {1e3 * t_band:.2f} ms, band=None {1e3 * t_full:.2f} ms")
+
+    log("phase 12: method='window' normals on the 1M scan")
+    pc = tt.PointCloud.from_numpy(scan(N_SCAN, 0), device=dev)
+    wcfg = tt.NormalEstimationConfig(method="window")
+    wres, counts = run(lambda: tt.estimate_normals_detailed(pc, wcfg))
+    ures = tt.estimate_normals_detailed(pc)
+    w_share = wres.valid.float().sum().item() / N_SCAN
+    norms = wres.normals[wres.valid].norm(dim=1)
+    both = wres.valid & ures.valid
+    cos_n = (wres.normals[both] * ures.normals[both]).sum(1).abs()
+    med_n = cos_n.median().item()
+    log(f"  launches {counts}; valid share {w_share:.5f}; median |cos| vs the default "
+        f"union normals {med_n:.6f} (need >= 0.999), share above 0.99 "
+        f"{(cos_n > 0.99).float().mean().item():.4f}")
+    check(only(counts, {"knn_window": 2}), "window normals did not launch knn_window twice")
+    check(w_share > 0.99 and bool(((norms - 1).abs() < 1e-3).all()),
+          "window normals: fewer than 99% valid or not unit length")
+    check(med_n >= 0.999, "window normals too far from the union normals")
+    t_wn = median_time(lambda: tt.estimate_normals_detailed(pc, wcfg), warmup=1, iters=3)
+    log(f"  window normals {1e3 * t_wn:.2f} ms median of 3")
+    del wres, ures, norms, cos_n, both
+
+    log("phase 13: statistical_outlier_removal(cloud), defaults, on the 1M scan")
+    sor, counts = run(lambda: tt.statistical_outlier_removal(pc))
+    kept = sor.inlier_mask.float().sum().item() / N_SCAN
+    _, mean_w, thresh = filtering._statistical_mask(pc.points, pc.mask, 8, 1.0, window=True)
+    sub = torch.arange(0, N_SCAN, N_SCAN // 16384, device=dev)[:16384]
+    q = pc.points[sub]
+    # exact reference: neighbors.knn's candidates (its d^2 expands
+    # |q|^2 + |p|^2 - 2q.p, ~1e-3 m^2 off at 100 m), distances recomputed
+    # as direct differences, the 9 smallest, the mean formula of the filter
+    cand = neighbors.knn(pc.points, pc.mask, q, None, 16)
+    d = torch.where(cand.mask, (pc.points[cand.indices] - q[:, None]).norm(dim=-1), torch.inf)
+    d9 = torch.sort(d, dim=1).values[:, :9]
+    ok = torch.isfinite(d9)
+    mean_x = torch.where(ok, d9, 0.0).sum(1) / (ok.sum(1) - 1).clamp_min(1)
+    rel = (mean_w[sub] - mean_x).abs() / mean_x.clamp_min(1e-30)
+    agree = (rel <= 1e-4).float().mean().item()
+    # a window search can only miss neighbours: its mean is never below
+    # the exact one (the exact side's candidates come from the expanded d^2)
+    not_below = (mean_w[sub] >= mean_x * (1 - 1e-4)).float().mean().item()
+    log(f"  launches {counts}; kept share {kept:.5f}, threshold {thresh.item():.6f} m; "
+        f"window vs exact mean distance within 1e-4 on {agree:.4f} of 16,384 (need >= "
+        f"0.8), not below it on {not_below:.5f} (need >= 0.999), median rel err "
+        f"{rel.median().item():.3e}")
+    check(only(counts, {"knn_window": 2}), "outlier removal did not launch knn_window twice")
+    check(agree >= 0.8 and not_below >= 0.999,
+          "window mean distances disagree with the exact ones")
+    t_sor = median_time(lambda: tt.statistical_outlier_removal(pc), warmup=1, iters=3)
+    log(f"  statistical_outlier_removal {1e3 * t_sor:.2f} ms median of 3")
+    del sor, mean_w, cand, d, d9, pc
+
+    log("phase 14: extract_fpfh_features_with_normals(target, FpfhConfig(soft_binning=True))")
+    scfg = FpfhConfig(soft_binning=True)
+    seen = []
+    real = neighbors.knn_window
+
+    def spy(*args, **kwargs):
+        seen.append((args[2], kwargs.get("exclude_self", False)))
+        return real(*args, **kwargs)
+
+    neighbors.knn_window = spy
+    try:
+        sres, counts = run(lambda: tt.extract_fpfh_features_with_normals(tgt_n, scfg))
+    finally:
+        neighbors.knn_window = real
+    s_share = sres.valid.float().sum().item() / N_SCAN
+    log(f"  launches {counts} with (k, exclude_self) {seen}; valid share {s_share:.4f}")
+    check(only(counts, {"knn_window": 2}) and seen == [(64, True)],
+          "staged FPFH did not search k=64 with self excluded in two kernel launches")
+    check(normalised(sres), "staged FPFH descriptors not finite or not normalised")
+    torch.cuda.reset_peak_memory_stats()
+    t_soft = median_time(lambda: tt.extract_fpfh_features_with_normals(tgt_n, scfg),
+                         warmup=1, iters=3)
+    peak_soft = torch.cuda.max_memory_allocated()
+    log(f"  staged window FPFH {1e3 * t_soft:.2f} ms median of 3, peak allocated "
+        f"{peak_soft / 2**30:.3f} GiB")
+    report = {"band": band, "fpfh_valid_share": [valid_share, full_share],
+              "fpfh_default_ms": 1e3 * t_default,
+              "fpfh_band_ms": 1e3 * t_band, "fpfh_full_ms": 1e3 * t_full,
+              "fpfh_default_peak_gib": peak_default / 2**30, "band_median_cos": med_cos,
+              "window_normals_ms": 1e3 * t_wn, "window_normals_median_cos": med_n,
+              "sor_ms": 1e3 * t_sor, "sor_kept": kept, "sor_agree": [agree, not_below],
+              "soft_fpfh_ms": 1e3 * t_soft, "soft_fpfh_peak_gib": peak_soft / 2**30}
+    return total, report
 
 
 if __name__ == "__main__":

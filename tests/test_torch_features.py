@@ -337,14 +337,6 @@ def test_band_resolution_matches_jax():
 def test_unported_routes_name_their_kernels():
     pts, nrm = _surface(512, 10)
     pc = interop.cloud_from_numpy(pts, np.ones(512, bool), {"normals": nrm})
-    with pytest.raises(NotImplementedError, match="spfh_band_a_tiles"):
-        tt.extract_fpfh_features_with_normals(
-            pc, tt.FpfhConfig(radius=0.2, method="window", band=32))
-    with pytest.raises(NotImplementedError, match="knn_window_tiles"):
-        tt.extract_fpfh_features_with_normals(
-            pc, tt.FpfhConfig(radius=0.2, method="window", soft_binning=True))
-    with pytest.raises(NotImplementedError, match="knn_window_tiles"):
-        tn.radius_neighbors_window(pc.points, pc.mask, 0.2)
     with pytest.raises(NotImplementedError, match="shot_hist"):
         tf.extract_shot_features(pc)
     with pytest.raises(NotImplementedError, match="shot_hist"):

@@ -88,14 +88,53 @@ def test_validation_errors_match(bad):
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("cfg", [dict(method="window"),
-                                 dict(method="window_fast"),
+@pytest.mark.parametrize("cfg", [dict(method="window_fast"),
                                  dict(method="window_fast", window_passes=1,
                                       window_merge="union")])
 def test_unported_methods_name_their_roadmap_item(cfg):
     c = interop.cloud_from_numpy(np.zeros((256, 3), np.float32), np.ones(256, bool))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tn.estimate_normals_detailed(c, tn.NormalEstimationConfig(**cfg))
+
+
+def _assert_window_close(jr, tr):
+    """method="window": equal valid masks and |cos| >= 0.9999 on >= 99.9%
+    of valid normals (the reference's XLA:CPU FMA contraction can swap
+    near-tied neighbours), curvature within 1e-3 on >= 99%."""
+    jv, tv = np.asarray(jr.valid), tr.valid.numpy()
+    np.testing.assert_array_equal(tv, jv)
+    cos = np.abs((np.asarray(jr.normals)[jv] * tr.normals.numpy()[jv]).sum(1))
+    assert np.mean(cos >= 0.9999) >= 0.999, np.quantile(cos, [0.001, 0.5])
+    curv = np.abs(np.asarray(jr.curvature) - tr.curvature.numpy())
+    assert np.mean(curv < 1e-3) >= 0.99
+    np.testing.assert_allclose(np.linalg.norm(tr.normals.numpy()[jv], axis=1), 1.0,
+                               atol=1e-5)
+    assert (tr.normals.numpy()[~jv] == 0).all()
+
+
+@pytest.mark.parametrize("scale", [1e-2, 1.0])
+def test_window_normals_match_jax(scale):
+    """method="window" (two-pass window kNN left in pass-A order, then the
+    PCA): 4,000 points of a scan with its padded tail."""
+    pts = _scan(4000, 9, scale)
+    jr, tr = _both(pts, dict(method="window", k_neighbors=10))
+    _assert_window_close(jr, tr)
+    assert tr.valid.numpy()[:4000].mean() > 0.99
+
+
+def test_window_radius_route_matches_jax():
+    """The window kNN under a radius (reachable through ``_estimate``
+    only: the config refuses radius= with method="window")."""
+    import jax.numpy as jnp
+    pts = _scan(2000, 10)
+    jc = tc.PointCloud.from_numpy(pts)
+    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask))
+    vp = np.array([0.0, 0.0, 50.0], np.float32)
+    jn_, jcv, jv = jn._estimate(jc.points, jc.mask, 10, True, jnp.float32(1.0),
+                                jnp.asarray(vp), True, window=True)
+    tn_, tcv, tv = tn._estimate(tcl.points, tcl.mask, 10, True, 1.0, torch.from_numpy(vp),
+                                True, window=True)
+    _assert_window_close(jn.NormalResult(jn_, jcv, jv), tn.NormalResult(tn_, tcv, tv))
 
 
 def test_window_fast_union_is_the_union_path():

@@ -2,11 +2,14 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Two slices are ported:
+for NVIDIA Hopper (``csrc/``). Three slices are ported:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
-ICP) and ``RegistrationModel`` (fused-window FPFH, descriptor matching,
-batched RANSAC, then ICP), with the data model, Morton keys, small
-linear algebra and exact neighbour search they need. Modules mirror the
+ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
+batched RANSAC, then ICP) and the Morton-window neighbourhood ops (FPFH
+at its default band rungs, the window kNN family, ``method="window"``
+normals, the staged window FPFH and statistical outlier removal), with
+the data model, Morton keys, small linear algebra and exact neighbour
+search they need. Modules mirror the
 JAX package's layout and public names.
 """
 
@@ -28,6 +31,9 @@ from .core import (
 from .models import PerceptionResult, PerceptionStep, RegistrationModel
 from .ops.features import (FpfhConfig, FpfhResult, extract_fpfh_features,
                            extract_fpfh_features_with_normals, match_descriptors)
+from .ops.filtering import (OutlierResult, radius_outlier_removal,
+                            statistical_outlier_removal,
+                            statistical_outlier_removal_with_threshold)
 from .ops.global_registration import (GlobalRegistrationConfig,
                                       GlobalRegistrationResult, global_registration)
 from .ops.normals import (NormalEstimationConfig, estimate_normals,
@@ -43,6 +49,8 @@ __all__ = [
     "GlobalRegistrationConfig", "GlobalRegistrationResult", "global_registration",
     "NormalEstimationConfig", "estimate_normals", "estimate_normals_detailed",
     "estimate_normals_with_config", "ICPResult", "icp", "icp_point_to_point",
+    "OutlierResult", "statistical_outlier_removal",
+    "statistical_outlier_removal_with_threshold", "radius_outlier_removal",
     "ThreeCrateError", "IoError", "InvalidDataError", "AlgorithmError",
     "DeviceError", "VisualizationError", "UnsupportedError",
     "UnsupportedFormatError", "__version__",

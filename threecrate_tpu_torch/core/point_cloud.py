@@ -101,6 +101,14 @@ class PointCloud:
     def with_normals(self, normals: torch.Tensor) -> "PointCloud":
         return self.with_attr(NORMALS, normals)
 
+    def with_mask(self, mask: torch.Tensor) -> "PointCloud":
+        """Replace the validity mask (e.g. after a filter). Same capacity."""
+        return PointCloud(self.points, mask, self.attrs)
+
+    def select(self, keep: torch.Tensor) -> "PointCloud":
+        """Mask-and intersection: keep points where ``keep`` & valid."""
+        return self.with_mask(self.mask & keep)
+
     def bounding_box(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(min_xyz, max_xyz) over valid points."""
         m = self.mask[:, None]

@@ -1,9 +1,11 @@
 // Fused FPFH window kernels for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels spfh_a_tiles, spfh_b_tiles,
-// fpfh_weight_a_tiles and fpfh_weight_b_tiles of
-// threecrate_tpu/kernels/fpfh_pallas.py (bodies _pair_hist with
-// _atan2_approx, and _weight_body). The caller (ops/features.py,
+// fpfh_weight_a_tiles, fpfh_weight_b_tiles, spfh_band_a_tiles and
+// spfh_band_b_tiles of threecrate_tpu/kernels/fpfh_pallas.py (bodies
+// _pair_hist with _atan2_approx, _weight_body and _spfh_band_body; the
+// banded kernels see the same prev/self/next segments but scan only the
+// +-band sorted positions around each query). The caller (ops/features.py,
 // _fpfh_fused) Morton-sorts the cloud twice and pads it to a multiple of
 // the tile; each block then serves one tile of queries against the
 // prev/self/next tiles of the sorted order.
@@ -139,6 +141,70 @@ __device__ __forceinline__ Query load_query(const float* __restrict__ packed,
   return q;
 }
 
+// The query's normal and the bin scales of stage 1.
+struct QueryFrame {
+  float n0, n1, n2;
+  float theta_scale, cos_scale;
+};
+
+__device__ __forceinline__ QueryFrame load_frame(const float* __restrict__ packed,
+                                                 int n, long col) {
+  return QueryFrame{packed[4L * n + col], packed[5L * n + col], packed[6L * n + col],
+                    __fdiv_rn(static_cast<float>(kBins), kTwoPi), 0.5f * kBins};
+}
+
+// One selected pair's three votes into the query's column i of hist
+// (33, tile): the PCL pair features of d = c - q (|d|^2 = d2) and the
+// normals of query (f) and candidate (cn0..2).
+__device__ __forceinline__ void vote_pair(int* hist, int i, float dx, float dy,
+                                          float dz, float d2, const QueryFrame& f,
+                                          float cn0, float cn1, float cn2) {
+  const int tile = blockDim.x;
+  const float inv_d = rsqrt_rn(d2);
+  float ux = __fmul_rn(dx, inv_d);
+  float uy = __fmul_rn(dy, inv_d);
+  float uz = __fmul_rn(dz, inv_d);
+  const float qn0 = f.n0, qn1 = f.n1, qn2 = f.n2;
+  const float a1 = dot3(qn0, qn1, qn2, ux, uy, uz);
+  const float a2 = dot3(cn0, cn1, cn2, ux, uy, uz);
+  // anchor the frame at the point whose normal is better aligned with
+  // the connecting line
+  const bool swap = fabsf(a1) < fabsf(a2);
+  const float nsx = swap ? cn0 : qn0, nsy = swap ? cn1 : qn1, nsz = swap ? cn2 : qn2;
+  const float ntx = swap ? qn0 : cn0, nty = swap ? qn1 : cn1, ntz = swap ? qn2 : cn2;
+  if (swap) {
+    ux = -ux;
+    uy = -uy;
+    uz = -uz;
+  }
+  const float f3 = dot3(nsx, nsy, nsz, ux, uy, uz);
+  float vx = mul_sub(uy, nsz, uz, nsy);
+  float vy = mul_sub(uz, nsx, ux, nsz);
+  float vz = mul_sub(ux, nsy, uy, nsx);
+  const float inv_v = rsqrt_rn(dot3(vx, vy, vz, vx, vy, vz));
+  vx = __fmul_rn(vx, inv_v);
+  vy = __fmul_rn(vy, inv_v);
+  vz = __fmul_rn(vz, inv_v);
+  const float wx = mul_sub(nsy, vz, nsz, vy);
+  const float wy = mul_sub(nsz, vx, nsx, vz);
+  const float wz = mul_sub(nsx, vy, nsy, vx);
+  const float f2 = dot3(vx, vy, vz, ntx, nty, ntz);
+  const float f1 = atan2_approx(dot3(wx, wy, wz, ntx, nty, ntz),
+                                dot3(nsx, nsy, nsz, ntx, nty, ntz));
+  ++hist[bin_of(__fmul_rn(__fadd_rn(f1, kPi), f.theta_scale)) * tile + i];
+  ++hist[(kBins + bin_of(__fmul_rn(__fadd_rn(f2, 1.f), f.cos_scale))) * tile + i];
+  ++hist[(2 * kBins + bin_of(__fmul_rn(__fadd_rn(f3, 1.f), f.cos_scale))) * tile + i];
+}
+
+__device__ __forceinline__ void store_votes(const int* hist, int cnt,
+                                            float* __restrict__ out, int n, long col) {
+  const int tile = blockDim.x;
+  for (int b = 0; b < kHist; ++b) {
+    out[b * static_cast<long>(n) + col] = static_cast<float>(hist[b * tile + threadIdx.x]);
+  }
+  out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
+}
+
 // Stage 1: rows [theta bins(11), cos phi bins(11), cos alpha bins(11),
 // count].
 template <bool kPassB>
@@ -155,11 +221,7 @@ __global__ void spfh_kernel(const float* __restrict__ packed,
   const int shift = __ffs(tile) - 1;  // log2(tile): tile is a power of two
   const long col = static_cast<long>(blockIdx.x) * tile + i;
   const Query q = load_query<kPassB>(packed, pos_a, n, col, shift);
-  const float qn0 = packed[4L * n + col];
-  const float qn1 = packed[5L * n + col];
-  const float qn2 = packed[6L * n + col];
-  const float theta_scale = __fdiv_rn(static_cast<float>(kBins), kTwoPi);
-  const float cos_scale = 0.5f * kBins;
+  const QueryFrame f = load_frame(packed, n, col);
   for (int b = 0; b < kHist; ++b) hist[b * tile + i] = 0;
   int cnt = 0;
 
@@ -173,49 +235,61 @@ __global__ void spfh_kernel(const float* __restrict__ packed,
       float dx, dy, dz;
       const float d2 = select_d2<kPassB>(seg, pos, c, q, shift, r2, dx, dy, dz);
       if (d2 < 0.f) continue;
-      const float inv_d = rsqrt_rn(d2);
-      float ux = __fmul_rn(dx, inv_d);
-      float uy = __fmul_rn(dy, inv_d);
-      float uz = __fmul_rn(dz, inv_d);
-      const float cn0 = seg[4 * tile + c];
-      const float cn1 = seg[5 * tile + c];
-      const float cn2 = seg[6 * tile + c];
-      const float a1 = dot3(qn0, qn1, qn2, ux, uy, uz);
-      const float a2 = dot3(cn0, cn1, cn2, ux, uy, uz);
-      // anchor the frame at the point whose normal is better aligned
-      // with the connecting line
-      const bool swap = fabsf(a1) < fabsf(a2);
-      const float nsx = swap ? cn0 : qn0, nsy = swap ? cn1 : qn1, nsz = swap ? cn2 : qn2;
-      const float ntx = swap ? qn0 : cn0, nty = swap ? qn1 : cn1, ntz = swap ? qn2 : cn2;
-      if (swap) {
-        ux = -ux;
-        uy = -uy;
-        uz = -uz;
-      }
-      const float f3 = dot3(nsx, nsy, nsz, ux, uy, uz);
-      float vx = mul_sub(uy, nsz, uz, nsy);
-      float vy = mul_sub(uz, nsx, ux, nsz);
-      float vz = mul_sub(ux, nsy, uy, nsx);
-      const float inv_v = rsqrt_rn(dot3(vx, vy, vz, vx, vy, vz));
-      vx = __fmul_rn(vx, inv_v);
-      vy = __fmul_rn(vy, inv_v);
-      vz = __fmul_rn(vz, inv_v);
-      const float wx = mul_sub(nsy, vz, nsz, vy);
-      const float wy = mul_sub(nsz, vx, nsx, vz);
-      const float wz = mul_sub(nsx, vy, nsy, vx);
-      const float f2 = dot3(vx, vy, vz, ntx, nty, ntz);
-      const float f1 = atan2_approx(dot3(wx, wy, wz, ntx, nty, ntz),
-                                    dot3(nsx, nsy, nsz, ntx, nty, ntz));
-      ++hist[bin_of(__fmul_rn(__fadd_rn(f1, kPi), theta_scale)) * tile + i];
-      ++hist[(kBins + bin_of(__fmul_rn(__fadd_rn(f2, 1.f), cos_scale))) * tile + i];
-      ++hist[(2 * kBins + bin_of(__fmul_rn(__fadd_rn(f3, 1.f), cos_scale))) * tile + i];
+      vote_pair(hist, i, dx, dy, dz, d2, f, seg[4 * tile + c], seg[5 * tile + c],
+                seg[6 * tile + c]);
       ++cnt;
     }
   }
-  for (int b = 0; b < kHist; ++b) {
-    out[b * static_cast<long>(n) + col] = static_cast<float>(hist[b * tile + i]);
+  store_votes(hist, cnt, out, n, col);
+}
+
+// Banded stage 1 (_spfh_band_body): the candidates are the sorted
+// positions p - band ... p + band of query p (band <= tile, so they lie
+// in the prev/self/next tiles; the segments outside [0, n) are skipped).
+// Pass B reads each column's pass-A position from packed row 7 (fp32,
+// exact below 2^24 rows) and drops |posA_c - posA_q| <= band, compared
+// in fp32 as the Pallas body does. Rows as spfh_kernel.
+template <bool kPassB>
+__global__ void spfh_band_kernel(const float* __restrict__ packed,
+                                 float* __restrict__ out, int n, int band, float r2) {
+  constexpr int kRows = kPassB ? 8 : 7;
+  extern __shared__ float smem[];
+  const int tile = blockDim.x;
+  const int i = threadIdx.x;
+  const int n_t = n / tile;
+  float* seg = smem;                                        // (kRows, tile)
+  int* hist = reinterpret_cast<int*>(smem + 8 * tile);      // (33, tile)
+  const long col = static_cast<long>(blockIdx.x) * tile + i;
+  const float qx = packed[col], qy = packed[n + col], qz = packed[2L * n + col];
+  const float q_pa = kPassB ? packed[7L * n + col] : 0.f;
+  const float band_f = static_cast<float>(band);
+  const QueryFrame f = load_frame(packed, n, col);
+  for (int b = 0; b < kHist; ++b) hist[b * tile + i] = 0;
+  int cnt = 0;
+
+  for (int s = 0; s < 3; ++s) {
+    const int ct = static_cast<int>(blockIdx.x) - 1 + s;
+    if (ct < 0 || ct >= n_t) continue;  // block-uniform
+    __syncthreads();
+    load_segment(packed, nullptr, n, kRows, ct, seg, nullptr);
+    __syncthreads();
+    // window column s*tile + c holds offset s*tile + c - (tile + i)
+    const int lo = max(0, i - band + (1 - s) * tile);
+    const int hi = min(tile - 1, i + band + (1 - s) * tile);
+    for (int c = lo; c <= hi; ++c) {
+      if (!(seg[3 * tile + c] > 0.5f)) continue;
+      if (kPassB && !(fabsf(__fsub_rn(seg[7 * tile + c], q_pa)) > band_f)) continue;
+      const float dx = __fsub_rn(seg[c], qx);
+      const float dy = __fsub_rn(seg[tile + c], qy);
+      const float dz = __fsub_rn(seg[2 * tile + c], qz);
+      const float d2 = dot3(dx, dy, dz, dx, dy, dz);
+      if (!(d2 <= r2 && d2 > 1e-12f)) continue;
+      vote_pair(hist, i, dx, dy, dz, d2, f, seg[4 * tile + c], seg[5 * tile + c],
+                seg[6 * tile + c]);
+      ++cnt;
+    }
   }
-  out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
+  store_votes(hist, cnt, out, n, col);
 }
 
 // Stage 2: rows [sum (1/d) * spfh(33), count].
@@ -258,49 +332,61 @@ __global__ void fpfh_weight_kernel(const float* __restrict__ packed,
   out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem_rows, const float* packed,
-                   const int* pos_a, float* out, int n, int tile, float r2,
-                   void* stream) {
+// One block of tile threads per query tile, with smem_rows * tile floats
+// of dynamic shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int smem_rows, int n, int tile, void* stream,
+                   Args... args) {
   const size_t smem = static_cast<size_t>(smem_rows) * tile * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<n / tile, tile, smem, static_cast<cudaStream_t>(stream)>>>(packed, pos_a,
-                                                                      out, n, r2);
+  kernel<<<n / tile, tile, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();
 }
 
-constexpr int kSpfhSmemRows = 8 + kHist;        // segment (7) + pos + votes
+constexpr int kSpfhSmemRows = 8 + kHist;        // segment (7 or 8) + pos + votes
 constexpr int kWeightSmemRows = 4 + kHist + 1;  // segment (37) + pos
 
 }  // namespace
 
 // The wrappers (kernels/fpfh.py) check shapes, dtypes and devices, that
-// tile is a power of two <= 1024 dividing n, and the shared-memory size;
-// r2 arrives rounded to fp32.
+// tile is a power of two <= 1024 dividing n, 0 <= band <= tile, and the
+// shared-memory size; r2 arrives rounded to fp32.
 extern "C" int tc_spfh_a(const float* packed, float* out, int n, int tile, float r2,
                          void* stream) {
-  return launch(spfh_kernel<false>, kSpfhSmemRows, packed, nullptr, out, n, tile, r2,
-                stream);
+  return launch(spfh_kernel<false>, kSpfhSmemRows, n, tile, stream, packed,
+                static_cast<const int*>(nullptr), out, n, r2);
 }
 
 extern "C" int tc_spfh_b(const float* packed, const int* pos_a, float* out, int n,
                          int tile, float r2, void* stream) {
-  return launch(spfh_kernel<true>, kSpfhSmemRows, packed, pos_a, out, n, tile, r2,
-                stream);
+  return launch(spfh_kernel<true>, kSpfhSmemRows, n, tile, stream, packed, pos_a, out,
+                n, r2);
 }
 
 extern "C" int tc_fpfh_weight_a(const float* packed, float* out, int n, int tile,
                                 float r2, void* stream) {
-  return launch(fpfh_weight_kernel<false>, kWeightSmemRows, packed, nullptr, out, n,
-                tile, r2, stream);
+  return launch(fpfh_weight_kernel<false>, kWeightSmemRows, n, tile, stream, packed,
+                static_cast<const int*>(nullptr), out, n, r2);
 }
 
 extern "C" int tc_fpfh_weight_b(const float* packed, const int* pos_a, float* out,
                                 int n, int tile, float r2, void* stream) {
-  return launch(fpfh_weight_kernel<true>, kWeightSmemRows, packed, pos_a, out, n,
-                tile, r2, stream);
+  return launch(fpfh_weight_kernel<true>, kWeightSmemRows, n, tile, stream, packed,
+                pos_a, out, n, r2);
+}
+
+extern "C" int tc_spfh_band_a(const float* packed, float* out, int n, int tile, int band,
+                              float r2, void* stream) {
+  return launch(spfh_band_kernel<false>, kSpfhSmemRows, n, tile, stream, packed, out, n,
+                band, r2);
+}
+
+extern "C" int tc_spfh_band_b(const float* packed, float* out, int n, int tile, int band,
+                              float r2, void* stream) {
+  return launch(spfh_band_kernel<true>, kSpfhSmemRows, n, tile, stream, packed, out, n,
+                band, r2);
 }

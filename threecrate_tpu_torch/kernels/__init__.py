@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each with
 its plain PyTorch version and a launch counter on its wrapper."""
 
-from . import fpfh, icp, knn
+from . import fpfh, icp, knn, knn_window
 from .fpfh import (fpfh_weight_a_tiles, fpfh_weight_b_tiles, spfh_a_tiles,
-                   spfh_b_tiles)
+                   spfh_b_tiles, spfh_band_a_tiles, spfh_band_b_tiles)
 from .icp import icp_match_tiles
 from .knn import window_union_a_tiles, window_union_b_tiles
+from .knn_window import knn_window_tiles
 
 # every kernel wrapper of the port, by kernel name
 WRAPPERS = {
@@ -16,6 +17,9 @@ WRAPPERS = {
     "spfh_b": spfh_b_tiles,
     "fpfh_weight_a": fpfh_weight_a_tiles,
     "fpfh_weight_b": fpfh_weight_b_tiles,
+    "spfh_band_a": spfh_band_a_tiles,
+    "spfh_band_b": spfh_band_b_tiles,
+    "knn_window": knn_window_tiles,
 }
 
 

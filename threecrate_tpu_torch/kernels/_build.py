@@ -45,6 +45,11 @@ _SIGNATURES = {
     # packed, pos_a, out, n, tile, r2, stream
     "tc_spfh_b": (_P, _P, _P, _I, _I, _F, _P),
     "tc_fpfh_weight_b": (_P, _P, _P, _I, _I, _F, _P),
+    # packed, out, n, tile, band, r2, stream
+    "tc_spfh_band_a": (_P, _P, _I, _I, _I, _F, _P),
+    "tc_spfh_band_b": (_P, _P, _I, _I, _I, _F, _P),
+    # pts, valid, ids, neg, ids_out, crd, n, tile, k, with_coords, exclude_self, stream
+    "tc_knn_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

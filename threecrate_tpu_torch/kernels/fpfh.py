@@ -1,13 +1,14 @@
 """Fused FPFH window kernels: in-window SPFH histograms and the weighted
 neighbour-SPFH sum, each in two passes.
 
-``spfh_a_tiles``, ``spfh_b_tiles``, ``fpfh_weight_a_tiles`` and
-``fpfh_weight_b_tiles`` replace the Pallas kernels of the same names in
-``threecrate_tpu/kernels/fpfh_pallas.py`` (bodies ``_pair_hist`` and
-``_weight_body``). On a CUDA tensor they launch the hand-written kernels
-of ``csrc/fpfh.cu``; on a CPU tensor they run the plain PyTorch versions
-below, which compute the same function and are what the kernels are
-checked against.
+``spfh_a_tiles``, ``spfh_b_tiles``, ``fpfh_weight_a_tiles``,
+``fpfh_weight_b_tiles``, ``spfh_band_a_tiles`` and ``spfh_band_b_tiles``
+replace the Pallas kernels of the same names in
+``threecrate_tpu/kernels/fpfh_pallas.py`` (bodies ``_pair_hist``,
+``_weight_body`` and ``_spfh_band_body``). On a CUDA tensor they launch
+the hand-written kernels of ``csrc/fpfh.cu``; on a CPU tensor they run
+the plain PyTorch versions below, which compute the same function and
+are what the kernels are checked against.
 
 Inputs are Morton-sorted and padded to a multiple of ``tile`` (a power
 of two): stage 1 packs ``(7, N)`` float32 rows [x, y, z, valid, nx, ny,
@@ -19,6 +20,13 @@ whose pass-A tile is within ±1 of the query's, so the two passes' sums
 add up to the two-window union. Outputs are ``(34, N)`` float32 in the
 same order: stage 1 [θ bins (11), cos φ bins (11), cos α bins (11),
 count], stage 2 [Σ (1/d)·spfh (33), count].
+
+The banded stage 1 (``band="auto"``'s rungs) scans only the sorted
+positions p−band … p+band (band ≤ tile, so all inside the 3-tile
+window; positions outside [0, N) are invalid). Its pass B takes ``(8,
+N)`` rows, the 7 plus each column's pass-A position as fp32, and drops
+candidates with |posA_c − posA_q| ≤ band, compared in fp32 as the Pallas
+body does.
 
 ``r2`` is rounded once to fp32. Every operation of the pair features
 is evaluated unfused and in the same order in the kernels and here (a
@@ -117,12 +125,20 @@ def _chunk_geometry(packed, t0, t1, tile, r2, pos_a):
 def _pair_hist(packed, t0, t1, tile, d, d2, sel):
     """(T, tile, 34) SPFH votes + count of one chunk: ``_pair_hist`` of
     the Pallas module, one tensor op per scalar operation."""
+    qn = packed[4:7, t0 * tile:t1 * tile].reshape(3, t1 - t0, tile)
+    cn = _window(packed[4:7], t0, t1, tile, 0.0)
+    return _votes(d, d2, sel, [qn[j][:, :, None] for j in range(3)],
+                  [cn[j][:, None, :] for j in range(3)])
+
+
+def _votes(d, d2, sel, qn, cn):
+    """(..., 34) votes + count over the last (candidate) axis of the
+    pair offsets ``d = c − q``, their d², the selection and the query
+    and candidate normals (three tensors each, broadcast to d)."""
     inv_d = _rsqrt(d2)
     ux, uy, uz = (c * inv_d for c in d)
-    qn = packed[4:7, t0 * tile:t1 * tile].reshape(3, t1 - t0, tile)
-    q0, q1, q2 = (qn[j][:, :, None] for j in range(3))
-    cn = _window(packed[4:7], t0, t1, tile, 0.0)
-    c0, c1, c2 = (cn[j][:, None, :] for j in range(3))
+    q0, q1, q2 = qn
+    c0, c1, c2 = cn
     a1 = q0 * ux + q1 * uy + q2 * uz
     a2 = c0 * ux + c1 * uy + c2 * uz
     swap = a1.abs() < a2.abs()
@@ -144,11 +160,11 @@ def _pair_hist(packed, t0, t1, tile, d, d2, sel):
                       nsx * ntx + nsy * nty + nsz * ntz)
 
     wf = sel.to(torch.float32)
-    shape = (t1 - t0, tile, N_BINS)
-    hists = [torch.zeros(shape, device=wf.device).scatter_add_(2, b, wf)
+    shape = wf.shape[:-1] + (N_BINS,)
+    hists = [torch.zeros(shape, device=wf.device).scatter_add_(-1, b, wf)
              for b in (_bins(f1 + _PI, _THETA_SCALE), _bins(f2 + 1.0, _COS_SCALE),
                        _bins(f3 + 1.0, _COS_SCALE))]
-    return torch.cat(hists + [wf.sum(2, keepdim=True)], 2)
+    return torch.cat(hists + [wf.sum(-1, keepdim=True)], -1)
 
 
 def _weight_sums(packed, t0, t1, tile, d, d2, sel):
@@ -190,6 +206,82 @@ def fpfh_weight_a_plain(packed, r2: float, tile: int = 256) -> torch.Tensor:
 def fpfh_weight_b_plain(packed, pos_a, r2: float, tile: int = 256) -> torch.Tensor:
     """Plain PyTorch stage-2 pass B, chunked over query tiles."""
     return _plain(packed, r2, tile, pos_a, 37, _weight_sums)
+
+
+def _check_band(packed, rows, band, tile):
+    n = _check(packed, rows, tile)
+    if not 0 <= band <= tile:
+        raise ValueError(f"band must be in [0, tile={tile}], got {band}")
+    return n
+
+
+def _spfh_band_plain(packed, r2, band, tile, excl):
+    n = _check_band(packed, 8 if excl else 7, band, tile)
+    r2 = _r2_f32(r2)
+    dev = packed.device
+    offs = torch.arange(-band, band + 1, device=dev)
+    out = torch.empty((34, n), dtype=torch.float32, device=dev)
+    step = _CHUNK_TILES * tile
+    for c0 in range(0, n, step):
+        c1 = min(c0 + step, n)
+        cols = torch.arange(c0, c1, device=dev)[:, None] + offs     # (Q, 2·band+1)
+        cand = packed[:, cols.clamp(0, n - 1)]                      # (R, Q, 2·band+1)
+        q = packed[:, c0:c1, None]                                  # (R, Q, 1)
+        d = [cand[r] - q[r] for r in range(3)]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        sel = ((cols >= 0) & (cols < n) & (cand[3] > 0.5)
+               & (d2 <= r2) & (d2 > 1e-12))
+        if excl:
+            # pass-A positions ride as fp32 (exact below 2^24 rows)
+            sel = sel & ((cand[7] - q[7]).abs() > band)
+        out[:, c0:c1] = _votes(d, d2, sel, [q[r] for r in range(4, 7)],
+                               [cand[r] for r in range(4, 7)]).T
+    return out
+
+
+def spfh_band_a_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Plain PyTorch banded stage-1 pass A, chunked over query tiles."""
+    return _spfh_band_plain(packed, r2, band, tile, False)
+
+
+def spfh_band_b_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Plain PyTorch banded stage-1 pass B, chunked over query tiles."""
+    return _spfh_band_plain(packed, r2, band, tile, True)
+
+
+def _launch_band(name, packed, r2, band, tile, rows):
+    n = _check_band(packed, rows, band, tile)
+    if packed.dtype != torch.float32:
+        raise TypeError(f"expected float32 packed rows, got {packed.dtype}")
+    packed = packed.contiguous()
+    out = torch.empty((34, n), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = getattr(_build.lib(), "tc_" + name)(
+            packed.data_ptr(), out.data_ptr(), n, tile, band, _r2_f32(r2),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def spfh_band_a_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Banded stage-1 pass A over ±band sorted positions: ``(34, N)``
+    raw SPFH votes + in-radius counts."""
+    if not _build.on_card(packed):
+        return spfh_band_a_plain(packed, r2, band, tile)
+    out = _launch_band("spfh_band_a", packed, r2, band, tile, 7)
+    spfh_band_a_tiles.launches += 1
+    return out
+
+
+def spfh_band_b_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Banded stage-1 pass B over ``(8, N)`` rows (the 7 rows plus each
+    column's pass-A position as fp32): ``(34, N)`` votes + counts over
+    candidates more than ``band`` pass-A positions from the query."""
+    if not _build.on_card(packed):
+        return spfh_band_b_plain(packed, r2, band, tile)
+    out = _launch_band("spfh_band_b", packed, r2, band, tile, 8)
+    spfh_band_b_tiles.launches += 1
+    return out
 
 
 def _launch(name, packed, pos_a, r2, tile, rows):
@@ -251,3 +343,5 @@ spfh_a_tiles.launches = 0
 spfh_b_tiles.launches = 0
 fpfh_weight_a_tiles.launches = 0
 fpfh_weight_b_tiles.launches = 0
+spfh_band_a_tiles.launches = 0
+spfh_band_b_tiles.launches = 0

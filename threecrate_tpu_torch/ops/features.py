@@ -8,19 +8,21 @@ routes, chosen as in the JAX package:
   and the FPFH kernels (``kernels.fpfh``) bin the Darboux pair features
   and weight the neighbours' SPFHs directly from each query's window
   candidates, with the two passes' sums added (a fixed radius makes the
-  two-window union exact);
-* below it, the exact path ``_fpfh``: a capped radius search
-  (``ops.neighbors.radius_neighbors``), the pair features with a true
-  atan2, one-hot histograms (hard, or PCL-style soft binning) and the
-  weighted neighbour sum, in blocks of 16,384 points.
+  two-window union exact). ``band="auto"`` (the default) restricts the
+  SPFH stage to ±band sorted positions when a ladder rung covers the
+  measured in-radius count with a 2x margin;
+* soft binning, other bin counts, or below the threshold, the staged
+  path ``_fpfh``: a capped radius search (``ops.neighbors
+  .radius_neighbors``, or ``radius_neighbors_window`` on the window
+  path), the pair features with a true atan2, one-hot histograms (hard,
+  or PCL-style soft binning) and the weighted neighbour sum, in blocks
+  of 16,384 points.
 
 ``match_descriptors`` is the nearest neighbour in descriptor space, one
 matmul for small problems and the tiled ``knn`` above 2^26 pairs.
 
-Not ported yet, each raising ``NotImplementedError`` naming its
-kernels: a resolved ``band`` rung of the fused path
-(``spfh_band_a_tiles``/``spfh_band_b_tiles``), the staged window path
-(``knn_window_tiles``) and SHOT/USC.
+SHOT/USC are not ported yet and raise ``NotImplementedError`` naming
+their kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..core.errors import InvalidDataError
@@ -111,12 +112,6 @@ def _renormalise(fpfh):
     return (blocks / s * 100.0).reshape(fpfh.shape)
 
 
-def _inverse(perm):
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-    return inv
-
-
 def fused_stage1_inputs(points, mask, normals_arr, tile=256):
     """Pass-A and pass-B packed stage-1 rows of the fused path.
 
@@ -134,37 +129,39 @@ def fused_stage1_inputs(points, mask, normals_arr, tile=256):
     nrm[:n] = normals_arr
     mask_p = torch.zeros(n_pad, dtype=torch.bool, device=points.device)
     mask_p[:n] = mask
-    perm_a = torch.sort(morton.morton_keys(pts, mask_p, pass_index=0),
-                        stable=True).indices
+    perm_a = neighbors._sort_perm(morton.morton_keys(pts, mask_p, pass_index=0))
     pts_a = pts[perm_a]
     am = mask_p[perm_a]
     packed_a = torch.cat([pts_a.T, am.to(torch.float32)[None],
                           nrm[perm_a].T]).contiguous()
-    row_a = torch.sort(morton.morton_keys(pts_a, am, pass_index=1),
-                       stable=True).indices
+    row_a = neighbors._sort_perm(morton.morton_keys(pts_a, am, pass_index=1))
     return packed_a, packed_a[:, row_a].contiguous(), row_a, perm_a
 
 
 def _fpfh_fused(points, mask, normals_arr, radius: float, tile=256, band=None):
-    """Fused window FPFH over every in-radius window candidate, in input
-    order: ``(descriptors (N, 33), valid (N,))``."""
+    """Fused window FPFH in input order: ``(descriptors (N, 33), valid
+    (N,))``. Stage 1 takes every in-radius window candidate
+    (``band=None``) or only those within ±band sorted positions of each
+    pass; stage 2 always weights over the full window."""
     from ..kernels.fpfh import (fpfh_weight_a_tiles, fpfh_weight_b_tiles,
-                                spfh_a_tiles, spfh_b_tiles)
+                                spfh_a_tiles, spfh_b_tiles, spfh_band_a_tiles,
+                                spfh_band_b_tiles)
 
-    if band is not None:
-        raise NotImplementedError(
-            f"FPFH band={band} needs the spfh_band_a_tiles/spfh_band_b_tiles "
-            "kernels, still to be ported (ROADMAP.md, section 2, item 7); "
-            "use band=None for the exact full window")
     n = points.shape[0]
     r2 = float(radius) * float(radius)
     packed_a, packed_b, row_a, perm_a = fused_stage1_inputs(
         points, mask, normals_arr, tile)
     pos_a = row_a.to(torch.int32)[None].contiguous()
-    spfh_a = spfh_a_tiles(packed_a, r2, tile)                   # (34, N) A-order
-    spfh_b = spfh_b_tiles(packed_b, pos_a, r2, tile)            # (34, N) B-order
+    if band is None:
+        spfh_a = spfh_a_tiles(packed_a, r2, tile)               # (34, N) A-order
+        spfh_b = spfh_b_tiles(packed_b, pos_a, r2, tile)        # (34, N) B-order
+    else:
+        spfh_a = spfh_band_a_tiles(packed_a, r2, int(band), tile)
+        # the pass-A position rides as an fp32 row (exact below 2^24 rows)
+        packed_b8 = torch.cat([packed_b, row_a.to(torch.float32)[None]]).contiguous()
+        spfh_b = spfh_band_b_tiles(packed_b8, r2, int(band), tile)
 
-    inv_b = _inverse(row_a)
+    inv_b = neighbors._inverse(row_a)
     spfh_raw = spfh_a.T + spfh_b.T[inv_b]                       # (N, 34) A-order
     cnt = spfh_raw[:, 33]
     spfh = spfh_raw[:, :33] / torch.clamp_min(cnt, 1.0)[:, None]
@@ -180,7 +177,7 @@ def _fpfh_fused(points, mask, normals_arr, radius: float, tile=256, band=None):
 
     valid_s = (packed_a[3] > 0.5) & (cnt >= 3)
     desc_s = torch.where(valid_s[:, None], _renormalise(fpfh), 0.0)
-    inv_a = _inverse(perm_a)
+    inv_a = neighbors._inverse(perm_a)
     return desc_s[inv_a][:n], valid_s[inv_a][:n] & mask
 
 
@@ -227,25 +224,28 @@ _FPFH_BAND_LADDER = (16, 32, 48, 64)
 
 def expected_in_radius_count(points, mask, radius: float, n_query: int = 1024,
                              n_ref: int = 16384) -> float:
-    """Host-side estimate of the mean in-radius neighbour count: a
-    deterministic strided subsample of up to ``n_query`` queries against
-    up to ``n_ref`` reference points, counts rescaled by the subsampling
-    ratio, minus self. NumPy on the host, as the JAX package."""
-    pts = np.asarray(points.detach().cpu().numpy(), dtype=np.float32)
-    pts = pts[np.asarray(mask.detach().cpu().numpy(), dtype=bool)]
+    """Estimate of the mean in-radius neighbour count: a deterministic
+    strided subsample of up to ``n_query`` queries against up to
+    ``n_ref`` reference points, counts rescaled by the subsampling
+    ratio, minus self. The JAX package computes it in NumPy on the host;
+    here it runs on the points' device with the same subsample and the
+    same fp32 arithmetic ((dx² + dy²) + dz² against fp32 r²), so the
+    count is the same, and only the total comes back."""
+    pts = points.to(torch.float32)[mask]
     n = pts.shape[0]
     if n < 16:
         return 0.0
     q = pts[::max(1, n // n_query)][:n_query]
     ref = pts[::max(1, n // n_ref)][:n_ref]
     scale = n / ref.shape[0]
-    r2 = float(radius) * float(radius)
-    total = 0.0
+    r2 = torch.tensor(float(radius) * float(radius), dtype=torch.float32,
+                      device=pts.device)
+    total = torch.zeros((), dtype=torch.int64, device=pts.device)
     for s in range(0, q.shape[0], 128):
-        blk = q[s:s + 128]
-        d2 = ((blk[:, None, :] - ref[None, :, :]) ** 2).sum(-1)
-        total += float((d2 <= r2).sum())
-    return max(total / q.shape[0] * scale - 1.0, 0.0)
+        d = q[s:s + 128, None, :] - ref[None, :, :]
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        total += (d2 <= r2).sum()
+    return max(float(total.item()) / q.shape[0] * scale - 1.0, 0.0)
 
 
 def _resolve_fpfh_band(band, points, mask, radius: float):

@@ -1,17 +1,23 @@
-"""Exact nearest-neighbour search by blockwise brute force.
+"""Nearest-neighbour search: exact blockwise brute force and the
+Morton-window approximation.
 
-Counterpart of ``threecrate_tpu.ops.neighbors.knn``, ``radius_neighbors``
-and ``nearest_one``. Queries go one chunk at a time, and each chunk
-scans the database one ``db_tile`` of rows at a time: the (chunk ×
-tile) squared distances are formed as ‖q‖² + ‖p‖² − 2 q·pᵀ (an fp32
-matmul), ``torch.topk`` keeps each tile's k best and a 2k-wide top-k
-merges them with the best so far. So no temporary is wider than
-``db_tile`` columns, whatever the database size. Points of any
-dimension work (descriptor matching sends 33-d FPFH rows).
+Counterpart of ``threecrate_tpu.ops.neighbors``. The exact searches
+(``knn``, ``radius_neighbors``, ``nearest_one``) take queries one chunk
+at a time, and each chunk scans the database one ``db_tile`` of rows at
+a time: the (chunk × tile) squared distances are formed as ‖q‖² + ‖p‖²
+− 2 q·pᵀ (an fp32 matmul), ``torch.topk`` keeps each tile's k best and
+a 2k-wide top-k merges them with the best so far. So no temporary is
+wider than ``db_tile`` columns, whatever the database size. Points of
+any dimension work (descriptor matching sends 33-d FPFH rows). These
+carry normal estimation below 65,536 points, ICP below 2^32
+source×target pairs, the exact FPFH path and descriptor matching.
 
-These carry normal estimation below 65,536 points, ICP below 2^32
-source×target pairs, the exact FPFH path and descriptor matching;
-above those sizes the window kernels take over.
+The window searches (``knn_window``, ``knn_window_sorted``,
+``knn_window_cross``, ``radius_neighbors_window``) sort the cloud along
+a Z-order curve per pass, search each tile's prev/self/next tiles with
+the ``knn_window_tiles`` kernel and merge the passes (``_merge_topk``).
+They carry ``method="window"`` normals, statistical outlier removal
+above 262,144 points and the staged window FPFH.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import padding
+from . import morton
 from .linalg import fp32_matmul
 
 
@@ -108,11 +116,15 @@ def radius_neighbors(db_points: torch.Tensor, db_mask: torch.Tensor,
 def radius_neighbors_window(points, mask, radius, max_neighbors: int = 32, *,
                             exclude_self: bool = False, tile: int = 128,
                             n_passes: int = 2) -> KnnResult:
-    """The Morton-window self radius search of the JAX package: it runs
-    on the ``knn_window_tiles`` kernel, which is not ported yet."""
-    raise NotImplementedError(
-        "radius_neighbors_window needs the knn_window_tiles kernel, still to "
-        "be ported (ROADMAP.md, section 2, kernel 5)")
+    """Self radius search via the Morton window path (``knn_window``):
+    the large-N replacement for ``radius_neighbors`` when the queries are
+    the database."""
+    res = knn_window(points, mask, max_neighbors, tile=tile, n_passes=n_passes,
+                     exclude_self=exclude_self)
+    r = torch.tensor(radius, dtype=torch.float32).item()
+    inside = res.mask & (res.distances <= r)
+    return KnnResult(res.indices, torch.where(inside, res.distances, torch.inf),
+                     inside)
 
 
 def nearest_one(db_points: torch.Tensor, db_mask: torch.Tensor,
@@ -126,3 +138,232 @@ def nearest_one(db_points: torch.Tensor, db_mask: torch.Tensor,
         res = KnnResult(res.indices,
                         torch.where(inside, res.distances, torch.inf), inside)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Morton sliding-window kNN
+# ---------------------------------------------------------------------------
+
+_MERGE_ROWS = 16384   # rows per step of _merge_topk
+_TENSOR_CHUNK_TILES = 256   # query tiles per step of _window_topk_tensor
+
+
+def _merge_topk(neg_a, idx_a, neg_b, idx_b, k: int, pts_a=None, pts_b=None):
+    """Merge two per-row best-first lists into the best k, with the JAX
+    ``_merge_topk``'s result: b entries whose id equals a valid a entry's
+    are dropped, ties place a before b, b keeps its own order, and
+    unfilled slots hold −inf, id 0 (and zero coordinates). Here that is a
+    stable descending sort of [a, b], ``_MERGE_ROWS`` rows at a time so
+    the (rows, kb, ka) duplicate test stays small."""
+    outs = []
+    for r0 in range(0, neg_a.shape[0], _MERGE_ROWS):
+        sl = slice(r0, r0 + _MERGE_ROWS)
+        na, ia, nb, ib = neg_a[sl], idx_a[sl], neg_b[sl], idx_b[sl]
+        dup = ((ib[:, :, None] == ia[:, None, :])
+               & (na > -torch.inf)[:, None, :]).any(-1)
+        nb = torch.where(dup, -torch.inf, nb)
+        vals, pos = torch.sort(torch.cat([na, nb], 1), dim=1, descending=True,
+                               stable=True)
+        vals, pos = vals[:, :k], pos[:, :k]
+        filled = vals > -torch.inf
+        row = [vals, torch.where(filled, torch.gather(torch.cat([ia, ib], 1), 1, pos), 0)]
+        if pts_a is not None:
+            cand = torch.cat([pts_a[sl], pts_b[sl]], 1)
+            row.append(torch.where(filled[..., None],
+                                   torch.gather(cand, 1, pos[..., None].expand(-1, -1, 3)),
+                                   0.0))
+        outs.append(row)
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _sort_perm(keys: torch.Tensor) -> torch.Tensor:
+    return torch.sort(keys, stable=True).indices
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device, dtype=perm.dtype)
+    return inv
+
+
+def _pad_rows(x: torch.Tensor, n_pad: int, fill=0):
+    if x.shape[0] == n_pad:
+        return x
+    out = torch.full((n_pad,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)
+    out[:x.shape[0]] = x
+    return out
+
+
+def _window_topk_tensor(sp, sv, perm_p, k, tile, window, exclude_self):
+    """The window search without a kernel (``window`` tiles each side,
+    wrapping around as ``jnp.roll`` does), exact top-k by a stable sort:
+    (−d² (n_pad, kk), original ids (n_pad, kk)) in sorted order."""
+    n_pad = sp.shape[0]
+    t = n_pad // tile
+    sp_t = sp.reshape(t, tile, 3)
+    sv_t = sv.reshape(t, tile)
+    shifts = list(range(window, 0, -1)) + [0] + [-s for s in range(1, window + 1)]
+    w = len(shifts) * tile
+    kk = min(k, w)
+    negs, idxs = [], []
+    for t0 in range(0, t, _TENSOR_CHUNK_TILES):
+        t1 = min(t0 + _TENSOR_CHUNK_TILES, t)
+        rows = torch.arange(t0, t1, device=sp.device)
+        src = torch.cat([(rows - s) % t for s in shifts])            # window tiles
+        tiles = src.reshape(len(shifts), -1).T                         # (T, 2w+1)
+        cand = sp_t[tiles].reshape(t1 - t0, w, 3)
+        cand_v = sv_t[tiles].reshape(t1 - t0, w)
+        d = [sp_t[t0:t1, :, None, r] - cand[:, None, :, r] for r in range(3)]
+        neg = torch.where(cand_v[:, None, :], -(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]),
+                          -torch.inf)
+        if exclude_self:
+            # self sits at window offset window·tile + row of its own tile
+            col = torch.arange(w, device=sp.device)
+            own = window * tile + torch.arange(tile, device=sp.device)
+            neg = torch.where(col[None, None, :] == own[None, :, None], -torch.inf, neg)
+        top_neg, pos = torch.sort(neg, dim=-1, descending=True, stable=True)
+        top_neg, pos = top_neg[..., :kk], pos[..., :kk]
+        tile_id = rows[:, None, None]
+        sorted_pos = (tile_id * tile - window * tile + pos) % n_pad
+        negs.append(top_neg.reshape(-1, kk))
+        idxs.append(perm_p[sorted_pos].reshape(-1, kk))
+    return torch.cat(negs), torch.cat(idxs)
+
+
+def knn_window(points: torch.Tensor, mask: torch.Tensor, k: int, *,
+               tile: int = 256, n_passes: int = 2, window: int = 1,
+               recall_target: float = 0.95, exclude_self: bool = False,
+               backend: str = "auto", return_points: bool = False):
+    """Approximate self-kNN via Morton-order sliding windows.
+
+    Each pass sorts the points along a (per-pass shifted and axis-rolled)
+    Z-order curve, tiles the sorted order and searches each tile's
+    prev/self/next tiles; passes merge with ``_merge_topk``. With
+    ``window=1`` and ``backend`` "auto" or "pallas" the search runs on
+    ``knn_window_tiles`` (as the JAX package does on its TPU); other
+    configurations search ``window`` tiles each side with plain tensor
+    ops and an exact top-k (``recall_target`` is accepted for the JAX
+    signature; the port's top-k is always exact).
+    ``return_points=True`` (kernel path only) also returns the
+    neighbours' coordinates ``(N, k, 3)``."""
+    from ..kernels.knn_window import knn_window_tiles
+
+    n = points.shape[0]
+    dev = points.device
+    points = points.to(torch.float32)
+    use_kernel = backend in ("auto", "pallas") and window == 1
+    if return_points:
+        if window != 1:
+            raise ValueError("return_points requires window=1 (pallas kernel path)")
+        use_kernel = True
+    best_neg = torch.full((n, k), -torch.inf, device=dev)
+    best_idx = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    best_pts = torch.zeros((n, k, 3), device=dev) if return_points else None
+    n_pad = padding.round_up(n, tile)
+
+    for p in range(n_passes):
+        perm = _sort_perm(morton.morton_keys(points, mask, pass_index=p))
+        sp = _pad_rows(points[perm], n_pad)
+        sv = _pad_rows(mask[perm], n_pad, False)
+        perm_p = _pad_rows(perm.to(torch.int32), n_pad)
+        posof = _inverse(perm)
+        orig_pts = None
+        if use_kernel:
+            kk = min(k, 3 * tile)
+            out = knn_window_tiles(sp.T.contiguous(), sv.to(torch.float32)[None],
+                                   perm_p[None], kk, tile, with_coords=return_points,
+                                   exclude_self=exclude_self)
+            orig_neg = out[0].T[:n][posof]
+            orig_idx = out[1].T[:n][posof]
+            if return_points:
+                orig_pts = out[2].T[:n].reshape(n, kk, 3)[posof]
+        else:
+            neg, idx = _window_topk_tensor(sp, sv, perm_p, k, tile, window, exclude_self)
+            kk = neg.shape[1]
+            orig_neg, orig_idx = neg[:n][posof], idx[:n][posof]
+        if p == 0 and kk == k:
+            best_neg, best_idx, best_pts = orig_neg, orig_idx, orig_pts
+        elif return_points:
+            best_neg, best_idx, best_pts = _merge_topk(best_neg, best_idx, orig_neg,
+                                                       orig_idx, k, best_pts, orig_pts)
+        else:
+            best_neg, best_idx = _merge_topk(best_neg, best_idx, orig_neg, orig_idx, k)
+
+    d2 = -best_neg
+    valid = torch.isfinite(d2) & mask[:, None]
+    dist = torch.sqrt(torch.where(valid, d2, torch.inf))
+    result = KnnResult(best_idx.long().clamp(0, n - 1),
+                       torch.where(valid, dist, torch.inf), valid)
+    return (result, best_pts) if return_points else result
+
+
+def knn_window_sorted(points: torch.Tensor, mask: torch.Tensor, k: int, *,
+                      tile: int = 128, n_passes: int = 2):
+    """Self-kNN with the results left in first-pass sorted order.
+
+    Pass A sorts the padded cloud once; each further pass sorts the
+    pass-A rows by its own key, runs the kernel with the original ids as
+    payload, and its rows come back to pass-A order by one inverse
+    permutation before the merge. Returns ``(neg (N_pad, k), ids
+    (N_pad, k) int32 original rows, sorted points (N_pad, 3), sorted
+    mask, perm_a)``, all in pass-A order."""
+    from ..kernels.knn_window import knn_window_tiles
+
+    n_pad = padding.round_up(points.shape[0], tile)
+    pts = _pad_rows(points.to(torch.float32), n_pad)
+    mask = _pad_rows(mask, n_pad, False)
+    perm_a = _sort_perm(morton.morton_keys(pts, mask, pass_index=0)).to(torch.int32)
+    pts_a_rows = pts[perm_a]
+    am = mask[perm_a]
+    neg, ids = knn_window_tiles(pts_a_rows.T.contiguous(), am.to(torch.float32)[None],
+                                perm_a[None], k, tile)
+    best_neg, best_idx = neg.T, ids.T
+    for p in range(1, n_passes):
+        row_a = _sort_perm(morton.morton_keys(pts_a_rows, am, pass_index=p))
+        neg_b, ids_b = knn_window_tiles(
+            pts_a_rows[row_a].T.contiguous(), am[row_a].to(torch.float32)[None],
+            perm_a[row_a][None], k, tile)
+        inv_b = _inverse(row_a)
+        best_neg, best_idx = _merge_topk(best_neg, best_idx, neg_b.T[inv_b],
+                                         ids_b.T[inv_b], k)
+    return best_neg, best_idx, pts_a_rows, am, perm_a
+
+
+def knn_window_cross(db_points: torch.Tensor, db_mask: torch.Tensor,
+                     queries: torch.Tensor, query_mask: Optional[torch.Tensor],
+                     k: int = 1, *, tile: int = 256, n_passes: int = 2) -> KnnResult:
+    """Approximate cross-set kNN via a Morton sort of the union: each
+    query row's window holds its spatially near database points, with
+    database membership as the candidate validity."""
+    from ..kernels.knn_window import knn_window_tiles
+
+    n_db, n_q = db_points.shape[0], queries.shape[0]
+    dev = db_points.device
+    pts = torch.cat([db_points.to(torch.float32), queries.to(torch.float32)])
+    is_db = torch.cat([db_mask, torch.zeros(n_q, dtype=torch.bool, device=dev)])
+    any_valid = torch.cat([db_mask, query_mask if query_mask is not None
+                           else torch.ones(n_q, dtype=torch.bool, device=dev)])
+    n = n_db + n_q
+    n_pad = padding.round_up(n, tile)
+    kk = min(k, 3 * tile)
+    best_neg = best_idx = None
+    for p in range(n_passes):
+        perm = _sort_perm(morton.morton_keys(pts, any_valid, pass_index=p))
+        neg, idx = knn_window_tiles(
+            _pad_rows(pts[perm], n_pad).T.contiguous(),
+            _pad_rows(is_db[perm], n_pad, False).to(torch.float32)[None],
+            _pad_rows(perm.to(torch.int32), n_pad)[None], kk, tile)
+        rows = _inverse(perm)[n_db:]            # sorted row of each query
+        q_neg, q_idx = neg.T[rows], idx.T[rows]
+        if p == 0:
+            best_neg, best_idx = q_neg, q_idx
+        else:
+            best_neg, best_idx = _merge_topk(best_neg, best_idx, q_neg, q_idx, k)
+
+    d2 = -best_neg
+    valid = torch.isfinite(d2)
+    if query_mask is not None:
+        valid = valid & query_mask[:, None]
+    dist = torch.sqrt(torch.where(valid, d2, torch.inf))
+    return KnnResult(best_idx.long().clamp(0, n_db - 1),
+                     torch.where(valid, dist, torch.inf), valid)

@@ -1,6 +1,7 @@
 """Normal estimation by local PCA.
 
-Counterpart of ``threecrate_tpu.ops.normals``. Two methods are ported:
+Counterpart of ``threecrate_tpu.ops.normals``. Three methods are
+ported:
 
 * ``exact``: blockwise brute-force kNN (``ops.neighbors.knn``), a
   covariance from explicit component sums, the closed-form smallest
@@ -10,10 +11,12 @@ Counterpart of ``threecrate_tpu.ops.normals``. Two methods are ported:
   point query-centred central sums over a pass-A window and the
   pass-B candidates outside it, which add; the 3x3 eigensolve runs on
   the merged sums.
+* ``window``: the two-pass window kNN (``knn_window_tiles``) left in
+  pass-A order, then the same PCA as ``exact``.
 
 Orientation flips each normal toward a viewpoint (default: the bounding
-box centre raised by the z extent). ``method="window"`` and
-``"window_fast"`` wait for their kernels (see ``ROADMAP.md``).
+box centre raised by the z extent). ``"window_fast"`` with
+``window_merge="tighter"`` waits for its kernel (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from . import linalg, morton, neighbors
 class NormalEstimationConfig:
     """The JAX package's config, field for field: ``method`` is "auto"
     (union above ``AUTO_WINDOW_THRESHOLD`` points, else exact), "exact",
-    or the not yet ported "window" / "window_fast"; ``window_passes``
-    and ``window_merge`` configure "window_fast"."""
+    "window" or "window_fast" (ported with ``window_merge="union"``
+    only); ``window_passes`` and ``window_merge`` configure
+    "window_fast"."""
 
     k_neighbors: int = 10
     radius: Optional[float] = None
@@ -53,10 +57,6 @@ class NormalResult(NamedTuple):
     valid: torch.Tensor       # (N,) bool: enough neighbors for a plane fit
 
 
-def _sort_by(keys: torch.Tensor):
-    return torch.sort(keys, stable=True).indices
-
-
 def _union_window_sums(points, mask, k, tile=256, band=16):
     """The two-window union up to the merged central sums.
 
@@ -74,13 +74,13 @@ def _union_window_sums(points, mask, k, tile=256, band=16):
     mask_p = torch.zeros(n_pad, dtype=torch.bool, device=points.device)
     mask_p[:n] = mask
 
-    perm_a = _sort_by(morton.morton_keys(pts, mask_p, pass_index=0))
+    perm_a = neighbors._sort_perm(morton.morton_keys(pts, mask_p, pass_index=0))
     pts_a_rows = pts[perm_a]
     am = mask_p[perm_a].to(torch.float32)
     out_a = window_union_a_tiles(pts_a_rows.T.contiguous(), am[None, :], k,
                                  tile, band)                  # (11, N) A-order
 
-    row_a = _sort_by(morton.morton_keys(pts_a_rows, am > 0.5, pass_index=1))
+    row_a = neighbors._sort_perm(morton.morton_keys(pts_a_rows, am > 0.5, pass_index=1))
     out_b = window_union_b_tiles(
         pts_a_rows[row_a].T.contiguous(), am[row_a][None, :],
         row_a.to(torch.int32)[None, :], out_a[10][row_a][None, :], k, tile,
@@ -149,33 +149,9 @@ def _estimate_window_union(points, mask, k, viewpoint, orient, tile=256,
     return normal[:n], curv[:n], valid[:n] & mask
 
 
-def _estimate(points, mask, k, use_radius, radius, viewpoint, orient,
-              window=False, moments=False, window_passes=2, window_band=16,
-              window_merge="tighter"):
-    """Method dispatch, as the JAX ``_estimate``: the union when
-    ``moments`` with merge "union" and 2+ passes, else the exact path
-    (radius mode masks neighbours beyond ``radius`` and falls back to
-    plain k-NN where fewer than 3 fall inside)."""
-    if moments and not use_radius:
-        if window_merge == "union" and window_passes >= 2:
-            return _estimate_window_union(points, mask, k, viewpoint, orient,
-                                          band=window_band)
-        raise NotImplementedError(
-            'method="window_fast" needs the window_normals_tiles kernel, '
-            "still to be ported (ROADMAP.md, section 2, kernel 4)")
-    if window:
-        raise NotImplementedError(
-            'method="window" needs the knn_window_tiles kernel, still to be '
-            "ported (ROADMAP.md, section 2, kernel 5)")
-    knn_res = neighbors.knn(points, mask, points, mask, k)
-    if use_radius:
-        in_r = knn_res.mask & (knn_res.distances <= radius)
-        enough = in_r.sum(1) >= 3
-        nbr_ok = torch.where(enough[:, None], in_r, knn_res.mask)
-    else:
-        nbr_ok = knn_res.mask
-
-    nbr_pts = points[knn_res.indices]                          # (N, k, 3)
+def _pca_normals(nbr_pts, nbr_ok, query_pts, viewpoint, orient):
+    """Covariance of the (N, k) selected neighbours from explicit
+    component sums → smallest eigenvector and curvature → orientation."""
     w = nbr_ok.to(torch.float32)
     wsum = torch.clamp_min(w.sum(1), 1e-12)
     x, y, z = nbr_pts[..., 0], nbr_pts[..., 1], nbr_pts[..., 2]
@@ -193,8 +169,60 @@ def _estimate(points, mask, k, use_radius, radius, viewpoint, orient,
         torch.stack([cxy, cyy, cyz], -1),
         torch.stack([cxz, cyz, czz], -1)], -2)
     normal, curvature = _normal_and_curvature(cov)
+    return _orient(normal, query_pts, viewpoint, orient), curvature
+
+
+def _estimate_window_fused(points, mask, k, viewpoint, orient):
+    """``method="window"``: two-pass window kNN left in pass-A order
+    (``knn_window_sorted``, tile 128), the PCA there, and only the
+    per-point results scattered back to input order."""
+    neg, ids, pts_a, mask_a, perm_a = neighbors.knn_window_sorted(
+        points, mask, k, tile=128, n_passes=2)
+    nbr_ok = neg > -torch.inf
+    nbr_pts = points[ids.long().clamp(0, points.shape[0] - 1)]
+    normal_s, curv_s = _pca_normals(nbr_pts, nbr_ok, pts_a, viewpoint, orient)
+    valid_s = mask_a & (nbr_ok.sum(1) >= 3)
+    n = points.shape[0]
+    normal = torch.empty_like(normal_s)
+    curv = torch.empty_like(curv_s)
+    valid = torch.empty_like(valid_s)
+    normal[perm_a] = torch.where(valid_s[:, None], normal_s, 0.0)
+    curv[perm_a] = torch.where(valid_s, curv_s, 0.0)
+    valid[perm_a] = valid_s
+    return normal[:n], curv[:n], valid[:n] & mask
+
+
+def _estimate(points, mask, k, use_radius, radius, viewpoint, orient,
+              window=False, moments=False, window_passes=2, window_band=16,
+              window_merge="tighter"):
+    """Method dispatch, as the JAX ``_estimate``: the union when
+    ``moments`` with merge "union" and 2+ passes, the window kNN
+    pipeline for ``window``, else one kNN (window or exact) and the PCA
+    (radius mode masks neighbours beyond ``radius`` and falls back to
+    plain k-NN where fewer than 3 fall inside)."""
+    if moments and not use_radius:
+        if window_merge == "union" and window_passes >= 2:
+            return _estimate_window_union(points, mask, k, viewpoint, orient,
+                                          band=window_band)
+        raise NotImplementedError(
+            'method="window_fast" needs the window_normals_tiles kernel, '
+            "still to be ported (ROADMAP.md, section 2, kernel 4)")
+    if window and not use_radius:
+        return _estimate_window_fused(points, mask, k, viewpoint, orient)
+    if window:
+        knn_res = neighbors.knn_window(points, mask, k, n_passes=2, tile=128)
+    else:
+        knn_res = neighbors.knn(points, mask, points, mask, k)
+    if use_radius:
+        in_r = knn_res.mask & (knn_res.distances <= radius)
+        enough = in_r.sum(1) >= 3
+        nbr_ok = torch.where(enough[:, None], in_r, knn_res.mask)
+    else:
+        nbr_ok = knn_res.mask
+
+    normal, curvature = _pca_normals(points[knn_res.indices], nbr_ok, points,
+                                     viewpoint, orient)
     valid = mask & (nbr_ok.sum(1) >= 3)
-    normal = _orient(normal, points, viewpoint, orient)
     normal = torch.where(valid[:, None], normal, 0.0)
     return normal, torch.where(valid, curvature, 0.0), valid
 
