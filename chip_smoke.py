@@ -16,7 +16,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    sorted points of the registration target (r = 0.5, tile 256), the
    two banded SPFH kernels on the same points (r = 0.25, band 48, tile
    256), ``knn_window_tiles`` on the sorted 1M scan (tile 128) at k = 10,
-   k = 10 with coordinates, k = 9 and k = 64 with self excluded;
+   k = 10 with coordinates, k = 9 and k = 64 with self excluded, and the
+   four SHOT/USC kernels on the same sorted target points (r = 0.25,
+   band 32, tile 256; the histograms in both variants, on one set of
+   frames built from the plain moments);
 4. time each kernel and its plain version (CUDA-event medians);
 5. run ``PerceptionStep()`` on a 1M-point scan pair (target = source +
    (0.05, -0.03, 0.02)) with every launch counter reset just before:
@@ -52,11 +55,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
 14. ``extract_fpfh_features_with_normals(FpfhConfig(soft_binning=True))``
     on the 1M target (the staged window FPFH): ``knn_window`` twice at
     k = 64 with self excluded, no FPFH kernel; descriptors normalised;
-    time and peak memory.
+    time and peak memory;
+15. ``extract_shot_features(target)`` with default settings on the 1M
+    target: union, SHOT moments and SHOT histogram kernels launch once
+    each, no other kernel; valid descriptors unit length; on a strided
+    subset of 16,384 points, the cosine to the staged descriptor over an
+    exact radius search (r = 0.25, 128 neighbours) with the same normals:
+    logged over all points valid on both, and held >= 0.9 in median (the
+    JAX package's fused-vs-staged bound, tests/test_features.py:425) on
+    the points whose whole neighbourhood lies in the two ±band windows
+    (elsewhere the band sees a Morton-dependent part of it, as
+    ``ShotConfig``'s note says); time and peak memory; a device profile
+    of one call (``torch.profiler``: wall, busy time, idle share and the
+    largest device entries);
+16. ``extract_usc_features(target)``: the SHOT moments and histogram
+    kernels once each, the union kernels never; descriptors normalised;
+    the same comparison, time, peak memory and profile as phase 15;
+17. SHOT and USC on 2,048 points (the staged exact path): no SHOT kernel
+    launches; descriptors normalised.
 
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8 and 11-14), error and times, then ``{"ok": true, "device": {...}}``.
+8 and 11-16), error, times and bound, then ``{"ok": true, "device":
+{...}}``. A kernel's bound is the larger of the bytes it must move (each
+input read once, each output written once) over the H100's 3.35 TB/s and
+the fp32 operations of its algorithm on this run's inputs (per examined
+candidate and per selected pair, counted as each source's note says)
+over 67 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -92,6 +117,15 @@ BAND_KERNELS = ("spfh_band_a", "spfh_band_b")
 KNN_CONFIGS = {"k=10": (10, False, False), "k=10 coords": (10, True, False),
                "k=9": (9, False, False), "k=64 exclude_self": (64, False, True)}
 KNN_TILE = 128
+# The SHOT/USC kernels at ShotConfig's defaults. Moment count rows and
+# histogram count rows must equal the plain version's bit for bit, USC
+# histograms in every row (integer votes of the same unfused bins); the
+# moment sums and the SHOT soft votes differ only by summation order.
+SHOT_RADIUS, SHOT_BAND, SHOT_MAX_NEIGHBORS = 0.25, 32, 128
+SHOT_REL_TOL = 1e-5     # moments: |Δ| / Σw·R^k; SHOT votes: |Δ| / count
+SHOT_KERNELS = ("shot_moments_a", "shot_moments_b", "shot_hist_a", "shot_hist_b")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 REG_ANGLE = 0.35
 REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
 REG_CONFIG = dict(ransac_iterations=16384, fpfh_radius=FPFH_RADIUS,
@@ -216,6 +250,178 @@ def union_error(got: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor):
     return exact, rel, (g - r).abs().max().item()
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms the card could take, what bounds it) for a kernel that
+    moves ``nbytes`` and does ``ops`` fp32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
+    """(bytes, fp32 operations) of each timed kernel call on this run's
+    inputs: the union passes and ``knn_window`` (k = 10) on ``n_u`` sorted
+    scan points, ``icp_match`` on ``icp_args`` (E = 0), the FPFH, SHOT and
+    union kernels on their points with ``pairs`` selected candidates each
+    (from their count rows). Operations per examined candidate and per
+    selected pair are those of each source's note in csrc/: a distance
+    test ~9, with the selection ~12; a pair's SPFH features ~100, its
+    stage-2 weighting ~68, its SHOT moments ~30, its SHOT histogram vote
+    ~55 (USC ~45). The union needs each of its 3·tile window candidates'
+    d² once (~9), a compare and an add in each of its 6 bisection rounds,
+    the final selection test (1), pass B the pass-A tile test (~3); ~2
+    per ±band candidate for the k-th smallest, and ~19 per selected pair
+    for the sums (3 differences, 6 products, 10 additions)."""
+    src, tgt, starts = icp_args
+    w3 = 3 * FPFH_TILE
+    shot_c = 2 * SHOT_BAND + 1
+    union_ops = n_u * (3 * tile * (9 + 6 * 2 + 1) + (2 * band + 1) * 2)
+    work = {
+        "union_window_a": (4 * n_u * (4 + 11), union_ops + pairs["union_window_a"] * 19),
+        "union_window_b": (4 * n_u * (6 + 11), union_ops + n_u * 3 * tile * 3
+                           + pairs["union_window_b"] * 19),
+        "icp_match": (4 * (src.numel() + tgt.numel() + starts.numel() + src.numel()),
+                      src.shape[1] * 3 * 128 * 9),
+        "knn_window": (4 * n_u * 5 + 8 * 10 * n_u, n_u * 3 * KNN_TILE * 9),
+        "spfh_a": (4 * n_f * (7 + 34), n_f * w3 * 12 + pairs["spfh_a"] * 100),
+        "spfh_b": (4 * n_f * (8 + 34), n_f * w3 * 12 + pairs["spfh_b"] * 100),
+        "fpfh_weight_a": (4 * n_f * (37 + 34), n_f * w3 * 9 + pairs["fpfh_weight_a"] * 68),
+        "fpfh_weight_b": (4 * n_f * (38 + 34), n_f * w3 * 9 + pairs["fpfh_weight_b"] * 68),
+        "spfh_band_a": (4 * n_f * (7 + 34), n_f * (2 * BAND + 1) * 12
+                        + pairs["spfh_band_a"] * 100),
+        "spfh_band_b": (4 * n_f * (8 + 34), n_f * (2 * BAND + 1) * 12
+                        + pairs["spfh_band_b"] * 100),
+        "shot_moments_a": (4 * n_f * (4 + 14), n_f * shot_c * 12
+                           + pairs["shot_moments_a"] * 30),
+        "shot_moments_b": (4 * n_f * (5 + 14), n_f * shot_c * 12
+                           + pairs["shot_moments_b"] * 30),
+    }
+    for kname, rows in (("shot_hist_a", 7 + 9), ("shot_hist_b", 8 + 9)):
+        for tname, dim, per_pair in ((kname, 352, 55), (f"{kname} usc", 128, 45)):
+            work[tname] = (4 * n_f * (rows + dim + 1),
+                           n_f * shot_c * 12 + pairs[tname] * per_pair)
+    return work
+
+
+def run_counted(kernels, total, fn):
+    """fn() with the launch counters reset just before and read just
+    after; the counts are added to ``total``."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for kname, n in counts.items():
+        total[kname] += n
+    return out, counts
+
+
+def only(counts, expected) -> bool:
+    """True when exactly the kernels of ``expected`` launched, as often."""
+    return all(counts[k] == expected.get(k, 0) for k in counts)
+
+
+def shot_kernel_checks(pa, pb, pos_b):
+    """Phase 3, SHOT/USC kernels on the registration target's sorted rows
+    (r = 0.25, band 32, tile 256): each against its plain version, the
+    histograms in both variants on one set of frames built from the
+    plain moments. Returns ({timing name: (kernel call, plain call)},
+    max abs error and selected pairs by timing name)."""
+    from threecrate_tpu_torch.kernels import shot
+    from threecrate_tpu_torch.ops.features import lrf_from_moments
+
+    r2 = SHOT_RADIUS * SHOT_RADIUS
+    radius = float(np.float32(SHOT_RADIUS))
+    geom = (r2, SHOT_BAND, FPFH_TILE)
+    pos_f = pos_b.to(torch.float32)
+    row_a = pos_b[0].long()
+    calls, err, pairs, mom = {}, {}, {}, {}
+    power = torch.tensor([0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 0, 3, 3, 3], device=pa.device)
+    for kname, args in (("shot_moments_a", (pa[0:4].contiguous(),)),
+                        ("shot_moments_b", (torch.cat([pb[0:4], pos_f]).contiguous(),))):
+        kern, plain = getattr(shot, kname + "_tiles"), getattr(shot, kname + "_plain")
+        got, ref = kern(*args, *geom), plain(*args, *geom)
+        torch.cuda.synchronize()
+        cnt_eq = torch.equal(got[10], ref[10])
+        scale = ref[0].clamp_min(1e-30)[None] * radius ** power[:, None]
+        rel = ((got - ref).abs() / scale).max().item()
+        err[kname], pairs[kname] = (got - ref).abs().max().item(), ref[10].sum().item()
+        log(f"  {kname}: N={pa.shape[1]} r={SHOT_RADIUS} band={SHOT_BAND} count row "
+            f"bit-equal {cnt_eq} (need True), sums max err / Σw·R^k {rel:.3e} (tol "
+            f"{SHOT_REL_TOL}), max abs err {err[kname]:.3e}, mean count "
+            f"{pairs[kname] / pa.shape[1]:.2f}")
+        check(cnt_eq and rel <= SHOT_REL_TOL, f"{kname} disagrees")
+        calls[kname] = (lambda kern=kern, a=args: kern(*a, *geom),
+                        lambda plain=plain, a=args: plain(*a, *geom))
+        mom[kname] = ref
+    lrf = lrf_from_moments(mom["shot_moments_a"].T
+                           + mom["shot_moments_b"].T[torch.argsort(row_a)],
+                           SHOT_RADIUS, pa[4:7].T)
+    del mom
+    hist_args = {"shot_hist_a": (pa, lrf.T.contiguous()),
+                 "shot_hist_b": (torch.cat([pb, pos_f]).contiguous(),
+                                 lrf[row_a].T.contiguous())}
+    for variant, dim in (("shot", 352), ("usc", 128)):
+        for kname, args in hist_args.items():
+            kern, plain = getattr(shot, kname + "_tiles"), getattr(shot, kname + "_plain")
+            got, ref = kern(*args, *geom, variant), plain(*args, *geom, variant)
+            torch.cuda.synchronize()
+            cnt_eq = torch.equal(got[dim], ref[dim])
+            exact = share((got == ref).all(0))
+            vote = ((got[:dim] - ref[:dim]).abs().amax(0) / ref[dim].clamp_min(1)).max().item()
+            tname = kname if variant == "shot" else f"{kname} usc"
+            err[tname], pairs[tname] = (got - ref).abs().max().item(), ref[dim].sum().item()
+            log(f"  {tname}: count row bit-equal {cnt_eq} (need True), all {dim + 1} rows "
+                f"bit-equal on {exact:.6f} of queries (USC: need 1), max vote err / count "
+                f"{vote:.3e} (SHOT: tol {SHOT_REL_TOL}), max abs err {err[tname]:.3e}")
+            check(cnt_eq and (exact == 1.0 if variant == "usc" else vote <= SHOT_REL_TOL),
+                  f"{tname} disagrees")
+            calls[tname] = (lambda kern=kern, a=args, v=variant: kern(*a, *geom, v),
+                            lambda plain=plain, a=args, v=variant: plain(*a, *geom, v))
+    return calls, err, pairs
+
+
+def exact_shot(points, mask, nrm, sub, variant):
+    """Staged SHOT/USC descriptors ``(desc, valid, neighbours)`` of the
+    rows ``sub`` over an exact radius search (r = 0.25, up to 128
+    neighbours, self excluded): ``neighbors.knn`` candidates, distances
+    recomputed as direct differences (its d² expands |q|² + |p|² − 2q·p,
+    ~1e-3 m² off at 100 m), the nearest 128 kept."""
+    from threecrate_tpu_torch.ops import neighbors
+    from threecrate_tpu_torch.ops.features import _shot_descriptor_block
+
+    radius = float(np.float32(SHOT_RADIUS))
+    q = points[sub]
+    cand = neighbors.knn(points, mask, q, mask[sub], SHOT_MAX_NEIGHBORS + 1)
+    d = (points[cand.indices] - q[:, None]).norm(dim=-1)
+    d = torch.where(cand.mask & (cand.indices != sub[:, None]), d, torch.inf)
+    d, order = torch.sort(d, dim=1)
+    idx = torch.gather(cand.indices, 1, order)[:, :SHOT_MAX_NEIGHBORS]
+    d = d[:, :SHOT_MAX_NEIGHBORS]
+    ok = d <= radius
+    desc = _shot_descriptor_block(points[idx], nrm[idx], ok, d, q, nrm[sub], radius, 11,
+                                  variant)
+    cnt = ok.sum(1)
+    return desc, mask[sub] & (cnt >= 5), cnt
+
+
+def fused_counts(points, mask):
+    """In-radius candidates the fused SHOT path sees for each point (its
+    two ±band windows, pass A and pass B), in input order, from the plain
+    moment passes."""
+    from threecrate_tpu_torch.kernels import shot
+    from threecrate_tpu_torch.ops.features import fused_stage1_inputs
+
+    r2 = SHOT_RADIUS * SHOT_RADIUS
+    pa, pb, row_a, perm_a = fused_stage1_inputs(points, mask, torch.zeros_like(points),
+                                                FPFH_TILE)
+    cnt = shot.shot_moments_a_plain(pa[0:4].contiguous(), r2, SHOT_BAND, FPFH_TILE)[10]
+    cnt[row_a] += shot.shot_moments_b_plain(
+        torch.cat([pb[0:4], row_a.to(torch.float32)[None]]).contiguous(), r2, SHOT_BAND,
+        FPFH_TILE)[10]
+    out = torch.empty_like(cnt)
+    out[perm_a] = cnt
+    return out[:points.shape[0]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -312,6 +518,8 @@ def main() -> int:
     pa, pb, pos_b = fpfh_inputs(dev)
     v_a, v_b = pa[3] > 0.5, pb[3] > 0.5
     fpfh_err = {}
+    # selected (in-radius) pairs of each kernel, from its count row
+    pairs = {"union_window_a": ref_a[0].sum().item(), "union_window_b": ref_b[0].sum().item()}
     stage1 = {}
     for kname, kern, plain, args, v in (
             ("spfh_a", fpfh.spfh_a_tiles, fpfh.spfh_a_plain, (pa,), v_a),
@@ -321,6 +529,7 @@ def main() -> int:
         torch.cuda.synchronize()
         exact = share((got == ref).all(0)[v])
         fpfh_err[kname] = (got - ref).abs().max().item()
+        pairs[kname] = ref[33].sum().item()
         log(f"  {kname}: N={pa.shape[1]} vote+count rows bit-equal {exact:.6f} (need 1), "
             f"max abs err {fpfh_err[kname]:.3e}, mean count {ref[33][v].mean().item():.2f}")
         check(exact == 1.0, f"{kname} disagrees")
@@ -343,6 +552,7 @@ def main() -> int:
         rel = ((got[:33] - ref[:33]).abs().amax(0)
                / ref[:33].abs().sum(0).clamp_min(1e-30))[v].max().item()
         fpfh_err[kname] = (got - ref).abs().max().item()
+        pairs[kname] = ref[33].sum().item()
         log(f"  {kname}: count bit-equal {cnt_exact:.6f} (need 1), sums max rel err "
             f"{rel:.3e} (tol {FPFH_REL_TOL}), max abs err {fpfh_err[kname]:.3e}")
         check(cnt_exact == 1.0 and rel <= FPFH_REL_TOL, f"{kname} disagrees")
@@ -358,10 +568,13 @@ def main() -> int:
         torch.cuda.synchronize()
         exact = share((got == ref).all(0))
         fpfh_err[kname] = (got - ref).abs().max().item()
+        pairs[kname] = ref[33].sum().item()
         log(f"  {kname}: N={pa.shape[1]} r={BAND_RADIUS} band={BAND} all 34 rows bit-equal "
             f"{exact:.6f} (need 1), max abs err {fpfh_err[kname]:.3e}, mean count "
             f"{ref[33][v_a if kname == 'spfh_band_a' else v_b].mean().item():.2f}")
         check(exact == 1.0, f"{kname} disagrees")
+    shot_calls, shot_err, shot_pairs = shot_kernel_checks(pa, pb, pos_b)
+    pairs.update(shot_pairs)
 
     log("phase 4: kernel and plain times (CUDA-event medians)")
     times = {
@@ -386,6 +599,7 @@ def main() -> int:
         knn_args = (pts_a, valid_a, ids_a, kk, KNN_TILE, coords, excl)
         times["knn_window " + cname] = (lambda a=knn_args: knn_window_tiles(*a),
                                         lambda a=knn_args: knn_window_plain(*a))
+    times.update(shot_calls)
     ms = {}
     for kname, (kern, plain) in times.items():
         # plain, kernel, kernel, plain: compare within one call, in turns
@@ -397,7 +611,8 @@ def main() -> int:
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms")
     ms["knn_window"] = ms["knn_window k=10"]     # method="window" normals' shape
-    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args
+    work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs)
+    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls
     del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, inv_b, got, ref, args
     torch.cuda.empty_cache()
 
@@ -457,8 +672,9 @@ def main() -> int:
 
     reg_launches, reg_report = registration_phases(dev, kernels)
     win_launches, win_report = window_phases(dev, kernels)
+    shot_launches, shot_report = shot_phases(dev, kernels)
     for kname in launches:
-        launches[kname] += reg_launches[kname] + win_launches[kname]
+        launches[kname] += reg_launches[kname] + win_launches[kname] + shot_launches[kname]
 
     src_of = {"union_window_a": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:564"),
@@ -479,16 +695,34 @@ def main() -> int:
               "spfh_band_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
                               "threecrate_tpu/kernels/fpfh_pallas.py:468"),
               "knn_window": ("threecrate_tpu_torch/csrc/knn_window.cu",
-                             "threecrate_tpu/kernels/knn_pallas.py:645")}
+                             "threecrate_tpu/kernels/knn_pallas.py:645"),
+              "shot_moments_a": ("threecrate_tpu_torch/csrc/shot.cu",
+                                 "threecrate_tpu/kernels/shot_pallas.py:262"),
+              "shot_moments_b": ("threecrate_tpu_torch/csrc/shot.cu",
+                                 "threecrate_tpu/kernels/shot_pallas.py:285"),
+              "shot_hist_a": ("threecrate_tpu_torch/csrc/shot.cu",
+                              "threecrate_tpu/kernels/shot_pallas.py:308"),
+              "shot_hist_b": ("threecrate_tpu_torch/csrc/shot.cu",
+                              "threecrate_tpu/kernels/shot_pallas.py:335")}
     errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
-            "knn_window": knn_err, **fpfh_err}
-    report = {"kernels": [
-        {"name": kname, "route": "cuda", "source": src_of[kname][0],
-         "replaces": src_of[kname][1], "launches": launches[kname],
-         "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1]}
-        for kname in src_of]}
+            "knn_window": knn_err, **fpfh_err, **shot_err}
+    for kname in ("shot_hist_a", "shot_hist_b"):      # both variants
+        errs[kname] = max(errs[kname], errs.pop(f"{kname} usc"))
+    report = {"kernels": []}
+    for kname in src_of:
+        bound_ms, bound_by = bound(*work[kname])
+        report["kernels"].append(
+            {"name": kname, "route": "cuda", "source": src_of[kname][0],
+             "replaces": src_of[kname][1], "launches": launches[kname],
+             "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1],
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    usc_ms = {k: ms[f"{k} usc"] for k in ("shot_hist_a", "shot_hist_b")}
+    usc_bound = {k: bound(*work[f"{k} usc"]) for k in usc_ms}
+    log(f"USC histograms (kernel ms, plain ms; bound ms, by): {json.dumps(usc_ms)} "
+        f"{json.dumps(usc_bound)}")
     log(f"registration: {json.dumps(reg_report)}")
     log(f"window paths: {json.dumps(win_report)}")
+    log(f"shot paths: {json.dumps(shot_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -608,17 +842,7 @@ def window_phases(dev, kernels):
     total = dict.fromkeys(kernels.WRAPPERS, 0)
 
     def run(fn):
-        """fn() with the launch counters reset just before and read just after."""
-        kernels.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        for kname, n in counts.items():
-            total[kname] += n
-        return out, counts
-
-    def only(counts, expected):
-        return all(counts[k] == expected.get(k, 0) for k in counts)
+        return run_counted(kernels, total, fn)
 
     def normalised(res):
         d = res.descriptors[res.valid].reshape(-1, 3, 11)
@@ -748,6 +972,98 @@ def window_phases(dev, kernels):
               "window_normals_ms": 1e3 * t_wn, "window_normals_median_cos": med_n,
               "sor_ms": 1e3 * t_sor, "sor_kept": kept, "sor_agree": [agree, not_below],
               "soft_fpfh_ms": 1e3 * t_soft, "soft_fpfh_peak_gib": peak_soft / 2**30}
+    return total, report
+
+
+def shot_phases(dev, kernels):
+    """Phases 15-17: default SHOT and USC on the 1M registration target
+    (checked, with their launch counts, times and peak memory) and both on
+    2,048 points (the staged exact path). Returns (launches summed over
+    the checked 1M runs, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.utils.profiling import device_profile, median_time
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {}
+
+    def normalised(res, dim):
+        d = res.descriptors
+        norms = d[res.valid].norm(dim=1)
+        return (d.shape[1] == dim and bool(torch.isfinite(d).all())
+                and bool(((norms - 1).abs() <= 1e-4).all())
+                and bool((d[~res.valid] == 0).all()))
+
+    _, tgt_np, _ = registration_pair()
+    tgt = tt.PointCloud.from_numpy(tgt_np, device=dev)
+    sub = torch.arange(0, N_SCAN, N_SCAN // 16384, device=dev)[:16384]
+    nrm = tt.estimate_normals_detailed(tgt).normals     # k = 10, as SHOT estimates them
+    fused_cnt = fused_counts(tgt.points, tgt.mask)[sub]
+    union = {"union_window_a": 1, "union_window_b": 1}
+    shot_once = dict.fromkeys(SHOT_KERNELS, 1)
+    for phase, variant, fn, dim, expected in (
+            (15, "shot", tt.extract_shot_features, 352, {**union, **shot_once}),
+            (16, "usc", tt.extract_usc_features, 128, shot_once)):
+        log(f"phase {phase}: {fn.__name__}(target), default settings, on the 1M target")
+        res, counts = run_counted(kernels, total, lambda fn=fn: fn(tgt))
+        share_v = res.valid.float().sum().item() / N_SCAN
+        log(f"  launches {counts}; valid share {share_v:.4f}")
+        check(only(counts, expected),
+              f"{fn.__name__} did not launch exactly its kernels once each")
+        check(res.descriptors.shape[0] == tgt.capacity and normalised(res, dim),
+              f"{variant} descriptors not finite, not unit length or not zero where invalid")
+        # the staged descriptor over an exact radius search, same normals;
+        # where the two ±band windows hold a point's whole neighbourhood
+        # (the same count, below the 128 cap) both paths bin the same
+        # neighbours, and the JAX package's fused-vs-staged bound holds
+        ref, ref_v, ref_cnt = exact_shot(tgt.points, tgt.mask,
+                                         nrm if variant == "shot" else torch.zeros_like(nrm),
+                                         sub, variant)
+        both = ref_v & res.valid[sub]
+        fits = both & (fused_cnt == ref_cnt) & (ref_cnt < SHOT_MAX_NEIGHBORS)
+        cos = (ref * res.descriptors[sub]).sum(1)
+        med, above = cos[both].median().item(), (cos[both] > 0.97).float().mean().item()
+        med_fit, n_fit = cos[fits].median().item(), int(fits.sum().item())
+        log(f"  cosine vs the staged descriptor over an exact radius search, on the "
+            f"{int(both.sum().item())} of 16,384 points valid on both: median {med:.6f}, "
+            f"share above 0.97 {above:.4f}; on the {n_fit} whose neighbourhood fits the "
+            f"band windows: median {med_fit:.6f} (need >= 0.9 on >= 100), share above "
+            f"0.97 {(cos[fits] > 0.97).float().mean().item():.4f}; mean in-radius "
+            f"neighbours exact {ref_cnt.float().mean().item():.2f}, in the band windows "
+            f"{fused_cnt.float().mean().item():.2f}")
+        check(n_fit >= 100 and med_fit >= 0.9,
+              f"fused {variant} too far from the staged exact descriptor")
+        del res, ref, ref_v, ref_cnt, cos, both, fits
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = median_time(lambda fn=fn: fn(tgt), warmup=1, iters=3)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {fn.__name__} {1e3 * t:.2f} ms median of 3, peak allocated "
+            f"{peak / 2**30:.3f} GiB")
+        wall, busy, entries = device_profile(lambda fn=fn: fn(tgt))
+        log(f"  profiled call: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / wall:.3f}; largest device entries:")
+        for ename, ems, count in entries:
+            log(f"    {ems:9.3f} ms x{count:<4d} {ename[:100]}")
+        report[variant] = {"ms": 1e3 * t, "peak_gib": peak / 2**30, "valid_share": share_v,
+                           "median_cos": med, "share_above_0.97": above,
+                           "fits": n_fit, "median_cos_fits": med_fit,
+                           "profiled_wall_ms": wall, "busy_ms": busy}
+
+    log("phase 17: SHOT and USC on 2,048 points (the staged exact path)")
+    rng = np.random.default_rng(5)
+    xy = rng.uniform(-2, 2, (2048, 2)).astype(np.float32)
+    z = 0.4 * np.sin(xy[:, 0] * 2.0) + 0.3 * np.cos(xy[:, 1] * 1.7)
+    small = tt.PointCloud.from_numpy(np.stack([xy[:, 0], xy[:, 1], z], -1), device=dev)
+    for fn, dim in ((tt.extract_shot_features, 352), (tt.extract_usc_features, 128)):
+        kernels.reset_launch_counts()
+        res = fn(small)
+        counts = kernels.launch_counts()
+        share_v = res.valid.float().mean().item()
+        log(f"  {fn.__name__}: shape {tuple(res.descriptors.shape)}, valid share "
+            f"{share_v:.4f}, launches {counts}")
+        check(not any(counts[k] for k in SHOT_KERNELS), "staged path launched a SHOT kernel")
+        check(res.descriptors.shape[0] == small.capacity and normalised(res, dim)
+              and share_v > 0.9, f"2,048-point {fn.__name__} descriptors wrong")
     return total, report
 
 

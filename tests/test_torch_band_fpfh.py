@@ -127,7 +127,7 @@ def _clouds(pts, nrm):
     mask = np.ones(len(pts), bool)
     jc = tc.PointCloud(points=jnp.asarray(pts), mask=jnp.asarray(mask),
                        attrs={"normals": jnp.asarray(nrm)})
-    return jc, interop.cloud_from_numpy(pts, mask, {"normals": nrm})
+    return jc, interop.cloud_from_numpy(pts, mask, {"normals": nrm}, device="cpu")
 
 
 def _assert_fused_close(td, tv, jd, jv):

@@ -64,7 +64,7 @@ def test_point_cloud_roundtrip_and_bbox(rng):
     pts = rng.normal(0, 3, (300, 3)).astype(np.float32)
     nrm = rng.normal(0, 1, (300, 3)).astype(np.float32)
     jc = tc.PointCloud.from_numpy(pts)
-    c = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask))
+    c = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask), device="cpu")
     assert c.capacity == jc.capacity and len(c) == 300
     for a, b in zip(c.bounding_box(), jc.bounding_box()):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -73,7 +73,7 @@ def test_point_cloud_roundtrip_and_bbox(rng):
     pts_np, mask_np, attrs = interop.cloud_to_numpy(c)
     np.testing.assert_array_equal(pts_np, np.asarray(jc.points))
     np.testing.assert_array_equal(attrs["normals"][:300], nrm)
-    own = tt.PointCloud.from_numpy(pts, normals=nrm)
+    own = tt.PointCloud.from_numpy(pts, device="cpu", normals=nrm)
     assert own.capacity == 384 and int(own.mask.sum()) == 300
     sub = tt.PointCloud(own.points, own.mask & (own.points[:, 0] > 0), own.attrs)
     packed = sub.compact()
@@ -81,9 +81,21 @@ def test_point_cloud_roundtrip_and_bbox(rng):
     np.testing.assert_array_equal(packed.normals[:len(packed)].numpy(),
                                   nrm[pts[:, 0] > 0])
     with pytest.raises(terr.InvalidDataError):
-        tt.PointCloud.from_numpy(pts[:, :2])
+        tt.PointCloud.from_numpy(pts[:, :2], device="cpu")
     with pytest.raises(terr.InvalidDataError):
         c.with_normals(torch.zeros(c.capacity + 1, 3))
+
+
+def test_from_numpy_places_clouds_on_the_card():
+    """The default device is the card; without CUDA, torch's own error
+    comes through (no CPU fallback)."""
+    pts = np.zeros((10, 3), np.float32)
+    if torch.cuda.is_available():
+        assert tt.PointCloud.from_numpy(pts).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tt.PointCloud.from_numpy(pts)
+    assert tt.PointCloud.from_numpy(pts, device="cpu").device.type == "cpu"
 
 
 def test_transform_matches_jax(rng):
@@ -208,7 +220,7 @@ def test_knn_matches_jax(rng, k):
 
 def test_interop_transform_roundtrip(rng):
     m = np.asarray(jtf.se3_exp(jnp.asarray(rng.normal(0, 0.2, 6), jnp.float32)))
-    t = interop.transform_from_numpy(m)
+    t = interop.transform_from_numpy(m, device="cpu")
     np.testing.assert_array_equal(interop.transform_to_numpy(t), m)
 
 

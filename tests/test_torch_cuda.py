@@ -16,7 +16,13 @@ bit-equal in every slot (the same unfused d², the same order); a small
 ``RegistrationModel`` recovers its pose within 1e-3 on the card and on
 the CPU; the window normals, outlier removal and staged FPFH agree with
 the port's own CPU results (window search ids equal, distances within
-1e-6 relative: the card's sqrt may round the last bit differently).
+1e-6 relative: the card's sqrt may round the last bit differently);
+SHOT/USC moments' count row bit-equal and sums within 1e-5 of their
+scale Σw·R^k, USC histograms bit-equal, SHOT histograms' count row
+bit-equal and votes within 1e-5 of each query's count; the fused
+SHOT/USC entries on the card against the port's own CPU run: valid flags
+equal on >= 99%, descriptor cosine >= 0.999 on >= 97% (an LRF sign vote
+at its tie threshold may flip under the card's last-bit differences).
 """
 
 import numpy as np
@@ -26,7 +32,7 @@ torch = pytest.importorskip("torch")
 
 import threecrate_tpu_torch as tt  # noqa: E402
 from threecrate_tpu_torch import kernels  # noqa: E402
-from threecrate_tpu_torch.kernels import fpfh  # noqa: E402
+from threecrate_tpu_torch.kernels import fpfh, shot  # noqa: E402
 from threecrate_tpu_torch.kernels.icp import icp_match_plain, icp_match_tiles  # noqa: E402
 from threecrate_tpu_torch.kernels.knn import (  # noqa: E402
     window_union_a_plain, window_union_a_tiles, window_union_b_plain,
@@ -130,12 +136,19 @@ def test_wrappers_count_launches(cuda):
     fpfh.spfh_band_a_tiles(p7, 0.1, 16, TILE)
     fpfh.spfh_band_b_tiles(torch.zeros(8, 512, device=cuda), 0.1, 16, TILE)
     knn_window_tiles(x, v, pos, 4, 128)
+    p4, lrf = torch.zeros(4, 512, device=cuda), torch.zeros(9, 512, device=cuda)
+    shot.shot_moments_a_tiles(p4, 0.1, 16, TILE)
+    shot.shot_moments_b_tiles(torch.zeros(5, 512, device=cuda), 0.1, 16, TILE)
+    shot.shot_hist_a_tiles(p7, lrf, 0.1, 16, TILE, "usc")
+    shot.shot_hist_b_tiles(torch.zeros(8, 512, device=cuda), lrf, 0.1, 16, TILE)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"union_window_a": 1, "union_window_b": 1,
                                        "icp_match": 1, "spfh_a": 1, "spfh_b": 1,
                                        "fpfh_weight_a": 1, "fpfh_weight_b": 1,
                                        "spfh_band_a": 1, "spfh_band_b": 1,
-                                       "knn_window": 1}
+                                       "knn_window": 1, "shot_moments_a": 1,
+                                       "shot_moments_b": 1, "shot_hist_a": 1,
+                                       "shot_hist_b": 1}
 
 
 def test_step_on_card_matches_cpu(cuda, monkeypatch):
@@ -324,3 +337,73 @@ def test_window_paths_on_card_match_cpu(cuda):
     l1 = (gd - cd).abs().sum(1)[cv]
     assert (l1 < 1.0).float().mean() >= 0.9, l1.quantile(0.9).item()
     assert l1.median() < 0.01, l1.median().item()
+
+
+def _shot_inputs(cuda, n, seed, tile):
+    """SHOT kernel inputs on a kitti-like scan: pass-A rows (7, N) with the
+    port's normals, the pass-B rows with posA (8, N), random orthonormal
+    frames in both orders, as ``_shot_fused`` packs them."""
+    pc = tt.PointCloud.from_numpy(_scan(n, seed), pad_multiple=tile, device=cuda)
+    nrm = tn.estimate_normals_detailed(pc).normals
+    pa, pb, row_a, _ = tf.fused_stage1_inputs(pc.points, pc.mask, nrm, tile)
+    p8 = torch.cat([pb, row_a.to(torch.float32)[None]]).contiguous()
+    q, _ = np.linalg.qr(np.random.default_rng(seed).normal(size=(pa.shape[1], 3, 3)))
+    x, y = q[:, :, 0], q[:, :, 1]
+    lrf = torch.from_numpy(np.concatenate([x, y, np.cross(x, y)], 1).T
+                           .astype(np.float32)).to(cuda).contiguous()
+    return pa, p8, lrf, lrf[:, row_a].contiguous()
+
+
+@pytest.mark.parametrize("band,tile", [(32, 256), (16, 128), (64, 64)])
+def test_shot_kernels_match_plain(cuda, band, tile):
+    pa, p8, lrf, lrf_b = _shot_inputs(cuda, 20_000, 10, tile)
+    for r in (0.25, 1.0):
+        r2, radius = r * r, float(np.float32(r))
+        for got, ref in ((shot.shot_moments_a_tiles(pa[0:4], r2, band, tile),
+                          shot.shot_moments_a_plain(pa[0:4], r2, band, tile)),
+                         (shot.shot_moments_b_tiles(p8[[0, 1, 2, 3, 7]].contiguous(), r2,
+                                                    band, tile),
+                          shot.shot_moments_b_plain(p8[[0, 1, 2, 3, 7]].contiguous(), r2,
+                                                    band, tile))):
+            assert torch.equal(got[10], ref[10]) and ref[10].max() > 3
+            power = torch.tensor([0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 0, 3, 3, 3], device=cuda)
+            scale = ref[0].clamp_min(1e-30)[None] * radius ** power[:, None]
+            assert ((got - ref).abs() / scale).max().item() <= 1e-5
+        for variant, dim in (("usc", 128), ("shot", 352)):
+            for got, ref in ((shot.shot_hist_a_tiles(pa, lrf, r2, band, tile, variant),
+                              shot.shot_hist_a_plain(pa, lrf, r2, band, tile, variant)),
+                             (shot.shot_hist_b_tiles(p8, lrf_b, r2, band, tile, variant),
+                              shot.shot_hist_b_plain(p8, lrf_b, r2, band, tile, variant))):
+                assert torch.equal(got[dim], ref[dim])
+                if variant == "usc":
+                    assert torch.equal(got, ref)
+                else:
+                    err = (got[:dim] - ref[:dim]).abs().amax(0)
+                    assert (err <= 1e-5 * ref[dim].clamp_min(1)).all()
+
+
+def test_shot_entries_on_card_launch_their_kernels(cuda):
+    """method="window" SHOT and USC on 20,000 points (exact normals below
+    65,536 points): the four SHOT kernels once each, no other kernel; the
+    card's descriptors agree with the port's CPU run."""
+    pts = _scan(20_000, 11)
+    cfg = tt.ShotConfig(method="window")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pc = tt.PointCloud.from_numpy(pts, device=dev)
+        pc = pc.with_normals(tn.estimate_normals_detailed(pc).normals)
+        for name, fn in (("shot", tt.extract_shot_features), ("usc", tt.extract_usc_features)):
+            kernels.reset_launch_counts()
+            res = fn(pc, cfg)
+            out[dev.type, name] = (res.descriptors.cpu(), res.valid.cpu(),
+                                   kernels.launch_counts())
+    for name in ("shot", "usc"):
+        gd, gv, counts = out["cuda", name]
+        cd, cv, cpu_counts = out["cpu", name]
+        assert {k: v for k, v in counts.items() if v} == {
+            "shot_moments_a": 1, "shot_moments_b": 1, "shot_hist_a": 1, "shot_hist_b": 1}
+        assert not any(cpu_counts.values())
+        assert (gv == cv).float().mean() >= 0.99
+        both = gv & cv
+        cos = (gd[both] * cd[both]).sum(1)
+        assert (cos >= 0.999).float().mean() >= 0.97, cos.quantile(0.03).item()

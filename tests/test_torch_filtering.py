@@ -28,7 +28,7 @@ torch.set_num_threads(2)   # the suite runs several workers per host
 
 def _both(pts):
     jc = tc.PointCloud.from_numpy(pts)
-    return jc, interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask))
+    return jc, interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask), device="cpu")
 
 
 def _noisy_scan(n, seed):
@@ -121,7 +121,8 @@ def test_radius_outlier_removal_matches_jax(min_neighbors):
 
 
 def test_point_cloud_mask_helpers():
-    pc = tt.PointCloud.from_numpy(np.zeros((5, 3), np.float32), capacity=8)
+    pc = tt.PointCloud.from_numpy(np.zeros((5, 3), np.float32), capacity=8,
+                                 device="cpu")
     keep = torch.tensor([True, False, True, True, False, True, True, True])
     sel = pc.select(keep)
     assert sel.mask.tolist() == [True, False, True, True, False, False, False, False]

@@ -174,8 +174,8 @@ def test_global_registration_recovers_pose():
     pts, tgt, t_true = _pose_case()
     cfg = interop.global_registration_config_from(
         jg.GlobalRegistrationConfig(refine_with_icp=True, **_CFG))
-    res = tt.global_registration(tt.PointCloud.from_numpy(pts),
-                                 tt.PointCloud.from_numpy(tgt), cfg)
+    res = tt.global_registration(tt.PointCloud.from_numpy(pts, device="cpu"),
+                                 tt.PointCloud.from_numpy(tgt, device="cpu"), cfg)
     assert bool(res.converged) and res.inlier_count.dtype == torch.int32
     assert 0.5 < float(res.inlier_ratio) <= 1.0
     np.testing.assert_allclose(res.as_transform().matrix.numpy(), t_true, atol=0.05)
@@ -187,14 +187,15 @@ def test_registration_model_matches_jax():
     ref = JaxModel(max_iterations=30, **_CFG)(tc.PointCloud.from_numpy(pts),
                                               tc.PointCloud.from_numpy(tgt))
     got = tt.RegistrationModel(max_iterations=30, **_CFG)(
-        tt.PointCloud.from_numpy(pts), tt.PointCloud.from_numpy(tgt))
+        tt.PointCloud.from_numpy(pts, device="cpu"),
+        tt.PointCloud.from_numpy(tgt, device="cpu"))
     np.testing.assert_allclose(got.transformation.numpy(), t_true, atol=0.05)
     np.testing.assert_allclose(got.transformation.numpy(),
                                np.asarray(ref.transformation), atol=1e-3)
 
 
 def test_too_few_correspondences_rejected():
-    pc = tt.estimate_normals(tt.PointCloud.from_numpy(bumpy_surface(20)), k=5)
+    pc = tt.estimate_normals(tt.PointCloud.from_numpy(bumpy_surface(20), device="cpu"), k=5)
     res = tt.extract_fpfh_features_with_normals(pc, tt.FpfhConfig(radius=0.5))
     with pytest.raises(tt.InvalidDataError):
         tg.global_registration_with_features(

@@ -27,7 +27,7 @@ def _scan(n, seed, scale=1.0):
 
 def _both(pts, config_kw):
     jc = tc.PointCloud.from_numpy(pts)
-    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask))
+    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask), device="cpu")
     jr = jn.estimate_normals_detailed(jc, jn.NormalEstimationConfig(**config_kw))
     tr = tn.estimate_normals_detailed(tcl, tn.NormalEstimationConfig(**config_kw))
     return jr, tr
@@ -69,7 +69,7 @@ def test_union_normals_match_jax(monkeypatch):
     _assert_close(jr, tr)
     with_n = tn.estimate_normals(interop.cloud_from_numpy(
         np.asarray(tc.PointCloud.from_numpy(pts).points),
-        np.asarray(tc.PointCloud.from_numpy(pts).mask)), k=10)
+        np.asarray(tc.PointCloud.from_numpy(pts).mask), device="cpu"), k=10)
     torch.testing.assert_close(with_n.normals, tr.normals)
 
 
@@ -82,7 +82,7 @@ def test_validation_errors_match(bad):
     with pytest.raises(ValueError) as je:
         _both(pts, bad)
     jc = tc.PointCloud.from_numpy(pts)
-    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask))
+    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask), device="cpu")
     with pytest.raises(ValueError) as te:
         tn.estimate_normals_detailed(tcl, tn.NormalEstimationConfig(**bad))
     assert str(te.value) == str(je.value)
@@ -92,7 +92,7 @@ def test_validation_errors_match(bad):
                                  dict(method="window_fast", window_passes=1,
                                       window_merge="union")])
 def test_unported_methods_name_their_roadmap_item(cfg):
-    c = interop.cloud_from_numpy(np.zeros((256, 3), np.float32), np.ones(256, bool))
+    c = interop.cloud_from_numpy(np.zeros((256, 3), np.float32), np.ones(256, bool), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tn.estimate_normals_detailed(c, tn.NormalEstimationConfig(**cfg))
 
@@ -128,7 +128,7 @@ def test_window_radius_route_matches_jax():
     import jax.numpy as jnp
     pts = _scan(2000, 10)
     jc = tc.PointCloud.from_numpy(pts)
-    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask))
+    tcl = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask), device="cpu")
     vp = np.array([0.0, 0.0, 50.0], np.float32)
     jn_, jcv, jv = jn._estimate(jc.points, jc.mask, 10, True, jnp.float32(1.0),
                                 jnp.asarray(vp), True, window=True)

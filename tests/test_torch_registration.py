@@ -46,8 +46,8 @@ def _pair(n, seed, noise=0.01, scan=True):
 
 def _clouds(src, tgt):
     js, jt = tc.PointCloud.from_numpy(src), tc.PointCloud.from_numpy(tgt)
-    ts = interop.cloud_from_numpy(np.asarray(js.points), np.asarray(js.mask))
-    tt_ = interop.cloud_from_numpy(np.asarray(jt.points), np.asarray(jt.mask))
+    ts = interop.cloud_from_numpy(np.asarray(js.points), np.asarray(js.mask), device="cpu")
+    tt_ = interop.cloud_from_numpy(np.asarray(jt.points), np.asarray(jt.mask), device="cpu")
     return js, jt, ts, tt_
 
 

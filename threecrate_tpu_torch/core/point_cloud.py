@@ -37,10 +37,11 @@ class PointCloud:
 
     @classmethod
     def from_numpy(cls, points, capacity: Optional[int] = None,
-                   pad_multiple: int = padding.LANE, device="cpu",
+                   pad_multiple: int = padding.LANE, device="cuda",
                    **attrs) -> "PointCloud":
         """Build from an ``(N, 3)`` host array, padded to ``capacity``
-        (default: ``N`` rounded up to ``pad_multiple``)."""
+        (default: ``N`` rounded up to ``pad_multiple``), on ``device``:
+        the card unless the caller asks for the CPU."""
         pts = np.asarray(points, dtype=np.float32)
         if pts.ndim != 2 or pts.shape[1] != 3:
             raise InvalidDataError(f"points must be (N, 3), got {pts.shape}")

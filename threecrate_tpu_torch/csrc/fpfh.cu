@@ -32,8 +32,8 @@
 // and 1/sqrt is a correctly rounded division of a correctly rounded
 // square root), in the order the plain PyTorch versions (kernels/fpfh.py)
 // evaluate them, so the vote and count rows equal theirs bit for bit.
-// _atan2_approx is reproduced, not atan2f: its ~5e-3 rad error moves
-// votes across bin edges.
+// _atan2_approx is reproduced (tc::atan2_approx in common.cuh), not
+// atan2f: its ~5e-3 rad error moves votes across bin edges.
 //
 // What bounds it: fp32 ALU. Stage 1 evaluates ~100 unfused operations
 // for each in-radius pair and ~12 for each other candidate; stage 2 a
@@ -46,43 +46,18 @@
 
 namespace {
 
+using tc::atan2_approx;
+using tc::dot3;
+using tc::kPi;
+using tc::kTwoPi;
+using tc::rsqrt_rn;
+
 constexpr int kBins = 11;
 constexpr int kHist = 3 * kBins;
-constexpr float kPi = 3.1415927410125732f;      // float32(pi)
-constexpr float kHalfPi = 1.5707963705062866f;  // float32(pi / 2)
-constexpr float kTwoPi = 6.2831854820251465f;   // float32(2 pi)
-
-__device__ __forceinline__ float rsqrt_rn(float x) {
-  return __fdiv_rn(1.f, __fsqrt_rn(fmaxf(x, 1e-24f)));
-}
-
-// ((a0*b0 + a1*b1) + a2*b2), each operation rounded on its own.
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
-                                      float b1, float b2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)),
-                   __fmul_rn(a2, b2));
-}
 
 // a*b - c*d, each operation rounded on its own.
 __device__ __forceinline__ float mul_sub(float a, float b, float c, float d) {
   return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
-}
-
-// _atan2_approx of fpfh_pallas.py: odd minimax atan on [0, 1], Horner
-// form, then the quadrant corrections.
-__device__ float atan2_approx(float y, float x) {
-  const float ax = fabsf(x);
-  const float ay = fabsf(y);
-  const float z = __fdiv_rn(fminf(ax, ay), fmaxf(fmaxf(ax, ay), 1e-30f));
-  const float z2 = __fmul_rn(z, z);
-  float p = __fmul_rn(z2, 0.0208351f);
-  p = __fmul_rn(z2, __fadd_rn(-0.0851330f, p));
-  p = __fmul_rn(z2, __fadd_rn(0.1801410f, p));
-  p = __fmul_rn(z2, __fadd_rn(-0.3302995f, p));
-  float t = __fmul_rn(z, __fadd_rn(0.9998660f, p));
-  if (ay > ax) t = __fsub_rn(kHalfPi, t);
-  if (x < 0.f) t = __fsub_rn(kPi, t);
-  return y < 0.f ? -t : t;
 }
 
 // Scaled feature -> bin: truncation toward zero, clipped to [0, 10].

@@ -5,8 +5,9 @@
 included, so both packages see the same capacity) and build the port's
 types; ``cloud_to_numpy`` and ``transform_to_numpy`` go back. The
 system has no learned weights: besides the clouds, the state both
-packages share is their configs, which ``fpfh_config_from`` and
-``global_registration_config_from`` carry over field by field.
+packages share is their configs, which ``fpfh_config_from``,
+``shot_config_from`` and ``global_registration_config_from`` carry over
+field by field.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ import torch
 
 from .core.point_cloud import PointCloud
 from .core.transform import Transform
-from .ops.features import FpfhConfig, FpfhResult
+from .ops.features import FpfhConfig, FpfhResult, ShotConfig, ShotResult
 from .ops.global_registration import GlobalRegistrationConfig
 
 
 def cloud_from_numpy(points, mask, attrs: Optional[Dict] = None,
-                     device="cpu") -> PointCloud:
-    """A port ``PointCloud`` with exactly these padded rows and mask."""
+                     device="cuda") -> PointCloud:
+    """A port ``PointCloud`` with exactly these padded rows and mask, on
+    the card unless ``device`` says otherwise."""
     def put(x, dtype):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
@@ -33,7 +35,7 @@ def cloud_from_numpy(points, mask, attrs: Optional[Dict] = None,
                       {k: put(v, torch.float32) for k, v in (attrs or {}).items()})
 
 
-def transform_from_numpy(m, device="cpu") -> Transform:
+def transform_from_numpy(m, device="cuda") -> Transform:
     return Transform(torch.as_tensor(np.array(m), dtype=torch.float32,
                                      device=device))
 
@@ -58,6 +60,11 @@ def fpfh_config_from(config) -> FpfhConfig:
     return _config_from(FpfhConfig, config)
 
 
+def shot_config_from(config) -> ShotConfig:
+    """The port's ``ShotConfig`` with the fields of a JAX ``ShotConfig``."""
+    return _config_from(ShotConfig, config)
+
+
 def global_registration_config_from(config) -> GlobalRegistrationConfig:
     """The port's ``GlobalRegistrationConfig`` with the fields of a JAX one."""
     return _config_from(GlobalRegistrationConfig, config)
@@ -65,4 +72,9 @@ def global_registration_config_from(config) -> GlobalRegistrationConfig:
 
 def fpfh_result_to_numpy(res: FpfhResult) -> Tuple[np.ndarray, np.ndarray]:
     """(descriptors (N, 33), valid (N,)) of a port ``FpfhResult``."""
+    return res.descriptors.cpu().numpy(), res.valid.cpu().numpy()
+
+
+def shot_result_to_numpy(res: ShotResult) -> Tuple[np.ndarray, np.ndarray]:
+    """(descriptors (N, dim), valid (N,)) of a port ``ShotResult``."""
     return res.descriptors.cpu().numpy(), res.valid.cpu().numpy()

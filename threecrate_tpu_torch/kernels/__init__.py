@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each with
 its plain PyTorch version and a launch counter on its wrapper."""
 
-from . import fpfh, icp, knn, knn_window
+from . import fpfh, icp, knn, knn_window, shot
 from .fpfh import (fpfh_weight_a_tiles, fpfh_weight_b_tiles, spfh_a_tiles,
                    spfh_b_tiles, spfh_band_a_tiles, spfh_band_b_tiles)
 from .icp import icp_match_tiles
 from .knn import window_union_a_tiles, window_union_b_tiles
 from .knn_window import knn_window_tiles
+from .shot import (shot_hist_a_tiles, shot_hist_b_tiles, shot_moments_a_tiles,
+                   shot_moments_b_tiles)
 
 # every kernel wrapper of the port, by kernel name
 WRAPPERS = {
@@ -20,6 +22,10 @@ WRAPPERS = {
     "spfh_band_a": spfh_band_a_tiles,
     "spfh_band_b": spfh_band_b_tiles,
     "knn_window": knn_window_tiles,
+    "shot_moments_a": shot_moments_a_tiles,
+    "shot_moments_b": shot_moments_b_tiles,
+    "shot_hist_a": shot_hist_a_tiles,
+    "shot_hist_b": shot_hist_b_tiles,
 }
 
 

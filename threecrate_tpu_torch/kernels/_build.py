@@ -48,6 +48,12 @@ _SIGNATURES = {
     # packed, out, n, tile, band, r2, stream
     "tc_spfh_band_a": (_P, _P, _I, _I, _I, _F, _P),
     "tc_spfh_band_b": (_P, _P, _I, _I, _I, _F, _P),
+    # packed, out, n, band, r2, radius, stream
+    "tc_shot_moments_a": (_P, _P, _I, _I, _F, _F, _P),
+    "tc_shot_moments_b": (_P, _P, _I, _I, _F, _F, _P),
+    # packed, lrf, out, n, band, r2, inv_r, usc, stream
+    "tc_shot_hist_a": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
+    "tc_shot_hist_b": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
     # pts, valid, ids, neg, ids_out, crd, n, tile, k, with_coords, exclude_self, stream
     "tc_knn_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

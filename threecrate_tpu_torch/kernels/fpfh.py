@@ -215,25 +215,37 @@ def _check_band(packed, rows, band, tile):
     return n
 
 
+def band_candidates(packed, c0, c1, band, r2, eps, pos_row=None):
+    """Candidates of the queries c0 … c1−1 of a banded pass: (rows (R, Q,
+    C), query rows (R, Q, 1), offsets d = c − q (3 × (Q, C)), d²,
+    selection), C = 2·band + 1 sorted positions around each query. The
+    selection is ``inside [0, N) & valid & d² <= r2 & d² > eps``; with
+    ``pos_row`` it also drops candidates whose pass-A position (that row,
+    fp32, exact below 2^24 rows) is within ``band`` of the query's."""
+    n = packed.shape[1]
+    dev = packed.device
+    cols = (torch.arange(c0, c1, device=dev)[:, None]
+            + torch.arange(-band, band + 1, device=dev))
+    cand = packed[:, cols.clamp(0, n - 1)]
+    q = packed[:, c0:c1, None]
+    d = [cand[r] - q[r] for r in range(3)]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    sel = ((cols >= 0) & (cols < n) & (cand[3] > 0.5)
+           & (d2 <= r2) & (d2 > eps))
+    if pos_row is not None:
+        sel = sel & ((cand[pos_row] - q[pos_row]).abs() > band)
+    return cand, q, d, d2, sel
+
+
 def _spfh_band_plain(packed, r2, band, tile, excl):
     n = _check_band(packed, 8 if excl else 7, band, tile)
     r2 = _r2_f32(r2)
-    dev = packed.device
-    offs = torch.arange(-band, band + 1, device=dev)
-    out = torch.empty((34, n), dtype=torch.float32, device=dev)
+    out = torch.empty((34, n), dtype=torch.float32, device=packed.device)
     step = _CHUNK_TILES * tile
     for c0 in range(0, n, step):
         c1 = min(c0 + step, n)
-        cols = torch.arange(c0, c1, device=dev)[:, None] + offs     # (Q, 2·band+1)
-        cand = packed[:, cols.clamp(0, n - 1)]                      # (R, Q, 2·band+1)
-        q = packed[:, c0:c1, None]                                  # (R, Q, 1)
-        d = [cand[r] - q[r] for r in range(3)]
-        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        sel = ((cols >= 0) & (cols < n) & (cand[3] > 0.5)
-               & (d2 <= r2) & (d2 > 1e-12))
-        if excl:
-            # pass-A positions ride as fp32 (exact below 2^24 rows)
-            sel = sel & ((cand[7] - q[7]).abs() > band)
+        cand, q, d, d2, sel = band_candidates(packed, c0, c1, band, r2, 1e-12,
+                                              7 if excl else None)
         out[:, c0:c1] = _votes(d, d2, sel, [q[r] for r in range(4, 7)],
                                [cand[r] for r in range(4, 7)]).T
     return out

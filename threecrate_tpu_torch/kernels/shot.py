@@ -1,0 +1,249 @@
+"""Fused band-window SHOT/USC kernels: LRF moments and descriptor
+histograms, each in two passes.
+
+``shot_moments_a_tiles``, ``shot_moments_b_tiles``, ``shot_hist_a_tiles``
+and ``shot_hist_b_tiles`` replace the Pallas kernels of the same names in
+``threecrate_tpu/kernels/shot_pallas.py`` (bodies ``_moments_body`` and
+``_hist_body``). On a CUDA tensor they launch the hand-written kernels of
+``csrc/shot.cu``; on a CPU tensor they run the plain PyTorch versions
+below, which compute the same function and are what the kernels are
+checked against.
+
+Inputs are Morton-sorted and padded to a multiple of ``tile``. The
+candidates of sorted position p are the positions p−band … p+band inside
+[0, N) (``band <= tile``: the Pallas tile only chose the window they were
+drawn from, and its edge tiles are invalidated), selected when ``valid &
+d² <= r2 & d² > 1e-18``; pass B further drops candidates whose pass-A
+position (an fp32 row, exact below 2^24 rows) is within ``band`` of the
+query's, so the two passes' sums add up to the union of both windows.
+
+* moments: ``(4, N)`` rows [x, y, z, valid] (pass B: ``(5, N)``, + posA)
+  → ``(14, N)`` [Σw, Σw·d (3), Σw·dᵢ·dⱼ (xx, yy, zz, xy, xz, yz), count,
+  Σw·|d|²·d (3)] with w = max(R − |d|, 0);
+* histograms: ``(7, N)`` rows [x, y, z, valid, nx, ny, nz] (pass B:
+  ``(8, N)``, + posA) and the query frames ``lrf (9, N)`` [x axis, y
+  axis, z axis] → ``(dim + 1, N)``: 8 azimuth sectors (the reproduced
+  ``_atan2_approx``) × 2 elevation halves × 2 radial shells × 11 soft
+  cos(normal, z) bins (SHOT, dim 352), or × 8 radial shells (USC, dim
+  128), then the count.
+
+``r2`` is rounded once to fp32; R = sqrt(r2) and, for USC, 1/sqrt(r2)
+are rounded from it as the Pallas bodies get them (``jnp.sqrt`` and
+``lax.rsqrt`` of the constant r2, which XLA folds to the correctly
+rounded values). Every operation that decides a selection or a bin is
+evaluated unfused and in the same order here and in the kernels, so the
+count rows and the bin ids equal each other's: the USC rows bit for bit,
+the SHOT soft votes and the moment sums up to summation order.
+
+On the card all four are bound by the bytes they move, the histograms
+by their output (353 floats per query and pass; see the source note in
+``csrc/shot.cu``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from .fpfh import _PI, _r2_f32, atan2_approx, band_candidates
+
+SHOT_DIM = 352
+USC_DIM = 128
+N_COS = 11
+N_MOMENTS = 14
+_AZ_SCALE = float(np.float32(8.0 / (2.0 * np.pi)))
+_CHUNK_QUERIES = 8192     # queries per step of the plain versions
+
+
+def _radius_f32(r2) -> float:
+    """sqrt of the fp32 r2, correctly rounded to fp32."""
+    return float(np.sqrt(np.float32(r2)))
+
+
+def _inv_radius_f32(r2) -> float:
+    """1/sqrt of the fp32 r2, correctly rounded to fp32."""
+    return float(np.float32(np.float64(np.float32(r2)) ** -0.5))
+
+
+def _dim(variant: str) -> int:
+    if variant not in ("shot", "usc"):
+        raise ValueError(f"variant must be 'shot' or 'usc', got {variant!r}")
+    return SHOT_DIM if variant == "shot" else USC_DIM
+
+
+def _check(packed, rows, band, tile, lrf=None):
+    if packed.ndim != 2 or packed.shape[0] != rows:
+        raise ValueError(f"expected ({rows}, N) packed rows, got {tuple(packed.shape)}")
+    n = packed.shape[1]
+    if tile <= 0 or n == 0 or n % tile:
+        raise ValueError(f"tile must divide N={n} > 0, got {tile}")
+    if not 0 <= band <= tile:
+        raise ValueError(f"band must be in [0, tile={tile}], got {band}")
+    if packed.dtype != torch.float32:
+        raise TypeError(f"expected float32 packed rows, got {packed.dtype}")
+    if lrf is not None:
+        if lrf.shape != (9, n) or lrf.dtype != torch.float32:
+            raise TypeError(f"lrf must be (9, {n}) float32, got {tuple(lrf.shape)} "
+                            f"{lrf.dtype}")
+        if lrf.device != packed.device:
+            raise ValueError("all inputs must be on one device")
+    return n
+
+
+def _moments_plain(packed, r2, band, tile, excl):
+    n = _check(packed, 5 if excl else 4, band, tile)
+    radius = _radius_f32(r2)
+    r2 = _r2_f32(r2)
+    out = torch.empty((N_MOMENTS, n), dtype=torch.float32, device=packed.device)
+    for c0 in range(0, n, _CHUNK_QUERIES):
+        c1 = min(c0 + _CHUNK_QUERIES, n)
+        _, _, (dx, dy, dz), d2, sel = band_candidates(packed, c0, c1, band, r2, 1e-18,
+                                                      4 if excl else None)
+        sel_f = sel.to(torch.float32)
+        w = torch.clamp_min(radius - torch.sqrt(torch.clamp_min(d2, 0.0)), 0.0) * sel_f
+        wd2 = w * d2
+        rows = (w, w * dx, w * dy, w * dz, w * dx * dx, w * dy * dy, w * dz * dz,
+                w * dx * dy, w * dx * dz, w * dy * dz, sel_f, wd2 * dx, wd2 * dy,
+                wd2 * dz)
+        out[:, c0:c1] = torch.stack([r.sum(-1) for r in rows])
+    return out
+
+
+def _hist_plain(packed, lrf, r2, band, tile, excl, variant):
+    dim = _dim(variant)
+    n = _check(packed, 8 if excl else 7, band, tile, lrf)
+    inv_r = _inv_radius_f32(r2)
+    r2 = _r2_f32(r2)
+    out = torch.empty((dim + 1, n), dtype=torch.float32, device=packed.device)
+    for c0 in range(0, n, _CHUNK_QUERIES):
+        c1 = min(c0 + _CHUNK_QUERIES, n)
+        cand, _, (dx, dy, dz), d2, sel = band_candidates(packed, c0, c1, band, r2,
+                                                         1e-18, 7 if excl else None)
+        f = lrf[:, c0:c1, None]
+        lx = dx * f[0] + dy * f[1] + dz * f[2]
+        ly = dx * f[3] + dy * f[4] + dz * f[5]
+        lz = dx * f[6] + dy * f[7] + dz * f[8]
+        az_bin = ((atan2_approx(ly, lx) + _PI) * _AZ_SCALE).to(torch.int32).clamp(0, 7)
+        el_bin = (lz >= 0).to(torch.int32)
+        sel_f = sel.to(torch.float32)
+        hist = torch.zeros((c1 - c0, dim + 1), dtype=torch.float32, device=packed.device)
+        if variant == "usc":
+            rad = ((torch.sqrt(torch.clamp_min(d2, 0.0)) * inv_r) * 8.0).to(
+                torch.int32).clamp(0, 7)
+            jid = (az_bin * 2 + el_bin) * 8 + rad
+            hist.scatter_add_(1, torch.where(sel, jid, 0).long(), sel_f)
+        else:
+            rad = (d2 >= 0.25 * r2).to(torch.int32)
+            vol = (az_bin * 2 + el_bin) * 2 + rad
+            cosn = cand[4] * f[6] + cand[5] * f[7] + cand[6] * f[8]
+            pos = torch.clamp((cosn + 1.0) * (0.5 * N_COS) - 0.5, 0.0, float(N_COS - 1))
+            lo = pos.to(torch.int32)
+            frac = pos - lo.to(torch.float32)
+            at_top = lo == N_COS - 1
+            # the whole vote to lo at the top bin, else lo and lo + 1
+            jid = torch.where(sel, vol * N_COS + lo, 0)
+            hist.scatter_add_(1, jid.long(), torch.where(at_top, sel_f,
+                                                         sel_f * (1.0 - frac)))
+            hist.scatter_add_(1, torch.where(at_top, jid, jid + 1).long(),
+                              torch.where(at_top, 0.0, sel_f * frac))
+        hist[:, dim] = sel_f.sum(-1)
+        out[:, c0:c1] = hist.T
+    return out
+
+
+def shot_moments_a_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Plain PyTorch moments pass A, chunked over queries."""
+    return _moments_plain(packed, r2, band, tile, False)
+
+
+def shot_moments_b_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Plain PyTorch moments pass B, chunked over queries."""
+    return _moments_plain(packed, r2, band, tile, True)
+
+
+def shot_hist_a_plain(packed, lrf, r2: float, band: int, tile: int = 256,
+                      variant: str = "shot") -> torch.Tensor:
+    """Plain PyTorch histogram pass A, chunked over queries."""
+    return _hist_plain(packed, lrf, r2, band, tile, False, variant)
+
+
+def shot_hist_b_plain(packed, lrf, r2: float, band: int, tile: int = 256,
+                      variant: str = "shot") -> torch.Tensor:
+    """Plain PyTorch histogram pass B, chunked over queries."""
+    return _hist_plain(packed, lrf, r2, band, tile, True, variant)
+
+
+def _launch_moments(name, packed, r2, band, tile, rows):
+    n = _check(packed, rows, band, tile)
+    packed = packed.contiguous()
+    out = torch.empty((N_MOMENTS, n), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = getattr(_build.lib(), "tc_" + name)(
+            packed.data_ptr(), out.data_ptr(), n, band, _r2_f32(r2), _radius_f32(r2),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def _launch_hist(name, packed, lrf, r2, band, tile, rows, variant):
+    dim = _dim(variant)
+    n = _check(packed, rows, band, tile, lrf)
+    packed, lrf = packed.contiguous(), lrf.contiguous()
+    out = torch.empty((dim + 1, n), dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        err = getattr(_build.lib(), "tc_" + name)(
+            packed.data_ptr(), lrf.data_ptr(), out.data_ptr(), n, band, _r2_f32(r2),
+            _inv_radius_f32(r2), int(variant == "usc"),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def shot_moments_a_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Moments pass A over ±band sorted positions: ``(14, N)``."""
+    if not _build.on_card(packed):
+        return shot_moments_a_plain(packed, r2, band, tile)
+    out = _launch_moments("shot_moments_a", packed, r2, band, tile, 4)
+    shot_moments_a_tiles.launches += 1
+    return out
+
+
+def shot_moments_b_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+    """Moments pass B over ``(5, N)`` rows (+ the pass-A position as
+    fp32): ``(14, N)`` over candidates more than ``band`` pass-A positions
+    from the query."""
+    if not _build.on_card(packed):
+        return shot_moments_b_plain(packed, r2, band, tile)
+    out = _launch_moments("shot_moments_b", packed, r2, band, tile, 5)
+    shot_moments_b_tiles.launches += 1
+    return out
+
+
+def shot_hist_a_tiles(packed, lrf, r2: float, band: int, tile: int = 256,
+                      variant: str = "shot") -> torch.Tensor:
+    """Histogram pass A over ±band sorted positions: ``(dim + 1, N)``,
+    dim 352 (``variant="shot"``) or 128 (``"usc"``)."""
+    if not _build.on_card(packed):
+        return shot_hist_a_plain(packed, lrf, r2, band, tile, variant)
+    out = _launch_hist("shot_hist_a", packed, lrf, r2, band, tile, 7, variant)
+    shot_hist_a_tiles.launches += 1
+    return out
+
+
+def shot_hist_b_tiles(packed, lrf, r2: float, band: int, tile: int = 256,
+                      variant: str = "shot") -> torch.Tensor:
+    """Histogram pass B over ``(8, N)`` rows (+ the pass-A position as
+    fp32) with the frames in pass-B order: ``(dim + 1, N)`` over
+    candidates more than ``band`` pass-A positions from the query."""
+    if not _build.on_card(packed):
+        return shot_hist_b_plain(packed, lrf, r2, band, tile, variant)
+    out = _launch_hist("shot_hist_b", packed, lrf, r2, band, tile, 8, variant)
+    shot_hist_b_tiles.launches += 1
+    return out
+
+
+shot_moments_a_tiles.launches = 0
+shot_moments_b_tiles.launches = 0
+shot_hist_a_tiles.launches = 0
+shot_hist_b_tiles.launches = 0

@@ -1,7 +1,8 @@
-"""FPFH descriptors (33-d) and descriptor matching.
+"""FPFH (33-d) and SHOT/USC (352-d / 128-d) descriptors, and descriptor
+matching.
 
-Counterpart of the FPFH half of ``threecrate_tpu.ops.features``. Two
-routes, chosen as in the JAX package:
+Counterpart of ``threecrate_tpu.ops.features``. FPFH takes two routes,
+chosen as in the JAX package:
 
 * above ``FUSED_FPFH_THRESHOLD`` points (or ``method="window"``), the
   fused window path ``_fpfh_fused``: the cloud is Morton-sorted twice
@@ -21,8 +22,15 @@ routes, chosen as in the JAX package:
 ``match_descriptors`` is the nearest neighbour in descriptor space, one
 matmul for small problems and the tiled ``knn`` above 2^26 pairs.
 
-SHOT/USC are not ported yet and raise ``NotImplementedError`` naming
-their kernels.
+SHOT and USC also take two routes. Above ``FUSED_SHOT_THRESHOLD``
+points (or ``method="window"``; SHOT also needs 11 cos bins) the fused
+band path ``_shot_fused``: two Morton sorts, the moment kernels, a
+batched 3x3 eigensolve for the local reference frames (LRFs), then the
+histogram kernels (``kernels.shot``), all over ±band sorted positions
+per pass. Otherwise the staged path ``_shot``: a capped radius search
+(exact, or the window search), each query's LRF from its gathered
+neighbours and the histogram with a true atan2, in blocks of 16,384
+points.
 """
 
 from __future__ import annotations
@@ -31,12 +39,14 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.errors import InvalidDataError
 from ..core.point_cloud import PointCloud
+from ..kernels.shot import SHOT_DIM, USC_DIM
 from ..utils import padding
-from . import morton, neighbors
+from . import linalg, morton, neighbors
 from .linalg import fp32_matmul
 from .normals import NormalEstimationConfig, estimate_normals_detailed
 
@@ -289,15 +299,241 @@ def extract_fpfh_features(cloud: PointCloud, config: FpfhConfig = FpfhConfig(),
     return extract_fpfh_features_with_normals(cloud, config)
 
 
-def _shot_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "SHOT/USC descriptors need the shot_moments_a/b_tiles and "
-        "shot_hist_a/b_tiles kernels, still to be ported (ROADMAP.md, "
-        "section 2, items 9-10)")
+# ---------------------------------------------------------------------------
+# SHOT / USC
+# ---------------------------------------------------------------------------
+
+FUSED_SHOT_THRESHOLD = 262144   # capacity above which "auto" takes the fused path
+SHOT_BLOCK = 16384              # rows per step of the staged path
+LRF_TIE_TAU = 0.25   # |mean projection| (normalised by wsum·R) below which a
+# sign vote counts as ambiguous and falls back to its tie-break; the JAX
+# package measured this threshold on its two-sampling repeatability fixture
 
 
-extract_shot_features = _shot_not_ported
-extract_usc_features = _shot_not_ported
+@dataclasses.dataclass(frozen=True)
+class ShotConfig:
+    """The JAX package's config, field for field: ``method`` as in
+    ``FpfhConfig``; ``band`` is the fused path's candidate half-width in
+    sorted positions per Morton pass (the union of two ±band windows caps
+    the neighbourhood)."""
+
+    radius: float = 0.25
+    max_neighbors: int = 128
+    n_cos_bins: int = 11
+    method: str = "auto"
+    band: int = 32
+
+
+class ShotResult(NamedTuple):
+    descriptors: torch.Tensor  # (N, 352) SHOT or (N, 128) USC, unit L2 norm
+    valid: torch.Tensor        # (N,)
+
+
+def _lrf_signs(sd, td, wsum, radius, z, x, nq):
+    """Sign disambiguation of the LRF axes. Primary vote: the
+    (R−d)-weighted displacement sum ``sd`` projected on each axis.
+    Ambiguous votes (|vote| / (wsum·R) <= LRF_TIE_TAU) fall back to z
+    aligned with the query normal ``nq`` (or, without normals, the
+    far-amplified vote ``td`` = Σw·d·|d|²) and x to ``td``."""
+    zs = (sd * z).sum(1)
+    xs = (sd * x).sum(1)
+    r1 = np.float32(radius)
+    scale1 = torch.clamp_min(wsum * float(r1), 1e-30)
+    # R³ as the JAX package rounds it: two fp32 products
+    scale3 = torch.clamp_min(wsum * float(r1 * r1 * r1), 1e-30)
+    z_tie = (td * z).sum(1) / scale3 if nq is None else (nq * z).sum(1)
+    z_vote = torch.where((zs / scale1).abs() > LRF_TIE_TAU, zs, z_tie)
+    x_tie = (td * x).sum(1) / scale3
+    x_vote = torch.where((xs / scale1).abs() > LRF_TIE_TAU, xs, x_tie)
+    z = torch.where((z_vote < 0)[:, None], -z, z)
+    x = torch.where((x_vote < 0)[:, None], -x, x)
+    return z, x
+
+
+def _orthonormal_frame(z, x):
+    """x re-orthogonalised against z and normalised; y = z × x."""
+    x = x - (x * z).sum(-1, keepdim=True) * z
+    x = x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-12)
+    return x, torch.linalg.cross(z, x), z
+
+
+def _shot_lrf(nbr, nbr_ok, nbr_dist, radius, own, own_normals=None):
+    """Sign-disambiguated local reference frame ``(x, y, z)`` of each
+    query from its gathered neighbours ``nbr (N, k, 3)``: eigenvectors of
+    the (R − d)-weighted covariance (z the smallest, x the largest), signs
+    from ``_lrf_signs``."""
+    w = torch.where(nbr_ok, torch.clamp_min(radius - nbr_dist, 0.0), 0.0)
+    _, cov = linalg.weighted_covariance(nbr, w)
+    _, vecs = linalg.eigh3x3(cov)
+    d = nbr - own[:, None, :]
+    sd = (w[..., None] * d).sum(1)
+    td = ((w * (d * d).sum(-1))[..., None] * d).sum(1)
+    wsum = torch.clamp_min(w.sum(1), 1e-12)
+    z, x = _lrf_signs(sd, td, wsum, radius, vecs[..., :, 0], vecs[..., :, 2],
+                      own_normals)
+    return _orthonormal_frame(z, x)
+
+
+def lrf_from_moments(m, radius: float, nq=None):
+    """Query frames ``(N, 9)`` [x, y, z] from the merged moment rows ``m
+    (N, 14)`` of the two passes: the (R−d)-weighted covariance, its batched
+    eigensolve, the signs from ``_lrf_signs`` (z tie-break on the normals
+    ``nq``, or on the far-amplified vote when None)."""
+    wsum = torch.clamp_min(m[:, 0], 1e-12)
+    mu = m[:, 1:4] / wsum[:, None]
+    cc = m[:, 4:10] / wsum[:, None]
+    cxx = cc[:, 0] - mu[:, 0] * mu[:, 0]
+    cyy = cc[:, 1] - mu[:, 1] * mu[:, 1]
+    czz = cc[:, 2] - mu[:, 2] * mu[:, 2]
+    cxy = cc[:, 3] - mu[:, 0] * mu[:, 1]
+    cxz = cc[:, 4] - mu[:, 0] * mu[:, 2]
+    cyz = cc[:, 5] - mu[:, 1] * mu[:, 2]
+    cov = torch.stack([torch.stack([cxx, cxy, cxz], -1),
+                       torch.stack([cxy, cyy, cyz], -1),
+                       torch.stack([cxz, cyz, czz], -1)], -2)
+    _, vecs = linalg.eigh3x3(cov)
+    z, x = _lrf_signs(m[:, 1:4], m[:, 11:14], wsum, float(np.float32(radius)),
+                      vecs[..., :, 0], vecs[..., :, 2], nq)
+    return torch.cat(_orthonormal_frame(z, x), 1)
+
+
+def _shot_fused(points, mask, normals_arr, radius: float, variant: str = "shot",
+                band: int = 32, tile: int = 256):
+    """Fused band-window SHOT/USC in input order: ``(descriptors (N, dim),
+    valid (N,))``. Two moment passes give each query's (R−d)-weighted
+    covariance and sign votes, the LRF is solved batched, and two
+    histogram passes bin the in-LRF displacements straight from the
+    Morton-band candidates; a fixed radius makes the two windows' sums add
+    up to their union."""
+    from ..kernels.shot import (shot_hist_a_tiles, shot_hist_b_tiles,
+                                shot_moments_a_tiles, shot_moments_b_tiles)
+
+    n = points.shape[0]
+    r2 = float(radius) * float(radius)
+    packed_a, packed_b, row_a, perm_a = fused_stage1_inputs(points, mask, normals_arr,
+                                                            tile)
+    # the pass-A position rides as an fp32 row (exact below 2^24 rows)
+    pos_a = row_a.to(torch.float32)[None]
+    mom_a = shot_moments_a_tiles(packed_a[0:4].contiguous(), r2, band, tile)
+    mom_b = shot_moments_b_tiles(torch.cat([packed_b[0:4], pos_a]).contiguous(), r2,
+                                 band, tile)
+    inv_b = neighbors._inverse(row_a)
+    # USC carries zero normals: its z tie-break is the far-amplified vote
+    lrf = lrf_from_moments(mom_a.T + mom_b.T[inv_b], radius,
+                           packed_a[4:7].T if variant == "shot" else None)
+    del mom_a, mom_b
+
+    h = shot_hist_b_tiles(torch.cat([packed_b, pos_a]).contiguous(),
+                          lrf[row_a].T.contiguous(), r2, band, tile, variant)[:, inv_b]
+    h += shot_hist_a_tiles(packed_a, lrf.T.contiguous(), r2, band, tile, variant)
+    valid_s = (packed_a[3] > 0.5) & (h[-1] >= 5)
+    desc = h[:-1]
+    desc /= torch.clamp_min(torch.linalg.vector_norm(desc, dim=0), 1e-12)
+    desc *= valid_s
+    inv_a = neighbors._inverse(perm_a)
+    return desc.T[inv_a][:n], valid_s[inv_a][:n] & mask
+
+
+def _shot_descriptor_block(nbr, nbr_nrm, ok, dist, own, own_nrm, radius,
+                           n_cos_bins: int, variant: str):
+    """SHOT/USC descriptors of one row block from gathered neighbourhoods
+    (``(B, k, ...)``): the LRF, then the soft-binned 32·n_cos_bins-d SHOT
+    (or 128-d USC) histogram with a true atan2, unit L2 norm."""
+    x, y, z = _shot_lrf(nbr, ok, dist, radius, own,
+                        own_nrm if variant == "shot" else None)
+    d = nbr - own[:, None, :]
+    lx = (d * x[:, None, :]).sum(-1)
+    ly = (d * y[:, None, :]).sum(-1)
+    lz = (d * z[:, None, :]).sum(-1)
+    r = torch.sqrt(lx * lx + ly * ly + lz * lz)
+    az = torch.atan2(ly, lx)
+    el = lz / torch.clamp_min(r, 1e-12)
+    az_bin = ((az + math.pi) / (2 * math.pi) * 8).to(torch.int32).clamp(0, 7)
+    el_bin = (el >= 0).to(torch.int32)
+    w = ok.to(torch.float32) * (r > 1e-9)
+    if variant == "shot":
+        rad_bin = (r >= 0.5 * radius).to(torch.int32)
+        vol = (az_bin * 2 + el_bin) * 2 + rad_bin
+        cosn = (nbr_nrm * z[:, None, :]).sum(-1)
+        pos = torch.clamp((cosn + 1.0) / 2.0 * n_cos_bins - 0.5, 0.0, n_cos_bins - 1.0)
+        lo = torch.floor(pos).to(torch.int32)
+        hi = torch.clamp_max(lo + 1, n_cos_bins - 1)
+        frac = pos - lo
+        desc = torch.zeros((nbr.shape[0], 32 * n_cos_bins), dtype=torch.float32,
+                           device=nbr.device)
+        desc.scatter_add_(1, (vol * n_cos_bins + lo).long(), w * (1 - frac))
+        desc.scatter_add_(1, (vol * n_cos_bins + hi).long(), w * frac)
+    else:
+        rad_bin = (r / radius * 8).to(torch.int32).clamp(0, 7)
+        flat = (az_bin * 2 + el_bin) * 8 + rad_bin
+        desc = torch.zeros((nbr.shape[0], USC_DIM), dtype=torch.float32,
+                           device=nbr.device).scatter_add_(1, flat.long(), w)
+    return desc / torch.clamp_min(torch.linalg.vector_norm(desc, dim=1, keepdim=True),
+                                  1e-12)
+
+
+def _shot(points, mask, normals_arr, radius, max_neighbors: int, n_cos_bins: int,
+          variant: str, window=False):
+    """Staged SHOT/USC over a capped radius search (self excluded),
+    ``SHOT_BLOCK`` rows at a time: ``(descriptors (N, dim), valid (N,))``."""
+    radius = float(np.float32(radius))
+    if window:
+        res = neighbors.radius_neighbors_window(points, mask, radius, max_neighbors,
+                                                exclude_self=True)
+    else:
+        res = neighbors.radius_neighbors(points, mask, points, mask, radius,
+                                         max_neighbors, exclude_self=True)
+    idx, ok, dist = res.indices, res.mask, res.distances
+    n = points.shape[0]
+    dim = 32 * n_cos_bins if variant == "shot" else USC_DIM
+    desc = torch.empty((n, dim), dtype=torch.float32, device=points.device)
+    for b0 in range(0, n, SHOT_BLOCK):
+        sl = slice(b0, b0 + SHOT_BLOCK)
+        desc[sl] = _shot_descriptor_block(points[idx[sl]], normals_arr[idx[sl]], ok[sl],
+                                          dist[sl], points[sl], normals_arr[sl], radius,
+                                          n_cos_bins, variant)
+    valid = mask & (ok.sum(1) >= 5)
+    return torch.where(valid[:, None], desc, 0.0), valid
+
+
+def _use_fused_shot(config: ShotConfig, cloud: PointCloud) -> bool:
+    return (config.method == "window"
+            or (config.method == "auto" and cloud.capacity > FUSED_SHOT_THRESHOLD))
+
+
+def extract_shot_features(cloud: PointCloud, config: ShotConfig = ShotConfig(),
+                          k_normals: int = 10) -> ShotResult:
+    """SHOT descriptors (352-d at 11 cos bins), estimating normals with
+    ``k_normals`` neighbours when the cloud has none. The fused band path
+    above ``FUSED_SHOT_THRESHOLD`` points (or ``method="window"``) at 11
+    cos bins, else the staged path."""
+    if cloud.normals is None:
+        nres = estimate_normals_detailed(
+            cloud, NormalEstimationConfig(k_neighbors=k_normals))
+        cloud = cloud.with_normals(nres.normals)
+    window = _use_fused_shot(config, cloud)
+    if window and config.n_cos_bins == 11:
+        desc, valid = _shot_fused(cloud.points, cloud.mask, cloud.normals,
+                                  float(config.radius), "shot", band=config.band)
+    else:
+        desc, valid = _shot(cloud.points, cloud.mask, cloud.normals, config.radius,
+                            config.max_neighbors, config.n_cos_bins, "shot", window)
+    return ShotResult(desc, valid)
+
+
+def extract_usc_features(cloud: PointCloud, config: ShotConfig = ShotConfig()
+                         ) -> ShotResult:
+    """USC descriptors: the 128-d spatial density histogram in the LRF
+    (8 azimuth × 2 elevation × 8 radial bins); no normals needed."""
+    zeros = torch.zeros_like(cloud.points)
+    window = _use_fused_shot(config, cloud)
+    if window:
+        desc, valid = _shot_fused(cloud.points, cloud.mask, zeros,
+                                  float(config.radius), "usc", band=config.band)
+    else:
+        desc, valid = _shot(cloud.points, cloud.mask, zeros, config.radius,
+                            config.max_neighbors, config.n_cos_bins, "usc", window)
+    return ShotResult(desc, valid)
 
 
 def match_descriptors(desc_a, valid_a, desc_b, valid_b, mutual: bool = False):

@@ -116,6 +116,19 @@ def smallest_eigenvector_sym3x3(a: torch.Tensor
     return _eigenvector_for(a, lam), lam
 
 
+def weighted_covariance(points: torch.Tensor, weights: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted mean and covariance over axis -2: ``points (..., K, 3)``,
+    ``weights (..., K)`` (>= 0, zero = ignored) → ``(mean (..., 3), cov
+    (..., 3, 3))``, the product in full fp32."""
+    w = weights[..., None]
+    wsum = torch.clamp_min(w.sum(-2), _EPS)
+    mean = (points * w).sum(-2) / wsum
+    d = (points - mean[..., None, :]) * torch.sqrt(w)
+    cov = fp32_matmul(d.transpose(-1, -2), d) / wsum[..., None]
+    return mean, cov
+
+
 def kabsch_moments(source: torch.Tensor, target: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
     """The weighted statistics a rigid fit needs, as one (15,) tensor on

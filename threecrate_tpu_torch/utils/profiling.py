@@ -1,9 +1,12 @@
-"""Timing on the card with CUDA events."""
+"""Timing on the card with CUDA events, and a device profile of one
+call with ``torch.profiler``."""
 
 from __future__ import annotations
 
+import collections
 import statistics
-from typing import Callable
+import time
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -31,3 +34,43 @@ def median_time(fn: Callable, warmup: int = 2, iters: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
     return statistics.median(times)
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def device_profile(fn: Callable, top: int = 10) -> Tuple[float, float, List]:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activities) after one warm-up: (wall ms on the host clock around the
+    call and a synchronise, device busy ms, ``top`` device entries as
+    (name, summed ms, count) by summed time). Busy time is the union of
+    the call's kernel, copy and memset intervals; 1 − busy / wall is the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.device_type == cuda]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, s, e in events:
+        by_name[name][0] += (e - s) / 1e3
+        by_name[name][1] += 1
+    entries = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda t: -t[1])
+    return wall_ms, _union_us([(s, e) for _, s, e in events]) / 1e3, entries[:top]
