@@ -35,8 +35,8 @@ from threecrate_tpu_torch import kernels  # noqa: E402
 from threecrate_tpu_torch.kernels import fpfh, shot  # noqa: E402
 from threecrate_tpu_torch.kernels.icp import icp_match_plain, icp_match_tiles  # noqa: E402
 from threecrate_tpu_torch.kernels.knn import (  # noqa: E402
-    window_union_a_plain, window_union_a_tiles, window_union_b_plain,
-    window_union_b_tiles)
+    window_normals_plain, window_normals_tiles, window_union_a_plain,
+    window_union_a_tiles, window_union_b_plain, window_union_b_tiles)
 from threecrate_tpu_torch.kernels.knn_window import (  # noqa: E402
     knn_window_plain, knn_window_tiles)
 from threecrate_tpu_torch.ops import features as tf  # noqa: E402
@@ -141,6 +141,7 @@ def test_wrappers_count_launches(cuda):
     shot.shot_moments_b_tiles(torch.zeros(5, 512, device=cuda), 0.1, 16, TILE)
     shot.shot_hist_a_tiles(p7, lrf, 0.1, 16, TILE, "usc")
     shot.shot_hist_b_tiles(torch.zeros(8, 512, device=cuda), lrf, 0.1, 16, TILE)
+    window_normals_tiles(x, v, K, TILE, 16)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"union_window_a": 1, "union_window_b": 1,
                                        "icp_match": 1, "spfh_a": 1, "spfh_b": 1,
@@ -148,7 +149,7 @@ def test_wrappers_count_launches(cuda):
                                        "spfh_band_a": 1, "spfh_band_b": 1,
                                        "knn_window": 1, "shot_moments_a": 1,
                                        "shot_moments_b": 1, "shot_hist_a": 1,
-                                       "shot_hist_b": 1}
+                                       "shot_hist_b": 1, "window_normals": 1}
 
 
 def test_step_on_card_matches_cpu(cuda, monkeypatch):
@@ -407,3 +408,79 @@ def test_shot_entries_on_card_launch_their_kernels(cuda):
         both = gv & cv
         cos = (gd[both] * cd[both]).sum(1)
         assert (cos >= 0.999).float().mean() >= 0.97, cos.quantile(0.03).item()
+
+
+@pytest.mark.parametrize("k,band,tile", [(10, 16, 256), (10, 0, 256), (20, 0, 128),
+                                         (40, 48, 64)])
+def test_window_normals_kernel_matches_plain(cuda, k, band, tile):
+    """Both selection bodies, at each register-list size (k 10/20/40 →
+    16/32/64), on a sorted 20,000-point scan with an invalid tail and
+    queries with fewer than k valid candidates."""
+    args = _window_case(cuda, 20_000, 12, tile, n_valid=5)[:2]
+    got = window_normals_tiles(*args, k, tile, band)
+    ref = window_normals_plain(*args, k, tile, band)
+    assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])
+    assert ref[4].max() >= k and (ref[4][3 * tile:4 * tile] < k).any()
+    same = (got == ref).all(0)
+    assert same.float().mean() >= 0.9999
+    assert ((got[:4] - ref[:4]).abs().amax(0) <= 1e-5).float().mean() >= 0.9999
+
+
+def test_window_fast_on_card_matches_cpu(cuda):
+    """method="window_fast" (two passes, pick-tighter) on 20,000 points:
+    two kernel launches, the card's normals against the CPU run's."""
+    pts = _scan(20_000, 13)
+    cfg = tt.NormalEstimationConfig(method="window_fast")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        res = tt.estimate_normals_detailed(tt.PointCloud.from_numpy(pts, device=dev), cfg)
+        out[dev.type] = (res, kernels.launch_counts())
+    (g, counts), (c, cpu_counts) = out["cuda"], out["cpu"]
+    assert {k: v for k, v in counts.items() if v} == {"window_normals": 2}
+    assert not any(cpu_counts.values())
+    assert torch.equal(g.valid.cpu(), c.valid) and c.valid[:20_000].float().mean() > 0.99
+    norms = g.normals[g.valid].norm(dim=1)
+    assert ((norms - 1).abs() < 1e-5).all()
+    cos = (g.normals.cpu() * c.normals).sum(1).abs()[c.valid]
+    assert (cos >= 0.9999).float().mean() >= 0.999
+
+
+def test_voxel_grid_on_card(cuda):
+    """The voxel count equals a float64 numpy oracle's on the same fp32
+    keys; the centroids agree with it within 1e-4 m (fp32 sums of
+    coordinates up to ~200 m from the cloud minimum)."""
+    pts = _scan(20_000, 14)
+    pc = tt.PointCloud.from_numpy(pts, device=cuda)
+    res = tt.voxel_grid_filter_detailed(pc, 0.2)
+    mn = pts.min(0)
+    keys = np.floor((pts - mn) / np.float32(0.2)).astype(np.int64)
+    uniq, inv = np.unique(keys[:, ::-1], axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    cent = np.zeros((len(uniq), 3))
+    np.add.at(cent, inv, pts.astype(np.float64))
+    cent /= np.bincount(inv)[:, None]
+    assert int(res.num_voxels) == len(uniq)
+    got = res.cloud.points[:len(uniq)].cpu().numpy()
+    assert np.abs(got - cent).max() <= 1e-4
+    assert np.array_equal(res.voxel_index[:20_000].cpu().numpy(), inv)
+
+
+def test_point_to_plane_on_card_matches_cpu(cuda):
+    """Point-to-plane ICP on a 20,000-point pair, the static-sort path
+    forced: icp_match carries the 3 normal rows; the card's pose against
+    the CPU run's."""
+    src = _scan(20_000, 15)
+    tgt = src + np.array([0.05, -0.03, 0.02], np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t_pc = tt.PointCloud.from_numpy(tgt, device=dev)
+        t_pc = t_pc.with_normals(tt.estimate_normals_detailed(t_pc).normals)
+        kernels.reset_launch_counts()
+        res = tt.icp_point_to_plane(tt.PointCloud.from_numpy(src, device=dev), t_pc,
+                                    max_iterations=15, correspondence="window")
+        out[dev.type] = (res.transformation.cpu(), kernels.launch_counts())
+    (g, counts), (c, _) = out["cuda"], out["cpu"]
+    assert 1 <= counts["icp_match"] <= 15
+    torch.testing.assert_close(g, c, atol=1e-4, rtol=0)
+    assert np.abs(g[:3, 3].numpy() - [0.05, -0.03, 0.02]).max() <= 1e-3

@@ -9,12 +9,16 @@ side sorting for itself would give different windows); module tests
 give both sides the same points and normals.
 
 Stated tolerances:
-* ``knn``: squared distances within the two sides' fp32 error bound
-  of ‖q‖² + ‖p‖² − 2q·p, 30u·(‖q‖² + ‖p‖²) with u = 2^-24 (derived at
-  the test; XLA's and PyTorch's CPU matmuls round q·p differently, by
-  an amount that depends on the host's instruction set), validity
-  equal, indices equal where the exact order is decided beyond each
-  side's bound (near-ties may come back in either order);
+* ``knn``: each side's squared distances first within its own fp32
+  error bound of ‖q‖² + ‖p‖² − 2q·p, 9u·(‖q‖² + ‖p‖²) with u = 2^-24
+  (derived at the test), of the float64 d² of the point it returned;
+  then the two sides within 30u·(‖q‖² + ‖p‖²) of each other (which
+  roundings XLA's CPU dot makes depends on the host's instruction set),
+  validity equal, indices equal where the exact order is decided beyond
+  each side's bound (near-ties may come back in either order);
+* the port's CPU knn product (an fp32 FMA chain): XLA's bits on >= 99.9%
+  of entries and within 64u·dim elsewhere (a float64 double rounding at
+  a tie moves the last bit);
 * ``atan2_approx``: equal to the JAX function within 1 ulp of π;
 * stage-1 kernels: count rows equal on >= 99.9% of points, histogram
   rows within 2 votes on >= 99.5% (the reference's XLA:CPU run
@@ -110,8 +114,19 @@ def test_knn_db_tiling_matches_jax(exclude_self):
     fin = np.isfinite(jd)
     sq = (db.astype(np.float64) ** 2).sum(1)
     s_slot = sq[:, None] + sq[ji]
-    # each side: 9u·S, plus 3u·d² ≤ 6u·S for the sqrt the result holds
-    # and the square taken here
+    # first each side against float64: the returned distance squared
+    # within 9u·S of the exact d² of the point that side returned at that
+    # slot, plus 3u·d² for the sqrt the result holds and the square here
+    for side, dist, idx in (("port", td, tr.indices.numpy()), ("JAX", jd, ji)):
+        exact = ((db[:, None, :].astype(np.float64) - db[idx]) ** 2).sum(-1)
+        got = dist.astype(np.float64) ** 2
+        lim = 9 * _U * (sq[:, None] + sq[idx]) + 3 * _U * exact
+        bad = np.argwhere(fin & ~(np.abs(got - exact) <= lim))
+        assert not len(bad), (
+            f"{side} side off its fp32 bound at {len(bad)} slots; first: query "
+            f"{bad[0][0]} slot {bad[0][1]}: d² {got[tuple(bad[0])]!r}, exact "
+            f"{exact[tuple(bad[0])]!r}, bound {lim[tuple(bad[0])]!r}")
+    # then the two sides: each within its bound, so within both
     assert (np.abs(td[fin] ** 2 - jd[fin] ** 2) <= 30 * _U * s_slot[fin]).all()
     assert (~np.isfinite(td[~fin])).all()
     # the exact order (float64) of each valid query's valid candidates;
@@ -136,6 +151,23 @@ def test_knn_db_tiling_matches_jax(exclude_self):
         rows = np.arange(600)[:, None]
         assert not (tr.indices.numpy()[np.isfinite(td)] ==
                     np.broadcast_to(rows, td.shape)[np.isfinite(td)]).any()
+
+
+@pytest.mark.parametrize("dim", [3, 8, 33])
+def test_cpu_knn_product_has_xlas_bits(dim):
+    """The CPU knn product (an elementwise fp32 FMA chain over the
+    columns, no BLAS) against XLA's CPU dot at HIGHEST precision."""
+    import jax
+    rng = np.random.default_rng(dim)
+    a = rng.normal(0, 1, (300, dim)).astype(np.float32)
+    b = rng.normal(0, 1, (700, dim)).astype(np.float32)
+    ref = np.asarray(jax.lax.dot_general(jnp.asarray(a), jnp.asarray(b),
+                                         (((1,), (1,)), ((), ())),
+                                         precision=jax.lax.Precision.HIGHEST,
+                                         preferred_element_type=jnp.float32))
+    got = tn._cross(_t(a), _t(b)).numpy()
+    assert np.mean(got == ref) >= 0.999
+    np.testing.assert_allclose(got, ref, rtol=0, atol=64 * _U * dim)
 
 
 def test_knn_tiling_is_exact():

@@ -91,10 +91,12 @@ def test_validation_errors_match(bad):
 @pytest.mark.parametrize("cfg", [dict(method="window_fast"),
                                  dict(method="window_fast", window_passes=1,
                                       window_merge="union")])
-def test_unported_methods_name_their_roadmap_item(cfg):
-    c = interop.cloud_from_numpy(np.zeros((256, 3), np.float32), np.ones(256, bool), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tn.estimate_normals_detailed(c, tn.NormalEstimationConfig(**cfg))
+def test_window_fast_configs_match_jax(cfg):
+    """method="window_fast" with pick-tighter over two passes, and with
+    the union merge at one pass (the same one-pass kernel path in the JAX
+    package), on 2,000 points of a scan."""
+    jr, tr = _both(_scan(2000, 11), cfg)
+    _assert_close(jr, tr)
 
 
 def _assert_window_close(jr, tr):

@@ -96,3 +96,13 @@ def test_step_keeps_its_device():
     assert all(t.device.type == "cpu" for t in res)
     assert res.transform.shape == (4, 4) and res.normals.shape == (512, 3)
     assert (step.k, step.max_iterations, step.conv_thresh) == (8, 3, 1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_chip_smoke_scan_is_the_bench_cloud(seed):
+    """``chip_smoke.py`` carries its own copy of the benchmark's scan
+    generator (the port's smoke run reads nothing of the reference's files):
+    the same arrays for the seeds it uses."""
+    import chip_smoke
+    from bench import _kitti_like
+    np.testing.assert_array_equal(chip_smoke.scan(5000, seed), _kitti_like(5000, seed))

@@ -2,15 +2,16 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Four slices are ported:
+for NVIDIA Hopper (``csrc/``). Five slices are ported:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
 ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
 batched RANSAC, then ICP), the Morton-window neighbourhood ops (FPFH
 at its default band rungs, the window kNN family, ``method="window"``
-normals, the staged window FPFH and statistical outlier removal) and
-the SHOT/USC descriptors (the fused band path and the staged path),
-with the data model, Morton keys, small linear algebra and exact
-neighbour search they need. Clouds built with ``PointCloud.from_numpy``
+normals, the staged window FPFH and statistical outlier removal), the
+SHOT/USC descriptors (the fused band path and the staged path), and
+``method="window_fast"`` normals with the voxel grid, the crops and
+point-to-plane, batched and multiscale ICP, with the data model, Morton
+keys, small linear algebra and exact neighbour search they need. Clouds built with ``PointCloud.from_numpy``
 live on the card unless the caller asks for the CPU. Modules mirror the
 JAX package's layout and public names.
 """
@@ -35,15 +36,19 @@ from .ops.features import (SHOT_DIM, USC_DIM, FpfhConfig, FpfhResult, ShotConfig
                            ShotResult, extract_fpfh_features,
                            extract_fpfh_features_with_normals, extract_shot_features,
                            extract_usc_features, match_descriptors)
-from .ops.filtering import (OutlierResult, radius_outlier_removal,
+from .ops.filtering import (OutlierResult, VoxelGridResult, passthrough_filter,
+                            radius_outlier_removal, range_filter,
                             statistical_outlier_removal,
-                            statistical_outlier_removal_with_threshold)
+                            statistical_outlier_removal_with_threshold,
+                            voxel_grid_filter, voxel_grid_filter_detailed)
 from .ops.global_registration import (GlobalRegistrationConfig,
                                       GlobalRegistrationResult, global_registration)
 from .ops.normals import (NormalEstimationConfig, estimate_normals,
                           estimate_normals_detailed,
                           estimate_normals_with_config)
-from .ops.registration import ICPResult, icp, icp_point_to_point
+from .ops.registration import (ICPConfig, ICPResult, MultiscaleConfig, icp,
+                                icp_point_to_plane, icp_point_to_point,
+                                multiscale_icp_point_to_point)
 
 __all__ = [
     "core", "interop", "kernels", "models", "ops", "utils",
@@ -54,8 +59,11 @@ __all__ = [
     "extract_usc_features",
     "GlobalRegistrationConfig", "GlobalRegistrationResult", "global_registration",
     "NormalEstimationConfig", "estimate_normals", "estimate_normals_detailed",
-    "estimate_normals_with_config", "ICPResult", "icp", "icp_point_to_point",
-    "OutlierResult", "statistical_outlier_removal",
+    "estimate_normals_with_config", "ICPConfig", "ICPResult", "MultiscaleConfig",
+    "icp", "icp_point_to_point", "icp_point_to_plane",
+    "multiscale_icp_point_to_point", "OutlierResult", "VoxelGridResult",
+    "voxel_grid_filter", "voxel_grid_filter_detailed", "passthrough_filter",
+    "range_filter", "statistical_outlier_removal",
     "statistical_outlier_removal_with_threshold", "radius_outlier_removal",
     "ThreeCrateError", "IoError", "InvalidDataError", "AlgorithmError",
     "DeviceError", "VisualizationError", "UnsupportedError",

@@ -6,8 +6,8 @@ included, so both packages see the same capacity) and build the port's
 types; ``cloud_to_numpy`` and ``transform_to_numpy`` go back. The
 system has no learned weights: besides the clouds, the state both
 packages share is their configs, which ``fpfh_config_from``,
-``shot_config_from`` and ``global_registration_config_from`` carry over
-field by field.
+``shot_config_from``, ``global_registration_config_from`` and
+``multiscale_config_from`` carry over field by field.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from .core.point_cloud import PointCloud
 from .core.transform import Transform
 from .ops.features import FpfhConfig, FpfhResult, ShotConfig, ShotResult
 from .ops.global_registration import GlobalRegistrationConfig
+from .ops.registration import MultiscaleConfig
 
 
 def cloud_from_numpy(points, mask, attrs: Optional[Dict] = None,
@@ -68,6 +69,11 @@ def shot_config_from(config) -> ShotConfig:
 def global_registration_config_from(config) -> GlobalRegistrationConfig:
     """The port's ``GlobalRegistrationConfig`` with the fields of a JAX one."""
     return _config_from(GlobalRegistrationConfig, config)
+
+
+def multiscale_config_from(config) -> MultiscaleConfig:
+    """The port's ``MultiscaleConfig`` with the fields of a JAX one."""
+    return _config_from(MultiscaleConfig, config)
 
 
 def fpfh_result_to_numpy(res: FpfhResult) -> Tuple[np.ndarray, np.ndarray]:

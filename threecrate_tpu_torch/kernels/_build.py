@@ -37,6 +37,8 @@ _SIGNATURES = {
     "tc_union_window_a": (_P, _P, _P, _I, _I, _I, _I, _P),
     # pts, valid, pos_a, hi_a, out, n, tile, k, band, stream
     "tc_union_window_b": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # pts, valid, out, n, tile, k, band, stream
+    "tc_window_normals": (_P, _P, _P, _I, _I, _I, _I, _P),
     # src, tgt, window_start, out, ns, nt, rows, tile, w_tiles, stream
     "tc_icp_match": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # packed, out, n, tile, r2, stream

@@ -1,11 +1,14 @@
-"""Union-window normal sums: the two passes of the default normals path.
+"""Union-window normal sums (the two passes of the default normals path)
+and the fused window normals of ``method="window_fast"``.
 
-``window_union_a_tiles`` and ``window_union_b_tiles`` replace the Pallas
-kernels of the same names in ``threecrate_tpu/kernels/knn_pallas.py``
-(bodies ``_union_a_kernel`` and ``_union_b_kernel``). On a CUDA tensor
-they launch the hand-written kernels of ``csrc/union_window.cu``; on a
-CPU tensor they run the plain PyTorch versions below, which compute the
-same function and are what the kernels are checked against.
+``window_union_a_tiles``, ``window_union_b_tiles`` and
+``window_normals_tiles`` replace the Pallas kernels of the same names in
+``threecrate_tpu/kernels/knn_pallas.py`` (bodies ``_union_a_kernel``,
+``_union_b_kernel``, ``_moments_kernel`` and ``_moments_band_kernel``).
+On a CUDA tensor they launch the hand-written kernels of
+``csrc/union_window.cu``; on a CPU tensor they run the plain PyTorch
+versions below, which compute the same function and are what the
+kernels are checked against.
 
 Inputs are Morton-sorted, transposed and padded to a multiple of
 ``tile``: coordinates ``(3, N)`` float32, validity ``(1, N)`` float32,
@@ -15,9 +18,22 @@ float32 in the same order: pass A ``[cnt, S1 (3), S2 (6), hiA]``, pass B
 ``[S_out (10), use_b]``, with S1 = Σ(c − q) and S2 = Σ(c − q)(c − q)ᵀ
 ordered xx, yy, zz, xy, xz, yz over each query's selected candidates.
 
-On the card these are fp32 ALU-bound scans: 8 sweeps of the 768-point
-window per query from shared memory, with little device-memory
-traffic (see the source note in ``csrc/union_window.cu``).
+``window_normals_tiles`` returns ``(6, N)`` rows ``[nx, ny, nz,
+curvature, count, k-th]`` per query: with ``band=0`` the k nearest valid
+window columns (ties to the lowest column) and their query-centred
+covariance, the k-th row the k-th −d²; with ``band > 0`` every column
+within the union passes' band bound at half-width max(band, k), the
+covariance from raw moments in the frame of the tile centre (the mean of
+the tile's valid queries), the k-th row −hi. Both end in the Pallas
+body's 4-sweep Jacobi eigensolve (``_jacobi_normal``). The selection
+sums are taken in float64 and rounded once to fp32, here and in the
+kernel, so the two agree bit for bit unless a float64 sum lands within
+2^-53 of an fp32 rounding boundary; every fp32 operation after them is
+the Pallas body's, unfused, in its order.
+
+On the card these are fp32 ALU-bound scans: up to 8 sweeps of the
+768-point window per query from shared memory, with little
+device-memory traffic (see the source note in ``csrc/union_window.cu``).
 """
 
 from __future__ import annotations
@@ -186,5 +202,129 @@ def window_union_b_tiles(sorted_pts_t, sorted_valid, sorted_pos_a, hi_a,
     return out
 
 
+def _jacobi_normal(cxx, cyy, czz, cxy, cxz, cyz):
+    """Smallest eigenpair of symmetric 3x3 covariances by 4 cyclic Jacobi
+    sweeps on the trace-scaled matrix, operation for operation as
+    ``_normal_from_cov_lanes`` of ``knn_pallas.py``: ``(nx, ny, nz,
+    curvature = λ0/Σλ)``."""
+    trace = torch.clamp_min(cxx + cyy + czz, 1e-12)
+    a00, a11, a22 = cxx / trace, cyy / trace, czz / trace
+    a01, a02, a12 = cxy / trace, cxz / trace, cyz / trace
+    one, zero = torch.ones_like(a00), torch.zeros_like(a00)
+    v = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
+
+    def rot(apq, theta_den):
+        theta = theta_den / (2.0 * torch.where(apq == 0.0, one, apq))
+        sgn = torch.where(theta >= 0.0, one, -one)
+        t = sgn / (theta.abs() + torch.sqrt(theta * theta + 1.0))
+        t = torch.where(apq.abs() > 1e-30, t, zero)
+        c = one / torch.sqrt(t * t + 1.0)
+        return t, c, t * c
+
+    def turn(x, y, c, s):
+        return c * x - s * y, s * x + c * y
+
+    for _ in range(4):
+        t, c, s = rot(a01, a11 - a00)                    # pivot (0, 1)
+        a00, a11, a01 = a00 - t * a01, a11 + t * a01, zero
+        a02, a12 = turn(a02, a12, c, s)
+        for row in v:
+            row[0], row[1] = turn(row[0], row[1], c, s)
+        t, c, s = rot(a02, a22 - a00)                    # pivot (0, 2)
+        a00, a22, a02 = a00 - t * a02, a22 + t * a02, zero
+        a01, a12 = turn(a01, a12, c, s)
+        for row in v:
+            row[0], row[2] = turn(row[0], row[2], c, s)
+        t, c, s = rot(a12, a22 - a11)                    # pivot (1, 2)
+        a11, a22, a12 = a11 - t * a12, a22 + t * a12, zero
+        a01, a02 = turn(a01, a02, c, s)
+        for row in v:
+            row[1], row[2] = turn(row[1], row[2], c, s)
+
+    m0 = (a00 <= a11) & (a00 <= a22)
+    m1 = ~m0 & (a11 <= a22)
+
+    def pick(x0, x1, x2):
+        return torch.where(m0, x0, torch.where(m1, x1, x2))
+
+    vx, vy, vz = (pick(*row) for row in v)
+    inv = one / torch.sqrt(torch.clamp_min(vx * vx + vy * vy + vz * vz, 1e-30))
+    return vx * inv, vy * inv, vz * inv, torch.clamp_min(pick(a00, a11, a22), 0.0)
+
+
+def _normal_rows(g, last):
+    """The 6 output rows from the 10 selection sums ``g`` (..., 10)
+    float64 [count, S1 (3), S2 (6)]: each sum rounded once to fp32, the
+    covariance E[dd] − E[d]E[d], the eigensolve, then count and ``last``."""
+    g = g.to(torch.float32).unbind(-1)
+    cnt = g[0]
+    nn = torch.clamp_min(cnt, 1e-12)
+    ex, ey, ez = g[1] / nn, g[2] / nn, g[3] / nn
+    nx, ny, nz, curv = _jacobi_normal(
+        g[4] / nn - ex * ex, g[5] / nn - ey * ey, g[6] / nn - ez * ez,
+        g[7] / nn - ex * ey, g[8] / nn - ex * ez, g[9] / nn - ey * ez)
+    return torch.stack([nx, ny, nz, curv, cnt, last])
+
+
+def _moment_features(x, y, z):
+    """(..., 10) [1, x, y, z, xx, yy, zz, xy, xz, yz], each product fp32."""
+    return torch.stack([torch.ones_like(x), x, y, z, x * x, y * y, z * z,
+                        x * y, x * z, y * z], -1)
+
+
+def window_normals_plain(sorted_pts_t, sorted_valid, k: int, tile: int = 256,
+                         band: int = 0) -> torch.Tensor:
+    """Plain PyTorch ``window_normals_tiles``, chunked over query tiles."""
+    n, band_k = _check(sorted_pts_t, sorted_valid, k, tile, band)
+    f64 = torch.float64
+    out = torch.empty((6, n), dtype=torch.float32, device=sorted_pts_t.device)
+    for t0 in range(0, n // tile, _CHUNK_TILES):
+        t1 = min(t0 + _CHUNK_TILES, n // tile)
+        d, d2v = _chunk_geometry(sorted_pts_t, sorted_valid, t0, t1, tile)
+        if band == 0:
+            # k max-extraction rounds = the first k of a stable descending sort
+            vals, cols = torch.sort(-d2v, dim=-1, descending=True, stable=True)
+            top, cols = vals[..., :k], cols[..., :k]
+            good = top > -torch.inf
+            sel = [torch.where(good, torch.gather(c, 2, cols), 0.0) for c in d]
+            feats = _moment_features(*sel)
+            feats[..., 0] = good.to(torch.float32)
+            rows = _normal_rows(feats.sum(-2, dtype=f64), top[..., k - 1])
+        else:
+            hi = _band_bound_plain(d2v, k, band_k, tile)
+            sv = sorted_valid[0, t0 * tile:t1 * tile].reshape(-1, tile)
+            q = sorted_pts_t[:, t0 * tile:t1 * tile].reshape(3, -1, tile)
+            nq = torch.clamp_min(sv.sum(-1, dtype=f64).to(torch.float32), 1.0)
+            cc = [_window(sorted_pts_t[r], t0, t1, tile, 0.0)
+                  - ((q[r] * sv).sum(-1, dtype=f64).to(torch.float32) / nq)[:, None]
+                  for r in range(3)]
+            sel = (d2v <= hi[..., None]).to(f64)
+            g = torch.matmul(sel, _moment_features(*cc).to(f64))    # (T, tile, 10)
+            rows = _normal_rows(g, -hi)
+        out[:, t0 * tile:t1 * tile] = rows.reshape(6, -1)
+    return out
+
+
+def window_normals_tiles(sorted_pts_t, sorted_valid, k: int, tile: int = 256,
+                         band: int = 0) -> torch.Tensor:
+    """Fused window normals: ``(6, N)`` rows ``[nx, ny, nz, curvature,
+    count, k-th]`` in sorted order (``band=0`` exact window k-NN, else the
+    band-bounded selection at half-width max(band, k))."""
+    if not _build.on_card(sorted_pts_t):
+        return window_normals_plain(sorted_pts_t, sorted_valid, k, tile, band)
+    n, _ = _check(sorted_pts_t, sorted_valid, k, tile, band)
+    pts = _contig_f32(sorted_pts_t)
+    valid = _contig_f32(sorted_valid)
+    out = torch.empty((6, n), dtype=torch.float32, device=pts.device)
+    with torch.cuda.device(pts.device):
+        err = _build.lib().tc_window_normals(
+            pts.data_ptr(), valid.data_ptr(), out.data_ptr(), n, tile, k,
+            max(band, k) if band else 0, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "window_normals")
+    window_normals_tiles.launches += 1
+    return out
+
+
 window_union_a_tiles.launches = 0
 window_union_b_tiles.launches = 0
+window_normals_tiles.launches = 0

@@ -188,6 +188,18 @@ def kabsch_batched(source: torch.Tensor, target: torch.Tensor,
     return m
 
 
+def solve_psd(a: torch.Tensor, b: torch.Tensor, damping: float = 1e-9) -> torch.Tensor:
+    """Solve the symmetric positive definite ``a x = b`` in fp32 by a
+    Cholesky factorisation of ``a + damping·tr(a)/n·I`` (the 6x6
+    point-to-plane system). Where the factorisation fails the result is
+    NaN, as the JAX package's ``cho_solve`` gives."""
+    n = a.shape[-1]
+    a = a + damping * torch.trace(a) / n * torch.eye(n, dtype=a.dtype, device=a.device)
+    chol, info = torch.linalg.cholesky_ex(a)
+    x = torch.cholesky_solve(b[..., None], chol)[..., 0]
+    return torch.where(info == 0, x, torch.nan)
+
+
 def transform_points(matrix: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply a (4, 4) homogeneous matrix to (..., 3) points, in fp32."""
     return fp32_matmul(points, matrix[:3, :3].T) + matrix[:3, 3]

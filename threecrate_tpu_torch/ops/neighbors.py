@@ -5,7 +5,8 @@ Counterpart of ``threecrate_tpu.ops.neighbors``. The exact searches
 (``knn``, ``radius_neighbors``, ``nearest_one``) take queries one chunk
 at a time, and each chunk scans the database one ``db_tile`` of rows at
 a time: the (chunk × tile) squared distances are formed as ‖q‖² + ‖p‖²
-− 2 q·pᵀ (an fp32 matmul), ``torch.topk`` keeps each tile's k best and
+− 2 q·pᵀ (an fp32 matmul on the card, an elementwise fp32 FMA chain on
+the CPU: see ``_cross``), ``torch.topk`` keeps each tile's k best and
 a 2k-wide top-k merges them with the best so far. So no temporary is
 wider than ``db_tile`` columns, whatever the database size. Points of
 any dimension work (descriptor matching sends 33-d FPFH rows). These
@@ -41,6 +42,24 @@ class KnnResult(NamedTuple):
     mask: torch.Tensor
 
 
+def _cross(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """q·pᵀ in fp32: on the card a full-fp32 matmul; on the CPU a chain of
+    fused multiply-adds over the columns in order (each product exact in
+    float64, the running sum rounded to fp32 after each add), formed
+    elementwise. That chain has the bits of XLA's CPU dot (and of the CPU
+    BLAS in its usual state) and depends on no BLAS kernel: the CPU BLAS's
+    fp32 product is not always true fp32 (one row of an (88 × 3)·(3 × 64)
+    product was seen ~2^-16 of ‖q‖² + ‖p‖² off, under a thread state that
+    did not recur), and the expanded d² passes such an error on whole."""
+    if q.device.type != "cpu":
+        return fp32_matmul(q, p.T)
+    qd, pd = q.to(torch.float64), p.to(torch.float64)
+    acc = (qd[:, :1] * pd[:, 0]).to(torch.float32)
+    for r in range(1, q.shape[1]):
+        acc = torch.addcmul(acc.to(torch.float64), qd[:, r:r + 1], pd[:, r]).to(torch.float32)
+    return acc
+
+
 def _chunk_vs_db(q, q_rows, db_points, db_norms, db_mask, k, db_tile):
     """One query chunk against the database, tile by tile: (negated d²
     (qc, k), indices (qc, k)), best first. ``q_rows`` holds each query's
@@ -49,7 +68,7 @@ def _chunk_vs_db(q, q_rows, db_points, db_norms, db_mask, k, db_tile):
     best_neg = best_idx = None
     for t0 in range(0, db_points.shape[0], db_tile):
         t1 = min(t0 + db_tile, db_points.shape[0])
-        cross = fp32_matmul(q, db_points[t0:t1].T)
+        cross = _cross(q, db_points[t0:t1])
         d2 = torch.clamp_min(qn[:, None] + db_norms[None, t0:t1] - 2.0 * cross, 0.0)
         neg = torch.where(db_mask[None, t0:t1], -d2, -torch.inf)
         if q_rows is not None:

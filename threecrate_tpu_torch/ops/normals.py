@@ -1,7 +1,6 @@
 """Normal estimation by local PCA.
 
-Counterpart of ``threecrate_tpu.ops.normals``. Three methods are
-ported:
+Counterpart of ``threecrate_tpu.ops.normals``, every method ported:
 
 * ``exact``: blockwise brute-force kNN (``ops.neighbors.knn``), a
   covariance from explicit component sums, the closed-form smallest
@@ -13,10 +12,13 @@ ported:
   the merged sums.
 * ``window``: the two-pass window kNN (``knn_window_tiles``) left in
   pass-A order, then the same PCA as ``exact``.
+* ``window_fast`` with ``window_merge="tighter"`` (or one pass): the
+  fused window-normals kernel (``window_normals_tiles``, band 16) per
+  Morton pass, each point keeping the pass with the tighter
+  neighbourhood; with ``window_merge="union"`` and 2+ passes, the union.
 
 Orientation flips each normal toward a viewpoint (default: the bounding
-box centre raised by the z extent). ``"window_fast"`` with
-``window_merge="tighter"`` waits for its kernel (see ``ROADMAP.md``).
+box centre raised by the z extent).
 """
 
 from __future__ import annotations
@@ -35,9 +37,8 @@ from . import linalg, morton, neighbors
 class NormalEstimationConfig:
     """The JAX package's config, field for field: ``method`` is "auto"
     (union above ``AUTO_WINDOW_THRESHOLD`` points, else exact), "exact",
-    "window" or "window_fast" (ported with ``window_merge="union"``
-    only); ``window_passes`` and ``window_merge`` configure
-    "window_fast"."""
+    "window" or "window_fast"; ``window_passes`` and ``window_merge``
+    configure "window_fast"."""
 
     k_neighbors: int = 10
     radius: Optional[float] = None
@@ -57,6 +58,33 @@ class NormalResult(NamedTuple):
     valid: torch.Tensor       # (N,) bool: enough neighbors for a plane fit
 
 
+def _pass_a(points, mask, tile):
+    """The cloud padded to a multiple of ``tile`` and Morton-sorted (pass
+    A): ``(sorted rows (N_pad, 3), sorted validity (float), perm_a)``
+    with perm_a the original row of each sorted row."""
+    n = points.shape[0]
+    n_pad = padding.round_up(n, tile)
+    pts = torch.zeros((n_pad, 3), dtype=torch.float32, device=points.device)
+    pts[:n] = points
+    mask_p = torch.zeros(n_pad, dtype=torch.bool, device=points.device)
+    mask_p[:n] = mask
+    perm_a = neighbors._sort_perm(morton.morton_keys(pts, mask_p, pass_index=0))
+    return pts[perm_a], mask_p[perm_a].to(torch.float32), perm_a
+
+
+def _to_input_order(perm_a, normal_s, curv_s, valid_s, mask):
+    """Per-point results in pass-A order → input order, zero where
+    invalid."""
+    n = mask.shape[0]
+    normal = torch.empty_like(normal_s)
+    curv = torch.empty_like(curv_s)
+    valid = torch.empty_like(valid_s)
+    normal[perm_a] = torch.where(valid_s[:, None], normal_s, 0.0)
+    curv[perm_a] = torch.where(valid_s, curv_s, 0.0)
+    valid[perm_a] = valid_s
+    return normal[:n], curv[:n], valid[:n] & mask
+
+
 def _union_window_sums(points, mask, k, tile=256, band=16):
     """The two-window union up to the merged central sums.
 
@@ -67,16 +95,7 @@ def _union_window_sums(points, mask, k, tile=256, band=16):
     """
     from ..kernels.knn import window_union_a_tiles, window_union_b_tiles
 
-    n = points.shape[0]
-    n_pad = padding.round_up(n, tile)
-    pts = torch.zeros((n_pad, 3), dtype=torch.float32, device=points.device)
-    pts[:n] = points
-    mask_p = torch.zeros(n_pad, dtype=torch.bool, device=points.device)
-    mask_p[:n] = mask
-
-    perm_a = neighbors._sort_perm(morton.morton_keys(pts, mask_p, pass_index=0))
-    pts_a_rows = pts[perm_a]
-    am = mask_p[perm_a].to(torch.float32)
+    pts_a_rows, am, perm_a = _pass_a(points, mask, tile)
     out_a = window_union_a_tiles(pts_a_rows.T.contiguous(), am[None, :], k,
                                  tile, band)                  # (11, N) A-order
 
@@ -131,22 +150,40 @@ def _estimate_window_union(points, mask, k, viewpoint, orient, tile=256,
                            band=16):
     """Two-window UNION normals: the eigensolve runs once, on the merged
     sums, and the results scatter back to input order."""
-    n = points.shape[0]
     s, pts_a_rows, am, perm_a = _union_window_sums(points, mask, k, tile, band)
     cov, cnt = _cov_from_sums(s)
     normal_s, curv_s = _normal_and_curvature(cov)
-    valid_s = (am > 0.5) & (cnt >= 3)
-    normal_s = _orient(normal_s, pts_a_rows, viewpoint, orient)
-    normal_s = torch.where(valid_s[:, None], normal_s, 0.0)
-    curv_s = torch.where(valid_s, curv_s, 0.0)
+    return _to_input_order(perm_a, _orient(normal_s, pts_a_rows, viewpoint, orient),
+                           curv_s, (am > 0.5) & (cnt >= 3), mask)
 
-    normal = torch.empty_like(normal_s)
-    curv = torch.empty_like(curv_s)
-    valid = torch.empty_like(valid_s)
-    normal[perm_a] = normal_s
-    curv[perm_a] = curv_s
-    valid[perm_a] = valid_s
-    return normal[:n], curv[:n], valid[:n] & mask
+
+def _estimate_window_moments(points, mask, k, viewpoint, orient, tile=256,
+                             n_passes=2, band=16):
+    """Fused window normals, pick-tighter over ``n_passes`` Morton passes.
+
+    Pass A sorts the padded cloud and runs the kernel; each further pass
+    sorts the pass-A rows by its own key, runs the kernel there and its
+    rows come back to pass-A order by the inverse permutation. Per point
+    the pass with more neighbours (counts clamped to k: a band selection
+    may report more, and more is not tighter) wins, then the larger k-th
+    row (the smaller radius). Only the per-point results scatter back to
+    input order."""
+    from ..kernels.knn import window_normals_tiles
+
+    pts_a_rows, am, perm_a = _pass_a(points, mask, tile)
+    out = window_normals_tiles(pts_a_rows.T.contiguous(), am[None, :], k, tile, band)
+    for p in range(1, n_passes):
+        row_a = neighbors._sort_perm(morton.morton_keys(pts_a_rows, am > 0.5, pass_index=p))
+        out_b = torch.empty_like(out)
+        out_b[:, row_a] = window_normals_tiles(pts_a_rows[row_a].T.contiguous(),
+                                               am[row_a][None, :], k, tile, band)
+        ca = torch.clamp_max(out[4], float(k))
+        cb = torch.clamp_max(out_b[4], float(k))
+        better = (cb > ca) | ((cb == ca) & (out_b[5] > out[5]))
+        out = torch.where(better[None, :], out_b, out)
+
+    return _to_input_order(perm_a, _orient(out[0:3].T, pts_a_rows, viewpoint, orient),
+                           out[3], (am > 0.5) & (out[4] >= 3), mask)
 
 
 def _pca_normals(nbr_pts, nbr_ok, query_pts, viewpoint, orient):
@@ -181,32 +218,23 @@ def _estimate_window_fused(points, mask, k, viewpoint, orient):
     nbr_ok = neg > -torch.inf
     nbr_pts = points[ids.long().clamp(0, points.shape[0] - 1)]
     normal_s, curv_s = _pca_normals(nbr_pts, nbr_ok, pts_a, viewpoint, orient)
-    valid_s = mask_a & (nbr_ok.sum(1) >= 3)
-    n = points.shape[0]
-    normal = torch.empty_like(normal_s)
-    curv = torch.empty_like(curv_s)
-    valid = torch.empty_like(valid_s)
-    normal[perm_a] = torch.where(valid_s[:, None], normal_s, 0.0)
-    curv[perm_a] = torch.where(valid_s, curv_s, 0.0)
-    valid[perm_a] = valid_s
-    return normal[:n], curv[:n], valid[:n] & mask
+    return _to_input_order(perm_a, normal_s, curv_s, mask_a & (nbr_ok.sum(1) >= 3), mask)
 
 
 def _estimate(points, mask, k, use_radius, radius, viewpoint, orient,
               window=False, moments=False, window_passes=2, window_band=16,
               window_merge="tighter"):
-    """Method dispatch, as the JAX ``_estimate``: the union when
-    ``moments`` with merge "union" and 2+ passes, the window kNN
-    pipeline for ``window``, else one kNN (window or exact) and the PCA
-    (radius mode masks neighbours beyond ``radius`` and falls back to
-    plain k-NN where fewer than 3 fall inside)."""
+    """Method dispatch, as the JAX ``_estimate``: for ``moments`` the
+    union (merge "union", 2+ passes) or the fused pick-tighter kernel
+    path, the window kNN pipeline for ``window``, else one kNN (window or
+    exact) and the PCA (radius mode masks neighbours beyond ``radius``
+    and falls back to plain k-NN where fewer than 3 fall inside)."""
     if moments and not use_radius:
         if window_merge == "union" and window_passes >= 2:
             return _estimate_window_union(points, mask, k, viewpoint, orient,
                                           band=window_band)
-        raise NotImplementedError(
-            'method="window_fast" needs the window_normals_tiles kernel, '
-            "still to be ported (ROADMAP.md, section 2, kernel 4)")
+        return _estimate_window_moments(points, mask, k, viewpoint, orient,
+                                        n_passes=window_passes, band=window_band)
     if window and not use_radius:
         return _estimate_window_fused(points, mask, k, viewpoint, orient)
     if window:

@@ -1,38 +1,44 @@
-"""Point-to-point ICP.
+"""ICP: point-to-point, point-to-plane, batched and multiscale.
 
 Counterpart of ``threecrate_tpu.ops.registration``: transform the
-source, find correspondences, fit a weighted Kabsch step, compose, and
-stop when |ΔMSE| falls below the threshold. Two correspondence paths,
-chosen by size as in the JAX package:
+source, find correspondences, fit a step (a weighted Kabsch fit, or for
+point-to-plane the damped 6x6 Chen-Medioni normal equations and the
+se(3) exponential), compose, and stop when |ΔMSE| falls below the
+threshold. Two correspondence paths, chosen by size as in the JAX
+package:
 
 * below ``CORRESPONDENCE_WINDOW_THRESHOLD`` source×target pairs, exact
   brute-force 1-NN (``ops.neighbors.knn``);
 * above it, the static-sort search: both clouds are Morton-sorted once
   per call and every iteration matches each source tile against a
   window of ``w_tiles`` target tiles (``kernels.icp``), with a
-  16x-median trimming gate.
+  16x-median trimming gate; point-to-plane carries the target normals
+  through the kernel as 3 payload rows.
 
 The JAX loop is a ``lax.while_loop`` on the device. Here the loop runs
-on the host: each iteration reduces its Kabsch moments, MSE and match
-count on the device and reads them back as ONE small tensor (one
-device→host sync per iteration); the 3x3 SVD, the pose composition and
+on the host: each iteration reduces its Kabsch moments (point-to-plane:
+the 6x6 system and its right-hand side), MSE and match count on the
+device and reads them back as ONE small tensor (one device→host sync
+per iteration); the 3x3 SVD or the 6x6 solve, the pose composition and
 the convergence test then run on the host in fp32, and the loop stops
 at the same iteration with the same pose as the JAX one.
+``multiscale_icp_point_to_point`` runs point-to-point ICP on a voxel
+pyramid (``ops.filtering.voxel_grid_filter``), then at full resolution.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from ..core.errors import InvalidDataError
 from ..core.point_cloud import PointCloud
-from ..core.transform import Transform
+from ..core.transform import Transform, se3_exp
 from ..utils import padding
-from . import linalg, morton, neighbors
+from . import filtering, linalg, morton, neighbors
 
 
 class ICPResult(NamedTuple):
@@ -114,14 +120,22 @@ def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
 
 
 def _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2,
-                       w_tiles, tile=128, tile_stride=1):
+                       w_tiles, tgt_extra=None, src_extra=None, tile=128,
+                       tile_stride=1):
     """Static-sort correspondence: the sorts run once per call.
 
-    Returns ``match(t_mat) -> (moved, matched, ok, d2)`` over the
-    source-sorted rows; ``ok`` combines window validity, the trimming
-    gate (16x the median d² of a strided sample, floored at
-    (3e-6·extent)²) and the squared distance limit ``max_d2``. ``tile_stride > 1`` keeps
-    every ``tile_stride``-th source tile (the coarse phase).
+    ``tgt_extra`` (Nt, E): per-target payload (point-to-plane: normals)
+    sorted with the target and matched through the kernel as E payload
+    rows. ``src_extra`` (Ns, F): per-source payload put in source-sorted
+    order once.
+
+    Returns ``(match, src_extra_sorted)`` with ``match(t_mat) -> (moved,
+    matched, ok, d2, extra)`` over the source-sorted rows (``extra`` the
+    (E, Ns) matched payload, None without ``tgt_extra``); ``ok`` combines
+    window validity, the trimming gate (16x the median d² of a strided
+    sample, floored at (3e-6·extent)²) and the squared distance limit
+    ``max_d2``. ``tile_stride > 1`` keeps every ``tile_stride``-th source
+    tile (the coarse phase).
     """
     from ..kernels.icp import icp_match_tiles
 
@@ -139,7 +153,11 @@ def _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2,
     tvf = tm_p[order_t].to(torch.float32)
     # invalid targets get SENTINEL coordinates whose d² overflows to +inf
     coords = torch.where(tvf[:, None] < 0.5, 2e19, tsorted)
-    tgt_packed = torch.cat([coords.T, tvf[None, :]]).contiguous()
+    rows = [coords.T, tvf[None, :]]
+    n_extra = 0 if tgt_extra is None else tgt_extra.shape[1]
+    if n_extra:
+        rows.append(_pad(tgt_extra.to(torch.float32), nt_pad)[order_t].T)
+    tgt_packed = torch.cat(rows).contiguous()
 
     # the source is sorted once at its init pose, in the TARGET's lattice;
     # the rigid motion ICP applies keeps a sorted array spatially coherent
@@ -148,12 +166,17 @@ def _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2,
                          stable=True).indices
     src_sorted = src_p[order_s]
     svf = sm_p[order_s].to(torch.float32)
+    src_extra_sorted = (None if src_extra is None
+                        else _pad(src_extra.to(torch.float32), ns_pad)[order_s])
     n_src_tiles = ns_pad // tile
     if tile_stride > 1:
         tile_stride = min(tile_stride, n_src_tiles)
         src_sorted = src_sorted.reshape(n_src_tiles, tile, 3)[
             ::tile_stride].reshape(-1, 3)
         svf = svf.reshape(n_src_tiles, tile)[::tile_stride].reshape(-1)
+        if src_extra_sorted is not None:
+            src_extra_sorted = src_extra_sorted.reshape(n_src_tiles, tile, -1)[
+                ::tile_stride].reshape(-1, src_extra_sorted.shape[1])
         n_src_tiles = src_sorted.shape[0] // tile
     n_tgt_tiles = nt_pad // tile
     extent = torch.full_like(scale_t, morton.GRID) / scale_t
@@ -177,6 +200,7 @@ def _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2,
                               w_tiles=w_tiles)
         matched = out[0:3].T
         w_raw = out[3] > 0.5
+        extra = out[4:4 + n_extra] if n_extra else None
         # exact d² from the matched coordinates
         diff = moved - matched
         d2 = torch.where(w_raw, (diff * diff).sum(1), torch.inf)
@@ -185,39 +209,78 @@ def _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2,
         med = percentile(d2[::stride], 50.0)
         gate = torch.maximum(16.0 * med, noise_floor)
         ok = w_raw & (d2 <= gate) & (d2 <= max_d2)
-        return moved, matched, ok, d2
+        return moved, matched, ok, d2, extra
 
-    return match
+    return match, src_extra_sorted
+
+
+def _static_matchers(src, src_mask, tgt, tgt_mask, t_host, max_d2, w_tiles,
+                     subsample, tgt_extra=None, tile=128):
+    """The static-sort ``match`` functions at the host pose ``t_host``:
+    (every source tile, every ``subsample``-th tile or None)."""
+    init = t_host.to(src.device)
+    full, _ = _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2, w_tiles,
+                                 tgt_extra=tgt_extra, tile=tile)
+    if subsample <= 1:
+        return full, None
+    coarse, _ = _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2, w_tiles,
+                                   tgt_extra=tgt_extra, tile=tile, tile_stride=subsample)
+    return full, coarse
+
+
+def _icp_loop(step, t_host, max_iterations, conv_thresh, match=None,
+              match_sub=None, full_iters=2):
+    """The host-side loop shared by the ICP variants. ``step(t, match)
+    -> (delta (4, 4), mse, n_corr)`` takes and gives host tensors; the
+    loop composes ``delta @ t`` and stops after ``max_iterations`` or once
+    |ΔMSE| < ``conv_thresh``. With ``match_sub``, a coarse phase runs on
+    it for all but the last ``full_iters`` iterations, then ``match``
+    polishes with the convergence test restarted. Returns ``(t, mse, it,
+    conv, n_corr)``."""
+    thresh = torch.tensor(conv_thresh, dtype=torch.float32)
+
+    def run_loop(t_mat, it, match_fn, it_budget):
+        mse = torch.tensor(torch.inf)
+        conv, n_corr = False, 0
+        while it < it_budget and not conv:
+            delta, new_mse, n_corr = step(t_mat, match_fn)
+            t_mat = linalg.fp32_matmul(delta, t_mat)
+            conv = bool(torch.abs(new_mse - mse) < thresh)
+            mse = new_mse
+            it += 1
+        return t_mat, mse, it, conv, n_corr
+
+    if match_sub is not None and max_iterations > full_iters:
+        t_host, _, it_a, _, _ = run_loop(t_host, 0, match_sub, max_iterations - full_iters)
+        return run_loop(t_host, it_a, match, max_iterations)
+    return run_loop(t_host, 0, match, max_iterations)
+
+
+def _limits(max_corr_dist):
+    """(max distance, max d²) as Python floats holding fp32 values (the
+    square an fp32 product, as the JAX package takes it): compared with
+    fp32 tensors they are exact, and no host→device copy is needed."""
+    mcd32 = torch.tensor(max_corr_dist, dtype=torch.float32)
+    return mcd32.item(), (mcd32 * mcd32).item()
 
 
 def _icp_p2p(src, src_mask, tgt, tgt_mask, init, max_iterations,
              conv_thresh, max_corr_dist, window=False, w_tiles=3,
              tile=128, subsample=1, full_iters=2):
-    """The ICP loop. Returns ``(t_mat, mse, it, conv, n_corr)`` with
-    ``t_mat`` (4, 4) and ``mse`` () on the clouds' device."""
+    """The point-to-point ICP loop. Returns ``(t_mat, mse, it, conv,
+    n_corr)`` with ``t_mat`` (4, 4) and ``mse`` () on the clouds' device."""
     device = src.device
     t_host = init.to(dtype=torch.float32).cpu()    # the pose lives on the host
-    # fp32 values as Python floats: compared with fp32 tensors they are
-    # exact, and no host→device copy is needed
-    mcd32 = torch.tensor(max_corr_dist, dtype=torch.float32)
-    max_corr_dist = mcd32.item()
-    max_d2 = (mcd32 * mcd32).item()
-    if window:
-        init = t_host.to(device)
-        static_match = _static_corr_setup(src, src_mask, tgt, tgt_mask, init,
-                                          max_d2, w_tiles, tile=tile)
-        static_match_sub = None
-        if subsample > 1:
-            static_match_sub = _static_corr_setup(
-                src, src_mask, tgt, tgt_mask, init, max_d2, w_tiles,
-                tile=tile, tile_stride=subsample)
+    max_corr_dist, max_d2 = _limits(max_corr_dist)
+    matchers = (_static_matchers(src, src_mask, tgt, tgt_mask, t_host, max_d2, w_tiles,
+                                 subsample, tile=tile) if window else (None, None))
 
-    def fit(t_mat, match_fn):
-        """One iteration on the device; returns the host-side (Kabsch
-        moments, mse, count) from one device→host copy."""
+    def step(t_mat, match_fn):
+        """One iteration on the device; the Kabsch moments, mse and count
+        come back in one device→host copy."""
         t_dev = t_mat.to(device)
         if window:
-            moved, matched, ok, d2 = match_fn(t_dev)
+            moved, matched, ok, d2, _ = match_fn(t_dev)
             d2 = torch.where(ok, d2, 0.0)
         else:
             moved = linalg.transform_points(t_dev, src)
@@ -231,31 +294,10 @@ def _icp_p2p(src, src_mask, tgt, tgt_mask, init, max_iterations,
         mse = d2.sum() / torch.clamp_min(n_ok, 1.0)
         host = torch.cat([linalg.kabsch_moments(moved, matched, w),
                           mse[None], n_ok[None]]).cpu()
-        return host[:15], host[15], int(host[16])
+        return linalg.kabsch_from_moments(host[:15]), host[15], int(host[16])
 
-    thresh = torch.tensor(conv_thresh, dtype=torch.float32)
-
-    def run_loop(t_mat, it, match_fn, it_budget):
-        mse = torch.tensor(torch.inf)
-        conv, n_corr = False, 0
-        while it < it_budget and not conv:
-            moments, new_mse, n_corr = fit(t_mat, match_fn)
-            t_mat = linalg.fp32_matmul(linalg.kabsch_from_moments(moments), t_mat)
-            conv = bool(torch.abs(new_mse - mse) < thresh)
-            mse = new_mse
-            it += 1
-        return t_mat, mse, it, conv, n_corr
-
-    if window and subsample > 1 and max_iterations > full_iters:
-        # coarse phase on every subsample-th source tile, then a
-        # full-resolution polish with the convergence test restarted
-        t_host, _, it_a, _, _ = run_loop(t_host, 0, static_match_sub,
-                                         max_iterations - full_iters)
-        t_host, mse, it, conv, n_corr = run_loop(t_host, it_a, static_match,
-                                                 max_iterations)
-    else:
-        t_host, mse, it, conv, n_corr = run_loop(
-            t_host, 0, static_match if window else None, max_iterations)
+    t_host, mse, it, conv, n_corr = _icp_loop(step, t_host, max_iterations, conv_thresh,
+                                              *matchers, full_iters)
     return t_host.to(device), mse.to(device), it, conv, n_corr
 
 
@@ -292,3 +334,141 @@ def icp(source: PointCloud, target: PointCloud,
         max_iterations: int = 50, **kw) -> ICPResult:
     """Convenience entry: ``icp_point_to_point``."""
     return icp_point_to_point(source, target, max_iterations, **kw)
+
+
+# ---------------------------------------------------------------------------
+# point-to-plane
+# ---------------------------------------------------------------------------
+
+def _icp_p2plane(src, src_mask, tgt, tgt_mask, tgt_normals, init,
+                 max_iterations, conv_thresh, max_corr_dist, window=False,
+                 w_tiles=3, subsample=1, full_iters=2):
+    """The point-to-plane loop (Chen & Medioni): per pair the signed plane
+    distance r = n·(s − q) and the row a = [s × n, n]; the 6x6 system
+    Σ w aᵀa and Σ w aᵀr, the mse and the count reach the host in one copy,
+    where ``solve_psd`` (damping 1e-6) and ``se3_exp`` give the step. On
+    the static-sort path the target normals ride the target sort and the
+    kernel's match as 3 payload rows. Returns ``(t_mat, mse, it, conv,
+    n_corr)`` on the clouds' device."""
+    device = src.device
+    t_host = init.to(dtype=torch.float32).cpu()
+    max_corr_dist, max_d2 = _limits(max_corr_dist)
+    matchers = (_static_matchers(src, src_mask, tgt, tgt_mask, t_host, max_d2, w_tiles,
+                                 subsample, tgt_extra=tgt_normals) if window else (None, None))
+
+    def step(t_mat, match_fn):
+        t_dev = t_mat.to(device)
+        if window:
+            moved, q, ok, _, extra = match_fn(t_dev)
+            nrm = extra.T
+        else:
+            moved = linalg.transform_points(t_dev, src)
+            res = neighbors.knn(tgt, tgt_mask, moved, src_mask, 1)
+            idx = res.indices[:, 0]
+            ok = res.mask[:, 0] & src_mask & (res.distances[:, 0] <= max_corr_dist)
+            q, nrm = tgt[idx], tgt_normals[idx]
+        w = ok.to(torch.float32)
+        r = ((moved - q) * nrm).sum(1)
+        a = torch.cat([torch.linalg.cross(moved, nrm), nrm], 1)
+        aw = a * w[:, None]
+        h = linalg.fp32_matmul(aw.T, a)
+        g = -linalg.fp32_matmul(aw.T, r[:, None])[:, 0]
+        n_ok = w.sum()
+        mse = torch.where(ok, r * r, 0.0).sum() / torch.clamp_min(n_ok, 1.0)
+        host = torch.cat([h.reshape(36), g, mse[None], n_ok[None]]).cpu()
+        xi = linalg.solve_psd(host[:36].reshape(6, 6), host[36:42], damping=1e-6)
+        return se3_exp(xi), host[42], int(host[43])
+
+    t_host, mse, it, conv, n_corr = _icp_loop(step, t_host, max_iterations, conv_thresh,
+                                              *matchers, full_iters)
+    return t_host.to(device), mse.to(device), it, conv, n_corr
+
+
+def icp_point_to_plane(source: PointCloud, target: PointCloud,
+                       max_iterations: int = 50,
+                       convergence_threshold: float = 1e-6,
+                       max_correspondence_distance: Optional[float] = None,
+                       init: Optional[Transform] = None,
+                       correspondence: str = "auto",
+                       w_tiles: Optional[int] = None,
+                       subsample: Optional[int] = None,
+                       full_iters: int = 2) -> ICPResult:
+    """Point-to-plane ICP; the target must carry normals
+    (``estimate_normals`` first). Options as ``icp_point_to_point``."""
+    if target.normals is None:
+        raise InvalidDataError(
+            "point-to-plane ICP requires target normals; run "
+            "ops.normals.estimate_normals(target) first")
+    src, sm, tgt, tm = _prep(source, target)
+    if w_tiles is None:
+        w_tiles = auto_w_tiles(source.capacity, target.capacity)
+    window = _use_window(source, target, correspondence)
+    if subsample is None:
+        subsample = auto_subsample(source.capacity) if window else 1
+    init_m = init.matrix if init is not None else torch.eye(4)
+    mcd = (max_correspondence_distance
+           if max_correspondence_distance is not None else math.inf)
+    t, mse, it, conv, n_corr = _icp_p2plane(
+        src, sm, tgt, tm, target.normals, init_m, max_iterations,
+        convergence_threshold, mcd, window, w_tiles=w_tiles, subsample=subsample,
+        full_iters=full_iters)
+    return ICPResult(t, mse, it, conv, n_corr)
+
+
+# ---------------------------------------------------------------------------
+# batched and multiscale
+# ---------------------------------------------------------------------------
+
+def batch_icp(sources, source_masks, targets, target_masks,
+              max_iterations: int = 30, convergence_threshold: float = 1e-6,
+              max_correspondence_distance: Optional[float] = None,
+              device=None) -> ICPResult:
+    """Register B cloud pairs: sources (B, N, 3), source_masks (B, N),
+    targets (B, M, 3), target_masks (B, M), tensors or numpy arrays
+    (those go to ``device``, the card unless the caller asks for the
+    CPU). Each pair runs the brute-force point-to-point loop from the
+    identity; the results stack along a leading batch dimension
+    (``iterations``, ``converged`` and ``correspondences`` as (B,)
+    tensors)."""
+    dev = device if device is not None else (
+        sources.device if isinstance(sources, torch.Tensor) else "cuda")
+
+    def put(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    srcs, sms = put(sources, torch.float32), put(source_masks, torch.bool)
+    tgts, tms = put(targets, torch.float32), put(target_masks, torch.bool)
+    mcd = (max_correspondence_distance
+           if max_correspondence_distance is not None else math.inf)
+    runs = [_icp_p2p(srcs[b], sms[b], tgts[b], tms[b], torch.eye(4), max_iterations,
+                     convergence_threshold, mcd) for b in range(srcs.shape[0])]
+    t, mse, it, conv, n_corr = zip(*runs)
+    return ICPResult(torch.stack(t), torch.stack(mse),
+                     torch.tensor(it, dtype=torch.int32),
+                     torch.tensor(conv), torch.tensor(n_corr, dtype=torch.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiscaleConfig:
+    voxel_levels: Sequence[float] = (0.20, 0.10, 0.05)
+    iterations_per_level: int = 20
+    final_full_res_iterations: int = 15
+    convergence_threshold: float = 1e-6
+
+
+def multiscale_icp_point_to_point(source: PointCloud, target: PointCloud,
+                                  config: MultiscaleConfig = MultiscaleConfig(),
+                                  init: Optional[Transform] = None) -> ICPResult:
+    """Point-to-point ICP on a voxel pyramid, coarse to fine (at most
+    5 voxels of correspondence distance per level), then
+    ``final_full_res_iterations`` at full resolution."""
+    current = init
+    for voxel in config.voxel_levels:
+        result = icp_point_to_point(
+            filtering.voxel_grid_filter(source, voxel),
+            filtering.voxel_grid_filter(target, voxel),
+            config.iterations_per_level, config.convergence_threshold,
+            max_correspondence_distance=voxel * 5.0, init=current)
+        current = result.as_transform()
+    return icp_point_to_point(source, target, config.final_full_res_iterations,
+                              config.convergence_threshold, init=current)
