@@ -319,15 +319,18 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
     selected pair are those of each source's note in csrc/: a distance
     test ~9, with the selection ~12; a pair's SPFH features ~100, its
     stage-2 weighting ~68, its SHOT moments ~30, its SHOT histogram vote
-    ~55 (USC ~45). The union needs each of its 3·tile window candidates'
-    d² once (~9), a compare and an add in each of its 6 bisection rounds,
-    the final selection test (1), pass B the pass-A tile test (~3); ~2
-    per ±band candidate for the k-th smallest, and ~19 per selected pair
-    for the sums (3 differences, 6 products, 10 additions)."""
+    ~55 (USC ~45). The union's radius depends only on the window's k-th
+    smallest d² (Pallas' six counting rounds are six halvings against
+    it), so its function needs each of the 3·tile window candidates' d²
+    once (~9), a compare with the current k-th (1) and the final
+    selection test (1), pass B the pass-A tile test (~3); ~2 per ±band
+    candidate for the band radius, 12 per query for the six halvings,
+    and ~19 per selected pair for the sums (3 differences, 6 products,
+    10 additions). Kernel 4's band body computes the same radius."""
     src, tgt, starts = icp_args
     w3 = 3 * FPFH_TILE
     shot_c = 2 * SHOT_BAND + 1
-    union_ops = n_u * (3 * tile * (9 + 6 * 2 + 1) + (2 * band + 1) * 2)
+    union_ops = n_u * (3 * tile * (9 + 1 + 1) + (2 * band + 1) * 2 + 6 * 2)
     k = 10
     work = {
         # the band body: union A's selection, ~19 per selected pair for the

@@ -43,6 +43,7 @@ from threecrate_tpu_torch.ops import features as tf  # noqa: E402
 from threecrate_tpu_torch.ops import morton  # noqa: E402
 from threecrate_tpu_torch.ops import normals as tn  # noqa: E402
 from threecrate_tpu_torch.ops import registration as tr  # noqa: E402
+from union_clouds import union_cloud  # noqa: E402
 
 K, TILE, BAND = 10, 256, 16
 
@@ -89,15 +90,28 @@ def test_union_kernels_match_plain(cuda):
     _assert_sums(b, rb, va[ob] > 0.5)
 
 
-@pytest.mark.parametrize("k", [3, 20, 40])
-def test_union_kernel_other_k(cuda, k):
-    """k selects another register-array size in the kernel (16/32/64)."""
-    pts = torch.from_numpy(_scan(4096, 1)).to(cuda)
-    mask = torch.ones(4096, dtype=torch.bool, device=cuda)
-    perm = torch.sort(morton.morton_keys(pts, mask, 0), stable=True).indices
-    args = (pts[perm].T.contiguous(), torch.ones(1, 4096, device=cuda), k, TILE, BAND)
-    a, ra = window_union_a_tiles(*args), window_union_a_plain(*args)
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("tile", [64, 256, 1024])
+@pytest.mark.parametrize("k", [3, 10, 16, 17, 20, 33, 40, 64])
+def test_union_kernel_edges(cuda, tile, k, lattice):
+    """Both passes at each register-list size (12/16/32/64) and block
+    shape: duplicate points, 10% invalid columns, the first tile (no
+    prev) and a last tile whose window holds k - 1 valid points; on an
+    integer lattice the window's k-th often equals a halving's midpoint
+    exactly."""
+    pts, valid = union_cloud(4 * tile, tile, k, seed=tile + k, lattice=lattice)
+    pa, va = pts.T.contiguous().to(cuda), valid.to(cuda)
+    a_in = (pa.T.contiguous(), va[None].contiguous(), k, tile, BAND)
+    a, ra = window_union_a_tiles(*a_in), window_union_a_plain(*a_in)
     assert torch.equal(a[0], ra[0]) and torch.equal(a[10], ra[10])
+    _assert_sums(a, ra, va > 0.5)
+    ob = torch.sort(morton.morton_keys(pa, va > 0.5, 1), stable=True).indices
+    b_in = (pa[ob].T.contiguous(), va[ob][None].contiguous(),
+            ob.to(torch.int32)[None].contiguous(), a[10][ob][None].contiguous(),
+            k, tile, BAND)
+    b, rb = window_union_b_tiles(*b_in), window_union_b_plain(*b_in)
+    assert torch.equal(b[0], rb[0]) and torch.equal(b[10], rb[10])
+    _assert_sums(b, rb, va[ob] > 0.5)
 
 
 @pytest.mark.parametrize("n_extra,w_tiles", [(0, 3), (3, 3), (6, 16)])

@@ -55,6 +55,9 @@ def _assert_same(jres, tres):
     np.testing.assert_allclose(tres.transformation.numpy(),
                                np.asarray(jres.transformation), atol=1e-4)
     np.testing.assert_allclose(float(tres.mse), float(jres.mse), rtol=1e-2)
+    # An explained difference: the port's ICPResult carries Python int and
+    # bool, as its loop runs on the host; JAX's carries 0-d arrays
+    # (ROADMAP.md §3).
     assert tres.iterations == int(jres.iterations)
     assert tres.converged == bool(jres.converged)
 

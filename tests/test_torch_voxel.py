@@ -152,6 +152,9 @@ def test_voxel_size_must_be_positive(size):
     with pytest.raises(ValueError) as te:
         tf.voxel_grid_filter(pc, size)
     assert str(te.value) == str(je.value)
+    # An explained difference: JAX's voxel_grid_filter_detailed divides by
+    # the size unchecked; the port's keeps the guard and raises the
+    # message of JAX's non-detailed entry (ROADMAP.md §3).
     with pytest.raises(ValueError) as td:
         tf.voxel_grid_filter_detailed(pc, size)
     assert str(td.value) == str(je.value)

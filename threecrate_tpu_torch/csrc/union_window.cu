@@ -13,24 +13,55 @@
 // Layout: coordinates (3, n) row-major, validity (n), pass-A positions
 // (n) int32, outputs (11, n) row-major, all in sorted order.
 //
-// Union passes, per query (one thread each, one block per tile, the
-// 3-tile window staged in shared memory):
-//   1. the k-th smallest squared distance among the +-band sorted
-//      neighbours, kept as a sorted register array;
-//   2. 6 bisection rounds of that radius against the count over the
-//      whole window (each round one sweep over 3*tile candidates);
-//   3. one last sweep accumulating count, S1 = sum(c - q) and
-//      S2 = sum((c - q)(c - q)^T) over the selected candidates.
+// Union passes. A block stages its 3-tile window once in shared memory
+// as 16-byte records (x, y, z, tag), so one LDS.128 broadcast gives a
+// whole warp a candidate's coordinates and validity (pass B: also its
+// pass-A tile). Each thread serves Q = 2 queries of the tile (i and
+// i + T for T threads) and tests each candidate it loads against both.
+// Per query:
+//   1. r2, the k-th smallest squared distance among the +-band sorted
+//      neighbours, in a sorted register list;
+//   2. the selection sweep: the list restarts as k copies of the float
+//      just above r2, and one sweep over the window inserts each
+//      candidate that beats the current k-th. The band columns are
+//      window columns, so at least k of them lie at or below r2 and the
+//      list ends as the window's k smallest: its last entry d_(k).
+//      Pallas' bisection asks count(d2 <= mid) >= k, which is exactly
+//      d_(k) <= mid for every mid (inf, ties and invalid columns
+//      included), so its 6 fp32 halvings of [0, r2] run here in
+//      registers against d_(k), with no sweep, and give its radius bit
+//      for bit;
+//   3. the sums sweep: count, S1 = sum(c - q) and
+//      S2 = sum((c - q)(c - q)^T) over the candidates at or below the
+//      radius (pass B: with the pass-A tile test).
 // The Pallas kernel gets the same sums from a tile-centred moments
 // matmul shifted to the query; accumulating around the query directly
 // is the same quantity with less cancellation and needs no matmul.
+// Distances are formed unfused (tc::sq_dist's order), so radii, counts
+// and use_b equal the plain version's; the sums differ in order only.
 //
-// What bounds it: fp32 ALU. Each query makes 8 sweeps of 3*tile
-// candidates (~10 flops each) from shared memory while it reads 16-20
-// bytes and writes 44 bytes of device memory, so memory traffic is
-// negligible and the shared-memory reads are warp-wide broadcasts.
-// wgmma/TMA have no role in these per-query scans; a faster version
-// (fewer sweeps, candidate reuse across queries) is later work.
+// What bounds it: instruction issue. The first design ran 7 sweeps of
+// 3*tile candidates per query (6 bisection counts and the sums), each
+// candidate 4 scalar shared loads and ~11 ALU operations: ~15 issued
+// instructions per candidate per query, on the SM's one shared-load
+// pipe as much as on its ALUs. Now each query makes 2 sweeps of ~12
+// issued instructions per candidate (the d2 of 8 unfused operations, a
+// compare, and the branch around the list insertion or the sums), and
+// the candidate's load and loop overhead are shared by Q queries. On
+// top come the list insertions (2 operations per list entry) and the
+// sums of selected candidates (10 operations), each in a minority of a
+// warp's steps but paid by the whole warp where its queries diverge.
+// Q = 2 at every list size: at KMAX 16, Q = 4 needs 96 registers a
+// thread against Q = 2's 61, and on the H100 the warps that Q = 2 keeps
+// in flight hide the latency of each query's d2 chain better than
+// wider sharing saves issue (Q = 4 and Q = 8 ran slower at k = 10).
+// The lists come in 12, 16, 32 and 64 entries (12 serves the default
+// k = 10: its insertions cost 24 operations, not 32); at 64 a thread
+// holds 128 list registers, and kUnionThreads = 128 threads a block
+// keep a block's registers within the SM's at any tile. Device memory
+// moves 16-24 bytes in and 44 out per query, and the window (12 KB at
+// tile 256) is read from shared memory, not device memory: wgmma and
+// TMA have no role in these per-query scans.
 
 #include "common.cuh"
 
@@ -41,6 +72,7 @@ using tc::kInf;
 // keeps hi = inf, and inf <= inf would select invalid candidates.
 constexpr float kHiClamp = 3.4e38f;
 
+// Window, load_window, window_d2 and band_bound serve kernel 4 only; they go with its redesign.
 struct Window {
   float* x;
   float* y;
@@ -126,76 +158,184 @@ __device__ __forceinline__ void accumulate(float* s, float dx, float dy,
   s[9] += dy * dz;
 }
 
-__device__ __forceinline__ void store(float* __restrict__ out, int n,
-                                      const float* s, float last) {
-  const long col = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+// Threads of a union block, and the queries each serves per round: a block
+// holds kUnionThreads * kUnionQueries queries at a time and loops over
+// larger tiles.
+constexpr int kUnionThreads = 128;
+constexpr int kUnionQueries = 2;
+
+// Stage the prev/self/next tiles as (x, y, z, tag) records; tile 0 has no
+// prev and the last tile no next, staged as not valid. The tag is >= 0
+// exactly where the column is valid: pass B stores the tile of the
+// column's pass-A position there (its complement where not valid, so
+// that both stay readable as tag ^ (tag >> 31)), pass A 0 (-1).
+__device__ void stage_records(const float* __restrict__ pts,
+                              const float* __restrict__ valid,
+                              const int* __restrict__ pos, int n, int tile,
+                              int shift, float4* win) {
+  const int t = blockIdx.x;
+  const int n_t = n / tile;
+  for (int j = threadIdx.x; j < 3 * tile; j += blockDim.x) {
+    const int seg = j >> shift;
+    const bool ok = seg == 1 || (seg == 0 && t > 0) || (seg == 2 && t < n_t - 1);
+    float4 r = make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
+    if (ok) {
+      const long col = static_cast<long>(t - 1) * tile + j;
+      const int tl =
+          pos == nullptr ? 0 : static_cast<int>(static_cast<unsigned>(pos[col]) >> shift);
+      r = make_float4(pts[col], pts[n + col], pts[2L * n + col],
+                      __int_as_float(valid[col] > 0.5f ? tl : ~tl));
+    }
+    win[j] = r;
+  }
+}
+
+// Insert v into the ascending list b, dropping its largest entry. Every
+// entry is computed from the old list, so the 2 * KMAX operations carry
+// no dependency chain.
+template <int KMAX>
+__device__ __forceinline__ void insert_sorted(float* b, float v) {
 #pragma unroll
-  for (int r = 0; r < 10; ++r) out[r * static_cast<long>(n) + col] = s[r];
-  out[10L * n + col] = last;
+  for (int m = KMAX - 1; m > 0; --m) b[m] = fminf(b[m], fmaxf(b[m - 1], v));
+  b[0] = fminf(b[0], v);
 }
 
-// Pass A: rows [cnt, S1(3), S2(6), hiA].
-template <int KMAX>
-__global__ void union_a_kernel(const float* __restrict__ pts,
-                               const float* __restrict__ valid,
-                               float* __restrict__ out, int n, int k, int band) {
-  extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  Window w{smem, smem + 3 * tile, smem + 6 * tile, smem + 9 * tile, nullptr};
-  load_window(pts, valid, nullptr, n, tile, w);
-  __syncthreads();
-
-  const int q = tile + threadIdx.x;
-  const float qx = w.x[q], qy = w.y[q], qz = w.z[q];
-  const float hi = band_bound<KMAX>(w, tile, threadIdx.x, k, band, qx, qy, qz);
-  float s[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < 3 * tile; ++c) {
-    if (window_d2(w, c, qx, qy, qz) <= hi) {
-      accumulate(s, w.x[c] - qx, w.y[c] - qy, w.z[c] - qz);
-    }
-  }
-  store(out, n, s, hi);
-}
-
-// Pass B over the shifted-lattice order. Where hiB < hiA (pass A's
-// window was poor) it emits the full pass-B window sums at hiB, to be
-// used alone; otherwise the sums within hiA over candidates OUTSIDE the
-// query's pass-A window (|posA tile - query posA tile| > 1), which add
-// to pass A's sums. Rows [S_out(10), use_b].
-template <int KMAX>
-__global__ void union_b_kernel(const float* __restrict__ pts,
-                               const float* __restrict__ valid,
-                               const int* __restrict__ pos_a,
-                               const float* __restrict__ hi_a,
-                               float* __restrict__ out, int n, int k, int band) {
-  extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  Window w{smem, smem + 3 * tile, smem + 6 * tile, smem + 9 * tile,
-           reinterpret_cast<int*>(smem + 12 * tile)};
-  load_window(pts, valid, pos_a, n, tile, w);
-  __syncthreads();
-
-  const int q = tile + threadIdx.x;
-  const float qx = w.x[q], qy = w.y[q], qz = w.z[q];
-  const float hib = band_bound<KMAX>(w, tile, threadIdx.x, k, band, qx, qy, qz);
-  const float hia = hi_a[static_cast<long>(blockIdx.x) * tile + threadIdx.x];
-  const bool use_b = hib < hia;
+// Union pass A (PASS_B false): rows [cnt, S1(3), S2(6), hiA].
+// Union pass B (PASS_B true) over the shifted-lattice order. Where
+// hiB < hiA (pass A's window was poor) it emits the full pass-B window
+// sums at hiB, to be used alone; otherwise the sums within hiA over
+// candidates OUTSIDE the query's pass-A window (|posA tile - query posA
+// tile| > 1), which add to pass A's sums. Rows [S_out(10), use_b].
+//
+// The register list of each query is right-aligned: KMAX - k entries of
+// -inf ahead of the k smallest distances, so that its last entry is the
+// k-th smallest for any k <= KMAX.
+template <int KMAX, bool PASS_B>
+__global__ void __launch_bounds__(kUnionThreads)
+union_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
+             const int* __restrict__ pos_a, const float* __restrict__ hi_a,
+             float* __restrict__ out, int n, int tile, int k, int band) {
+  constexpr int Q = kUnionQueries;
+  extern __shared__ float4 win[];
   const int shift = __ffs(tile) - 1;  // log2(tile): tile is a power of two
-  const int tile_q = static_cast<int>(static_cast<unsigned>(w.pos[q]) >> shift);
-  float s[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < 3 * tile; ++c) {
-    const float d = window_d2(w, c, qx, qy, qz);
-    bool sel;
-    if (use_b) {
-      sel = d <= hib;
-    } else {
-      const int dt =
-          static_cast<int>(static_cast<unsigned>(w.pos[c]) >> shift) - tile_q;
-      sel = d <= hia && (dt < -1 || dt > 1);
+  stage_records(pts, valid, PASS_B ? pos_a : nullptr, n, tile, shift, win);
+  __syncthreads();
+
+  const int w3 = 3 * tile;
+  for (int base = 0; base < tile; base += blockDim.x * Q) {
+    int qi[Q];
+    float qx[Q], qy[Q], qz[Q], r2[Q];
+    float best[Q][KMAX];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      // a thread past the tile's end (tile < Q) repeats its last query
+      qi[j] = min(base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x),
+                  tile - 1);
+      const float4 r = win[tile + qi[j]];
+      qx[j] = r.x;
+      qy[j] = r.y;
+      qz[j] = r.z;
+#pragma unroll
+      for (int m = 0; m < KMAX; ++m) best[j][m] = m < KMAX - k ? -kInf : kInf;
+      // 1. r2: the k-th smallest over the +-band sorted neighbours
+      for (int c = tile + qi[j] - band; c <= tile + qi[j] + band; ++c) {
+        const float4 b = win[c];
+        const float d = __float_as_int(b.w) >= 0
+                            ? tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z)
+                            : kInf;
+        insert_sorted<KMAX>(best[j], d);
+      }
+      r2[j] = best[j][KMAX - 1];
+      const float seed = nextafterf(r2[j], kInf);
+#pragma unroll
+      for (int m = 0; m < KMAX; ++m) {
+        if (m >= KMAX - k) best[j][m] = seed;
+      }
     }
-    if (sel) accumulate(s, w.x[c] - qx, w.y[c] - qy, w.z[c] - qz);
+
+    // 2. the selection sweep: best[j] ends as the window's k smallest
+#pragma unroll 2
+    for (int c = 0; c < w3; ++c) {
+      const float4 b = win[c];
+      const bool ok = __float_as_int(b.w) >= 0;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const float d = tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z);
+        if (ok && d < best[j][KMAX - 1]) insert_sorted<KMAX>(best[j], d);
+      }
+    }
+    float hi[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      // the 6 bisection rounds: count(d2 <= mid) >= k  <=>  d_(k) <= mid
+      const float dk = best[j][KMAX - 1];
+      float lo = 0.f;
+      float h = r2[j];
+      for (int round = 0; round < 6; ++round) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(lo, h));
+        if (dk <= mid) {
+          h = mid;
+        } else {
+          lo = mid;
+        }
+      }
+      hi[j] = fminf(h, kHiClamp);
+    }
+
+    // 3. the sums sweep
+    float thr[Q];
+    int tile_q[Q];
+    bool use_b[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      thr[j] = hi[j];
+      use_b[j] = true;
+      tile_q[j] = 0;
+      if constexpr (PASS_B) {
+        const float hia = hi_a[static_cast<long>(blockIdx.x) * tile + qi[j]];
+        use_b[j] = hi[j] < hia;
+        thr[j] = use_b[j] ? hi[j] : hia;
+        const int tq = __float_as_int(win[tile + qi[j]].w);
+        tile_q[j] = tq ^ (tq >> 31);
+      }
+    }
+    float s[Q][10];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+#pragma unroll
+      for (int r = 0; r < 10; ++r) s[j][r] = 0.f;
+    }
+#pragma unroll 2
+    for (int c = 0; c < w3; ++c) {
+      const float4 b = win[c];
+      const int tag = __float_as_int(b.w);
+      const bool ok = tag >= 0;
+      const int tile_c = tag ^ (tag >> 31);
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const float dx = __fsub_rn(b.x, qx[j]);
+        const float dy = __fsub_rn(b.y, qy[j]);
+        const float dz = __fsub_rn(b.z, qz[j]);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        bool sel = (ok ? d2 : kInf) <= thr[j];
+        if constexpr (PASS_B) {
+          // outside the query's pass-A window: |tile_c - tile_q| > 1
+          sel = sel && (use_b[j] || static_cast<unsigned>(tile_c - tile_q[j] + 1) > 2u);
+        }
+        if (sel) accumulate(s[j], dx, dy, dz);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int i = base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x);
+      if (i >= tile) continue;
+      const long col = static_cast<long>(blockIdx.x) * tile + i;
+#pragma unroll
+      for (int r = 0; r < 10; ++r) out[r * static_cast<long>(n) + col] = s[j][r];
+      out[10L * n + col] = PASS_B ? (use_b[j] ? 1.f : 0.f) : hi[j];
+    }
   }
-  store(out, n, s, use_b ? 1.f : 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -212,7 +352,8 @@ __global__ void union_b_kernel(const float* __restrict__ pts,
 //     best-first register list before the first strictly smaller entry (the
 //     order of the Pallas max-extraction rounds); query-centred sums over
 //     the selected; the k-th row is the k-th -d^2 (-inf below k valid).
-//   band > 0 (_moments_band_kernel): the union passes' band bound, every
+//   band > 0 (_moments_band_kernel): band_bound (the union passes' radius
+//     by 6 bisection sweeps, as the Pallas kernel computes it), every
 //     window column within it selected; raw moments [1, c, c c^T] in the
 //     frame of the tile centre (the mean of the tile's valid queries), the
 //     covariance E[cc] - E[c]E[c]; the k-th row is -hi.
@@ -222,8 +363,8 @@ __global__ void union_b_kernel(const float* __restrict__ pts,
 // within 2^-53 of an fp32 rounding boundary. Every fp32 operation after
 // the sums is rounded on its own in the Pallas body's order.
 //
-// What bounds it: fp32 ALU, as the union passes. The band body makes the
-// union pass's 8 sweeps of 3*tile candidates plus ~560 operations of
+// What bounds it: instruction issue. The band body makes band_bound's 7
+// sweeps and a sums sweep of 3*tile candidates plus ~560 operations of
 // eigensolve per query; the exact body one sweep with a list insertion
 // (~KMAX compare-selects) for each candidate that beats the current k-th.
 // Device memory traffic is 16 bytes read and 24 written per query.
@@ -457,25 +598,17 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int KMAX>
-cudaError_t launch_a(const float* pts, const float* valid, float* out, int n,
-                     int tile, int k, int band, cudaStream_t stream) {
-  const size_t smem = 12 * static_cast<size_t>(tile) * sizeof(float);
-  cudaError_t err = allow_smem(union_a_kernel<KMAX>, smem);
+template <int KMAX, bool PASS_B>
+cudaError_t launch_union(const float* pts, const float* valid, const int* pos_a,
+                         const float* hi_a, float* out, int n, int tile, int k, int band,
+                         cudaStream_t stream) {
+  int threads = tile / kUnionQueries;
+  threads = threads < 1 ? 1 : (threads > kUnionThreads ? kUnionThreads : threads);
+  const size_t smem = 3 * static_cast<size_t>(tile) * sizeof(float4);
+  cudaError_t err = allow_smem(union_kernel<KMAX, PASS_B>, smem);
   if (err != cudaSuccess) return err;
-  union_a_kernel<KMAX><<<n / tile, tile, smem, stream>>>(pts, valid, out, n, k, band);
-  return cudaGetLastError();
-}
-
-template <int KMAX>
-cudaError_t launch_b(const float* pts, const float* valid, const int* pos_a,
-                     const float* hi_a, float* out, int n, int tile, int k,
-                     int band, cudaStream_t stream) {
-  const size_t smem = 15 * static_cast<size_t>(tile) * sizeof(float);
-  cudaError_t err = allow_smem(union_b_kernel<KMAX>, smem);
-  if (err != cudaSuccess) return err;
-  union_b_kernel<KMAX><<<n / tile, tile, smem, stream>>>(pts, valid, pos_a, hi_a,
-                                                         out, n, k, band);
+  union_kernel<KMAX, PASS_B><<<n / tile, threads, smem, stream>>>(pts, valid, pos_a, hi_a,
+                                                                   out, n, tile, k, band);
   return cudaGetLastError();
 }
 
@@ -507,9 +640,14 @@ cudaError_t launch_normals(const float* pts, const float* valid, float* out, int
 extern "C" int tc_union_window_a(const float* pts, const float* valid, float* out,
                                  int n, int tile, int k, int band, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16) return launch_a<16>(pts, valid, out, n, tile, k, band, s);
-  if (k <= 32) return launch_a<32>(pts, valid, out, n, tile, k, band, s);
-  if (k <= 64) return launch_a<64>(pts, valid, out, n, tile, k, band, s);
+  if (k <= 12)
+    return launch_union<12, false>(pts, valid, nullptr, nullptr, out, n, tile, k, band, s);
+  if (k <= 16)
+    return launch_union<16, false>(pts, valid, nullptr, nullptr, out, n, tile, k, band, s);
+  if (k <= 32)
+    return launch_union<32, false>(pts, valid, nullptr, nullptr, out, n, tile, k, band, s);
+  if (k <= 64)
+    return launch_union<64, false>(pts, valid, nullptr, nullptr, out, n, tile, k, band, s);
   return cudaErrorInvalidValue;
 }
 
@@ -517,9 +655,14 @@ extern "C" int tc_union_window_b(const float* pts, const float* valid,
                                  const int* pos_a, const float* hi_a, float* out,
                                  int n, int tile, int k, int band, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16) return launch_b<16>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
-  if (k <= 32) return launch_b<32>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
-  if (k <= 64) return launch_b<64>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
+  if (k <= 12)
+    return launch_union<12, true>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
+  if (k <= 16)
+    return launch_union<16, true>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
+  if (k <= 32)
+    return launch_union<32, true>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
+  if (k <= 64)
+    return launch_union<64, true>(pts, valid, pos_a, hi_a, out, n, tile, k, band, s);
   return cudaErrorInvalidValue;
 }
 

@@ -31,9 +31,10 @@ kernel, so the two agree bit for bit unless a float64 sum lands within
 2^-53 of an fp32 rounding boundary; every fp32 operation after them is
 the Pallas body's, unfused, in its order.
 
-On the card these are fp32 ALU-bound scans: up to 8 sweeps of the
-768-point window per query from shared memory, with little
-device-memory traffic (see the source note in ``csrc/union_window.cu``).
+On the card these are issue-bound scans of the 768-point window from
+shared memory, with little device-memory traffic: the union passes
+make 2 sweeps per query, ``window_normals_tiles``' band body 8 (see the
+source note in ``csrc/union_window.cu``).
 """
 
 from __future__ import annotations
