@@ -440,6 +440,26 @@ def test_window_normals_kernel_matches_plain(cuda, k, band, tile):
     assert ((got[:4] - ref[:4]).abs().amax(0) <= 1e-5).float().mean() >= 0.9999
 
 
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("band", [16, 0])
+@pytest.mark.parametrize("tile", [64, 1024])
+@pytest.mark.parametrize("k", [3, 10, 17, 40, 64])
+def test_window_normals_kernel_edges(cuda, k, tile, band, lattice):
+    """Both selection bodies at each register-list size (12/16/32/64)
+    and block shape on the union edge clouds: duplicate points, 10%
+    invalid columns, the first tile (no prev) and a last tile whose
+    window holds k - 1 valid points; on the integer lattice distances tie
+    (the exact body's ties go to the lowest column)."""
+    pts, valid = union_cloud(4 * tile, tile, k, seed=tile + k, lattice=lattice)
+    args = (pts.to(cuda), valid[None].to(cuda))
+    got = window_normals_tiles(*args, k, tile, band)
+    ref = window_normals_plain(*args, k, tile, band)
+    assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])
+    v = args[1][0] > 0.5
+    assert (got[:, v] == ref[:, v]).all(0).float().mean() >= 0.9999
+    assert ((got[:4, v] - ref[:4, v]).abs().amax(0) <= 1e-5).float().mean() >= 0.9999
+
+
 def test_window_fast_on_card_matches_cpu(cuda):
     """method="window_fast" (two passes, pick-tighter) on 20,000 points:
     two kernel launches, the card's normals against the CPU run's."""

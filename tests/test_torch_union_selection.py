@@ -25,36 +25,9 @@ torch = pytest.importorskip("torch")
 from threecrate_tpu_torch.kernels.knn import (  # noqa: E402
     window_union_a_plain, window_union_b_plain)
 from threecrate_tpu_torch.ops import morton  # noqa: E402
-from union_clouds import union_cloud  # noqa: E402
+from union_clouds import radius_from_kth, union_cloud, window_d2  # noqa: E402
 
 BAND = 16
-
-
-def _radius_from_kth(pts, valid, k, tile, band):
-    """Per query of (3, N) sorted points: the 6 fp32 halvings of
-    [0, r2] against the window's k-th smallest d², clamped to 3.4e38."""
-    n = pts.shape[1]
-    f32 = np.float32
-    out = np.empty(n, f32)
-    for t in range(n // tile):
-        cols = (t - 1) * tile + np.arange(3 * tile)
-        inside = (cols >= 0) & (cols < n)
-        c = np.where(inside, cols, 0)
-        ok = inside & (valid[c] > 0.5)
-        q = pts[:, t * tile:(t + 1) * tile]
-        d = [pts[r, c][None, :] - q[r][:, None] for r in range(3)]
-        d2 = np.where(ok[None, :], (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2], f32(np.inf))
-        i = np.arange(tile)
-        band_d2 = np.take_along_axis(d2, tile + i[:, None] + np.arange(-band, band + 1), 1)
-        r2 = np.sort(band_d2, 1)[:, k - 1]
-        dk = np.sort(d2, 1)[:, k - 1]
-        lo, hi = np.zeros(tile, f32), r2.astype(f32)
-        for _ in range(6):
-            mid = f32(0.5) * (lo + hi)
-            ge = dk <= mid
-            hi, lo = np.where(ge, mid, hi), np.where(ge, lo, mid)
-        out[t * tile:(t + 1) * tile] = np.minimum(hi, f32(3.4e38))
-    return out
 
 
 @pytest.mark.parametrize("scale", [1e-2, 1.0, 1e2, "lattice"])
@@ -66,7 +39,7 @@ def test_union_radius_is_bisection_of_kth(tile, k, scale):
     pts, valid = union_cloud(n, tile, k, 1.0 if scale == "lattice" else scale, tile + k,
                              lattice=scale == "lattice")
     out_a = window_union_a_plain(pts, valid[None], k, tile, band)
-    hi_a = _radius_from_kth(pts.numpy(), valid.numpy(), k, tile, band)
+    hi_a = radius_from_kth(window_d2(pts.numpy(), valid.numpy(), tile), k, tile, band)
     np.testing.assert_array_equal(out_a[10].numpy(), hi_a)
 
     order = torch.sort(morton.morton_keys(pts.T, valid > 0.5, 1), stable=True).indices
@@ -74,6 +47,6 @@ def test_union_radius_is_bisection_of_kth(tile, k, scale):
     hia_b = out_a[10][order]
     out_b = window_union_b_plain(pts_b, valid_b[None], order.to(torch.int32)[None],
                                  hia_b[None], k, tile, band)
-    hi_b = _radius_from_kth(pts_b.numpy(), valid_b.numpy(), k, tile, band)
+    hi_b = radius_from_kth(window_d2(pts_b.numpy(), valid_b.numpy(), tile), k, tile, band)
     np.testing.assert_array_equal(out_b[10].numpy(),
                                   (hi_b < hia_b.numpy()).astype(np.float32))

@@ -1,4 +1,5 @@
-"""The small clouds that the union passes' CPU and card tests share."""
+"""The small clouds that the union passes' and the fused window normals'
+CPU and card tests share, and the numpy selection radius they are held to."""
 
 import numpy as np
 import torch
@@ -25,3 +26,42 @@ def union_cloud(n, tile, k, scale=1.0, seed=0, lattice=False):
     valid[-2 * tile:] = 0.0
     valid[-2 * tile:-2 * tile + k - 1] = 1.0
     return sorted_pts, torch.from_numpy(valid)
+
+
+def window_d2(pts, valid, tile):
+    """(N, 3·tile) float32 squared distances of each query of the (3, N)
+    sorted numpy points to its prev/self/next window columns, in the
+    plain versions' unfused order ((dx² + dy²) + dz²), +inf at invalid
+    columns and at those before the first or after the last tile."""
+    n = pts.shape[1]
+    out = np.empty((n, 3 * tile), np.float32)
+    for t in range(n // tile):
+        cols = (t - 1) * tile + np.arange(3 * tile)
+        inside = (cols >= 0) & (cols < n)
+        c = np.where(inside, cols, 0)
+        ok = inside & (valid[c] > 0.5)
+        q = pts[:, t * tile:(t + 1) * tile]
+        d = [pts[r, c][None, :] - q[r][:, None] for r in range(3)]
+        out[t * tile:(t + 1) * tile] = np.where(
+            ok[None, :], (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2], np.float32(np.inf))
+    return out
+
+
+def band_kth(d2, k, tile, band):
+    """Per query: the k-th smallest d² among its ±band sorted neighbours."""
+    i = np.arange(d2.shape[0]) % tile
+    band_d2 = np.take_along_axis(d2, tile + i[:, None] + np.arange(-band, band + 1), 1)
+    return np.sort(band_d2, 1)[:, k - 1]
+
+
+def radius_from_kth(d2, k, tile, band):
+    """Per query: the 6 fp32 halvings of [0, r2] (r2 the ±band k-th)
+    against the window's k-th smallest d², clamped to 3.4e38."""
+    f32 = np.float32
+    dk = np.sort(d2, 1)[:, k - 1]
+    lo, hi = np.zeros(d2.shape[0], f32), band_kth(d2, k, tile, band)
+    for _ in range(6):
+        mid = f32(0.5) * (lo + hi)
+        ge = dk <= mid
+        hi, lo = np.where(ge, mid, hi), np.where(ge, lo, mid)
+    return np.minimum(hi, f32(3.4e38))

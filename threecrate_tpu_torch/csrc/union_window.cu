@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernels window_union_a_tiles and
 // window_union_b_tiles of threecrate_tpu/kernels/knn_pallas.py (bodies
-// _union_a_kernel and _union_b_kernel, selection _band_bound), and
+// _union_a_kernel and _union_b_kernel, with their bisection radius), and
 // window_normals_tiles (bodies _moments_kernel and _moments_band_kernel,
 // eigensolve _normal_from_cov_lanes; see its section below). The callers
 // (ops/normals.py: _union_window_sums, _estimate_window_moments)
@@ -11,57 +11,59 @@
 // sorted order.
 //
 // Layout: coordinates (3, n) row-major, validity (n), pass-A positions
-// (n) int32, outputs (11, n) row-major, all in sorted order.
+// (n) int32, outputs (11, n) or (6, n) row-major, all in sorted order.
 //
-// Union passes. A block stages its 3-tile window once in shared memory
-// as 16-byte records (x, y, z, tag), so one LDS.128 broadcast gives a
-// whole warp a candidate's coordinates and validity (pass B: also its
-// pass-A tile). Each thread serves Q = 2 queries of the tile (i and
-// i + T for T threads) and tests each candidate it loads against both.
-// Per query:
+// Every kernel here stages its 3-tile window once in shared memory as
+// 16-byte records (x, y, z, tag), so one LDS.128 broadcast gives a whole
+// warp a candidate's coordinates and validity (union pass B: also its
+// pass-A tile), and each thread serves Q queries of the tile (i, i + T,
+// ... for T threads), testing each candidate it loads against all of
+// them. The selection of a query (select_window, band_radius):
 //   1. r2, the k-th smallest squared distance among the +-band sorted
 //      neighbours, in a sorted register list;
 //   2. the selection sweep: the list restarts as k copies of the float
 //      just above r2, and one sweep over the window inserts each
-//      candidate that beats the current k-th. The band columns are
-//      window columns, so at least k of them lie at or below r2 and the
-//      list ends as the window's k smallest: its last entry d_(k).
-//      Pallas' bisection asks count(d2 <= mid) >= k, which is exactly
-//      d_(k) <= mid for every mid (inf, ties and invalid columns
-//      included), so its 6 fp32 halvings of [0, r2] run here in
-//      registers against d_(k), with no sweep, and give its radius bit
-//      for bit;
-//   3. the sums sweep: count, S1 = sum(c - q) and
-//      S2 = sum((c - q)(c - q)^T) over the candidates at or below the
-//      radius (pass B: with the pass-A tile test).
-// The Pallas kernel gets the same sums from a tile-centred moments
-// matmul shifted to the query; accumulating around the query directly
-// is the same quantity with less cancellation and needs no matmul.
-// Distances are formed unfused (tc::sq_dist's order), so radii, counts
-// and use_b equal the plain version's; the sums differ in order only.
+//      candidate that strictly beats the current k-th, after the entries
+//      equal to it. The band columns are window columns, so at least k of
+//      them lie at or below r2 and the list ends as the window's k
+//      smallest, ties to the lowest column (the sweep runs in column
+//      order): its last entry is d_(k);
+//   3. the radius (union passes, kernel 4's band body): Pallas' bisection
+//      asks count(d2 <= mid) >= k, which is exactly d_(k) <= mid for
+//      every mid (inf, ties and invalid columns included), so its 6 fp32
+//      halvings of [0, r2] run here in registers against d_(k), with no
+//      sweep, and give its radius bit for bit.
+// The lists are right-aligned: KMAX - k entries of -inf ahead of the k
+// smallest, so that the last entry is the k-th for any k <= KMAX; they
+// come in 12, 16, 32 and 64 entries (12 serves the default k = 10: an
+// insertion costs 2 operations per entry, 24 and not 32). Distances are
+// formed unfused (tc::sq_dist's order), so radii, counts, k-th rows and
+// use_b equal the plain version's bit for bit.
 //
-// What bounds it: instruction issue. The first design ran 7 sweeps of
-// 3*tile candidates per query (6 bisection counts and the sums), each
-// candidate 4 scalar shared loads and ~11 ALU operations: ~15 issued
-// instructions per candidate per query, on the SM's one shared-load
-// pipe as much as on its ALUs. Now each query makes 2 sweeps of ~12
-// issued instructions per candidate (the d2 of 8 unfused operations, a
-// compare, and the branch around the list insertion or the sums), and
-// the candidate's load and loop overhead are shared by Q queries. On
-// top come the list insertions (2 operations per list entry) and the
-// sums of selected candidates (10 operations), each in a minority of a
-// warp's steps but paid by the whole warp where its queries diverge.
-// Q = 2 at every list size: at KMAX 16, Q = 4 needs 96 registers a
-// thread against Q = 2's 61, and on the H100 the warps that Q = 2 keeps
-// in flight hide the latency of each query's d2 chain better than
-// wider sharing saves issue (Q = 4 and Q = 8 ran slower at k = 10).
-// The lists come in 12, 16, 32 and 64 entries (12 serves the default
-// k = 10: its insertions cost 24 operations, not 32); at 64 a thread
-// holds 128 list registers, and kUnionThreads = 128 threads a block
-// keep a block's registers within the SM's at any tile. Device memory
-// moves 16-24 bytes in and 44 out per query, and the window (12 KB at
-// tile 256) is read from shared memory, not device memory: wgmma and
-// TMA have no role in these per-query scans.
+// Union passes: a sums sweep adds count, S1 = sum(c - q) and
+// S2 = sum((c - q)(c - q)^T) over the candidates at or below the radius
+// (pass B: with the pass-A tile test). The Pallas kernel gets the same
+// sums from a tile-centred moments matmul shifted to the query;
+// accumulating around the query directly is the same quantity with less
+// cancellation and needs no matmul. The sums differ from the plain
+// version's in order only.
+//
+// What bounds the union passes: instruction issue. Each query makes 2
+// sweeps of ~12 issued instructions per candidate (the d2 of 8 unfused
+// operations, a compare, and the branch around the list insertion or the
+// sums), and the candidate's load and loop overhead are shared by Q
+// queries. On top come the list insertions and the sums of selected
+// candidates, each in a minority of a warp's steps but paid by the whole
+// warp where its queries diverge. Q = 2 at every list size: at KMAX 16,
+// Q = 4 needs 96 registers a thread against Q = 2's 61, and on the H100
+// the warps that Q = 2 keeps in flight hide the latency of each query's
+// d2 chain better than wider sharing saves issue (Q = 4 and Q = 8 ran
+// slower at k = 10). At 64 entries a thread holds 128 list registers,
+// and kThreads = 128 threads a block keep a block's registers within the
+// SM's at any tile. Device memory moves 16-24 bytes in and 24-44 out per
+// query, and the window (12 KB at tile 256) is read from shared memory,
+// not device memory: wgmma and TMA have no role in these per-query scans.
+// Kernel 4's own note is in its section below.
 
 #include "common.cuh"
 
@@ -72,103 +74,29 @@ using tc::kInf;
 // keeps hi = inf, and inf <= inf would select invalid candidates.
 constexpr float kHiClamp = 3.4e38f;
 
-// Window, load_window, window_d2 and band_bound serve kernel 4 only; they go with its redesign.
-struct Window {
-  float* x;
-  float* y;
-  float* z;
-  float* v;
-  int* pos;  // pass-A positions (pass B only)
-};
+// Threads of a block, and the queries each serves per round in the union
+// passes (kQueries) and in both bodies of the fused window normals
+// (kNormalQueries): a block holds kThreads * Q queries at a time and
+// loops over larger tiles.
+constexpr int kThreads = 128;
+constexpr int kQueries = 2;
+constexpr int kNormalQueries = 1;
+// Window columns under one bounding box in kernel 4's sweeps, and the
+// factor that keeps a box's fp32 distance bound below every fp32 d2 it
+// covers (both carry ~5 roundings of 2^-24).
+constexpr int kChunk = 16;
+constexpr float kCullMargin = 1.f - 1.f / 32768.f;
 
-// Stage the prev/self/next tiles of the sorted arrays. Tile 0 has no prev
-// and the last tile no next: those columns are staged as invalid.
-__device__ void load_window(const float* __restrict__ pts,
-                            const float* __restrict__ valid,
-                            const int* __restrict__ pos, int n, int tile, Window w) {
-  const int t = blockIdx.x;
-  const int n_t = n / tile;
-  for (int j = threadIdx.x; j < 3 * tile; j += blockDim.x) {
-    const int seg = j / tile;
-    const bool ok = seg == 1 || (seg == 0 && t > 0) || (seg == 2 && t < n_t - 1);
-    const long col = static_cast<long>(t - 1) * tile + j;
-    w.x[j] = ok ? pts[col] : 0.f;
-    w.y[j] = ok ? pts[n + col] : 0.f;
-    w.z[j] = ok ? pts[2L * n + col] : 0.f;
-    w.v[j] = ok ? valid[col] : 0.f;
-    if (pos != nullptr) w.pos[j] = ok ? pos[col] : 0;
-  }
+// Chunks of kChunk columns in a 3-tile window.
+__host__ __device__ __forceinline__ int n_chunks(int tile) {
+  return (3 * tile + kChunk - 1) / kChunk;
 }
-
-// Squared distance to window column c, +inf for an invalid column.
-__device__ __forceinline__ float window_d2(const Window& w, int c, float qx,
-                                           float qy, float qz) {
-  return w.v[c] > 0.5f ? tc::sq_dist(qx, qy, qz, w.x[c], w.y[c], w.z[c]) : kInf;
-}
-
-// Selection radius of the query in window column tile + i: an upper
-// bound with count(d2 <= hi) >= k, within r_band / 2^6 of the k-th
-// smallest window distance.
-template <int KMAX>
-__device__ float band_bound(const Window& w, int tile, int i, int k, int band,
-                            float qx, float qy, float qz) {
-  float best[KMAX];  // ascending; best[k-1] is the k-th smallest
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) best[j] = kInf;
-  for (int off = -band; off <= band; ++off) {
-    float v = window_d2(w, tile + i + off, qx, qy, qz);
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      const float lo = fminf(best[j], v);
-      v = fmaxf(best[j], v);
-      best[j] = lo;
-    }
-  }
-  float r2 = kInf;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j == k - 1) r2 = best[j];
-  }
-  float lo = 0.f;
-  float hi = r2;
-  for (int round = 0; round < 6; ++round) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    int cnt = 0;
-    for (int c = 0; c < 3 * tile; ++c) cnt += window_d2(w, c, qx, qy, qz) <= mid;
-    if (cnt >= k) {
-      hi = mid;
-    } else {
-      lo = mid;
-    }
-  }
-  return fminf(hi, kHiClamp);
-}
-
-__device__ __forceinline__ void accumulate(float* s, float dx, float dy,
-                                           float dz) {
-  s[0] += 1.f;
-  s[1] += dx;
-  s[2] += dy;
-  s[3] += dz;
-  s[4] += dx * dx;
-  s[5] += dy * dy;
-  s[6] += dz * dz;
-  s[7] += dx * dy;
-  s[8] += dx * dz;
-  s[9] += dy * dz;
-}
-
-// Threads of a union block, and the queries each serves per round: a block
-// holds kUnionThreads * kUnionQueries queries at a time and loops over
-// larger tiles.
-constexpr int kUnionThreads = 128;
-constexpr int kUnionQueries = 2;
 
 // Stage the prev/self/next tiles as (x, y, z, tag) records; tile 0 has no
 // prev and the last tile no next, staged as not valid. The tag is >= 0
 // exactly where the column is valid: pass B stores the tile of the
 // column's pass-A position there (its complement where not valid, so
-// that both stay readable as tag ^ (tag >> 31)), pass A 0 (-1).
+// that both stay readable as tag ^ (tag >> 31)), the others 0 (-1).
 __device__ void stage_records(const float* __restrict__ pts,
                               const float* __restrict__ valid,
                               const int* __restrict__ pos, int n, int tile,
@@ -200,22 +128,194 @@ __device__ __forceinline__ void insert_sorted(float* b, float v) {
   b[0] = fminf(b[0], v);
 }
 
+// insert_sorted with the column c of v carried beside it, after the
+// entries equal to v.
+template <int KMAX>
+__device__ __forceinline__ void insert_ranked(float* b, int* col, float v, int c) {
+#pragma unroll
+  for (int m = KMAX - 1; m > 0; --m) {
+    col[m] = b[m] <= v ? col[m] : (b[m - 1] <= v ? c : col[m - 1]);
+    b[m] = fminf(b[m], fmaxf(b[m - 1], v));
+  }
+  col[0] = b[0] <= v ? col[0] : c;
+  b[0] = fminf(b[0], v);
+}
+
+// Bounding boxes of the valid columns of each kChunk-column chunk of the
+// staged window, as (min, max) record pairs; a chunk without a valid
+// column gets min = +inf, max = -inf.
+__device__ void stage_boxes(const float4* __restrict__ win, int tile, float4* box) {
+  const int w3 = 3 * tile;
+  for (int ch = threadIdx.x; ch * kChunk < w3; ch += blockDim.x) {
+    float4 lo = make_float4(kInf, kInf, kInf, 0.f);
+    float4 hi = make_float4(-kInf, -kInf, -kInf, 0.f);
+    for (int c = ch * kChunk; c < min(ch * kChunk + kChunk, w3); ++c) {
+      const float4 b = win[c];
+      if (__float_as_int(b.w) < 0) continue;
+      lo = make_float4(fminf(lo.x, b.x), fminf(lo.y, b.y), fminf(lo.z, b.z), 0.f);
+      hi = make_float4(fmaxf(hi.x, b.x), fmaxf(hi.y, b.y), fmaxf(hi.z, b.z), 0.f);
+    }
+    box[2 * ch] = lo;
+    box[2 * ch + 1] = hi;
+  }
+}
+
+// True where no column of chunk ch can have d2 < thr (STRICT) or
+// d2 <= thr (!STRICT) from the query: its box's squared distance, shrunk
+// by kCullMargin, already reaches thr. Above 1e-30 no term underflows, so
+// the roundings of the bound and of every d2 stay relative.
+template <bool STRICT>
+__device__ __forceinline__ bool chunk_beyond(const float4* __restrict__ box, int ch, float qx,
+                                             float qy, float qz, float thr) {
+  const float4 lo = box[2 * ch];
+  const float4 hi = box[2 * ch + 1];
+  const float gx = fmaxf(fmaxf(__fsub_rn(lo.x, qx), __fsub_rn(qx, hi.x)), 0.f);
+  const float gy = fmaxf(fmaxf(__fsub_rn(lo.y, qy), __fsub_rn(qy, hi.y)), 0.f);
+  const float gz = fmaxf(fmaxf(__fsub_rn(lo.z, qz), __fsub_rn(qz, hi.z)), 0.f);
+  const float lb = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz)),
+      kCullMargin);
+  const float t = fmaxf(thr, 1e-30f);
+  return STRICT ? lb >= t : lb > t;
+}
+
+// One step of the selection sweep: window record b (column c) enters the
+// list of each query it strictly beats the k-th of.
+template <int KMAX, int Q, bool COLS>
+__device__ __forceinline__ void select_candidate(float4 b, int c, const float* qx,
+                                                 const float* qy, const float* qz,
+                                                 float (*best)[KMAX], int (*col)[KMAX]) {
+  const bool ok = __float_as_int(b.w) >= 0;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const float d = tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z);
+    if (ok && d < best[j][KMAX - 1]) {
+      if constexpr (COLS) {
+        insert_ranked<KMAX>(best[j], col[j], d, c);
+      } else {
+        insert_sorted<KMAX>(best[j], d);
+      }
+    }
+  }
+}
+
+// Steps 1-2 for the Q queries of a thread in the round from base: sets
+// qi[j] (window column tile + qi[j]; a thread past the tile's end,
+// tile < Q, repeats its last query) and its coordinates (qx, qy, qz)[j];
+// best[j] ends as the window's k smallest d2, right-aligned (with COLS,
+// col[j] holds their columns), r2[j] is the band's k-th. win holds the
+// window's 3 * tile records. With box (kernel 4) the sweep passes over
+// each chunk that lies beyond the current k-th of all Q queries: none of
+// its columns could enter.
+template <int KMAX, int Q, bool COLS>
+__device__ __forceinline__ void select_window(const float4* __restrict__ win,
+                                              const float4* __restrict__ box, int tile,
+                                              int base, int k, int band, int* qi, float* qx,
+                                              float* qy, float* qz, float (*best)[KMAX],
+                                              int (*col)[KMAX], float* r2) {
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    qi[j] = min(base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x),
+                tile - 1);
+    const float4 r = win[tile + qi[j]];
+    qx[j] = r.x;
+    qy[j] = r.y;
+    qz[j] = r.z;
+#pragma unroll
+    for (int m = 0; m < KMAX; ++m) best[j][m] = m < KMAX - k ? -kInf : kInf;
+    // 1. r2: the k-th smallest over the +-band sorted neighbours
+    for (int c = tile + qi[j] - band; c <= tile + qi[j] + band; ++c) {
+      const float4 b = win[c];
+      const float d = __float_as_int(b.w) >= 0
+                          ? tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z)
+                          : kInf;
+      insert_sorted<KMAX>(best[j], d);
+    }
+    r2[j] = best[j][KMAX - 1];
+    const float seed = nextafterf(r2[j], kInf);
+#pragma unroll
+    for (int m = 0; m < KMAX; ++m) {
+      if (m >= KMAX - k) best[j][m] = seed;
+      if constexpr (COLS) col[j][m] = 0;
+    }
+  }
+
+  // 2. the selection sweep: best[j] ends as the window's k smallest
+  const int w3 = 3 * tile;
+  if (box == nullptr) {
+#pragma unroll 2
+    for (int c = 0; c < w3; ++c) select_candidate<KMAX, Q, COLS>(win[c], c, qx, qy, qz, best, col);
+    return;
+  }
+  for (int c0 = 0; c0 < w3; c0 += kChunk) {
+    bool beyond = true;
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      beyond = beyond && chunk_beyond<true>(box, c0 / kChunk, qx[j], qy[j], qz[j],
+                                            best[j][KMAX - 1]);
+    }
+    if (beyond) continue;
+    const int c1 = min(c0 + kChunk, w3);
+#pragma unroll 4
+    for (int c = c0; c < c1; ++c) select_candidate<KMAX, Q, COLS>(win[c], c, qx, qy, qz, best, col);
+  }
+}
+
+// Steps 1-3: the selection radius hi[j] of each of a thread's Q queries,
+// clamped to kHiClamp.
+template <int KMAX, int Q>
+__device__ __forceinline__ void band_radius(const float4* __restrict__ win,
+                                            const float4* __restrict__ box, int tile,
+                                            int base, int k, int band, int* qi, float* qx,
+                                            float* qy, float* qz, float* hi) {
+  float best[Q][KMAX];
+  float r2[Q];
+  select_window<KMAX, Q, false>(win, box, tile, base, k, band, qi, qx, qy, qz, best, nullptr,
+                                r2);
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    // the 6 bisection rounds: count(d2 <= mid) >= k  <=>  d_(k) <= mid
+    const float dk = best[j][KMAX - 1];
+    float lo = 0.f;
+    float h = r2[j];
+    for (int round = 0; round < 6; ++round) {
+      const float mid = __fmul_rn(0.5f, __fadd_rn(lo, h));
+      if (dk <= mid) {
+        h = mid;
+      } else {
+        lo = mid;
+      }
+    }
+    hi[j] = fminf(h, kHiClamp);
+  }
+}
+
+__device__ __forceinline__ void accumulate(float* s, float dx, float dy,
+                                           float dz) {
+  s[0] += 1.f;
+  s[1] += dx;
+  s[2] += dy;
+  s[3] += dz;
+  s[4] += dx * dx;
+  s[5] += dy * dy;
+  s[6] += dz * dz;
+  s[7] += dx * dy;
+  s[8] += dx * dz;
+  s[9] += dy * dz;
+}
+
 // Union pass A (PASS_B false): rows [cnt, S1(3), S2(6), hiA].
 // Union pass B (PASS_B true) over the shifted-lattice order. Where
 // hiB < hiA (pass A's window was poor) it emits the full pass-B window
 // sums at hiB, to be used alone; otherwise the sums within hiA over
 // candidates OUTSIDE the query's pass-A window (|posA tile - query posA
 // tile| > 1), which add to pass A's sums. Rows [S_out(10), use_b].
-//
-// The register list of each query is right-aligned: KMAX - k entries of
-// -inf ahead of the k smallest distances, so that its last entry is the
-// k-th smallest for any k <= KMAX.
 template <int KMAX, bool PASS_B>
-__global__ void __launch_bounds__(kUnionThreads)
+__global__ void __launch_bounds__(kThreads)
 union_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
              const int* __restrict__ pos_a, const float* __restrict__ hi_a,
              float* __restrict__ out, int n, int tile, int k, int band) {
-  constexpr int Q = kUnionQueries;
+  constexpr int Q = kQueries;
   extern __shared__ float4 win[];
   const int shift = __ffs(tile) - 1;  // log2(tile): tile is a power of two
   stage_records(pts, valid, PASS_B ? pos_a : nullptr, n, tile, shift, win);
@@ -224,65 +324,10 @@ union_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
   const int w3 = 3 * tile;
   for (int base = 0; base < tile; base += blockDim.x * Q) {
     int qi[Q];
-    float qx[Q], qy[Q], qz[Q], r2[Q];
-    float best[Q][KMAX];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      // a thread past the tile's end (tile < Q) repeats its last query
-      qi[j] = min(base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x),
-                  tile - 1);
-      const float4 r = win[tile + qi[j]];
-      qx[j] = r.x;
-      qy[j] = r.y;
-      qz[j] = r.z;
-#pragma unroll
-      for (int m = 0; m < KMAX; ++m) best[j][m] = m < KMAX - k ? -kInf : kInf;
-      // 1. r2: the k-th smallest over the +-band sorted neighbours
-      for (int c = tile + qi[j] - band; c <= tile + qi[j] + band; ++c) {
-        const float4 b = win[c];
-        const float d = __float_as_int(b.w) >= 0
-                            ? tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z)
-                            : kInf;
-        insert_sorted<KMAX>(best[j], d);
-      }
-      r2[j] = best[j][KMAX - 1];
-      const float seed = nextafterf(r2[j], kInf);
-#pragma unroll
-      for (int m = 0; m < KMAX; ++m) {
-        if (m >= KMAX - k) best[j][m] = seed;
-      }
-    }
+    float qx[Q], qy[Q], qz[Q], hi[Q];
+    band_radius<KMAX, Q>(win, nullptr, tile, base, k, band, qi, qx, qy, qz, hi);
 
-    // 2. the selection sweep: best[j] ends as the window's k smallest
-#pragma unroll 2
-    for (int c = 0; c < w3; ++c) {
-      const float4 b = win[c];
-      const bool ok = __float_as_int(b.w) >= 0;
-#pragma unroll
-      for (int j = 0; j < Q; ++j) {
-        const float d = tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z);
-        if (ok && d < best[j][KMAX - 1]) insert_sorted<KMAX>(best[j], d);
-      }
-    }
-    float hi[Q];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      // the 6 bisection rounds: count(d2 <= mid) >= k  <=>  d_(k) <= mid
-      const float dk = best[j][KMAX - 1];
-      float lo = 0.f;
-      float h = r2[j];
-      for (int round = 0; round < 6; ++round) {
-        const float mid = __fmul_rn(0.5f, __fadd_rn(lo, h));
-        if (dk <= mid) {
-          h = mid;
-        } else {
-          lo = mid;
-        }
-      }
-      hi[j] = fminf(h, kHiClamp);
-    }
-
-    // 3. the sums sweep
+    // the sums sweep
     float thr[Q];
     int tile_q[Q];
     bool use_b[Q];
@@ -341,35 +386,47 @@ union_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
 // ---------------------------------------------------------------------------
 // Fused window normals (window_normals_tiles): selection, covariance and
 // the Jacobi eigensolve of each query in one kernel, output rows
-// [nx, ny, nz, curvature, count, k-th] (6, n).
-//
-// A block serves one tile with kNormalThreads threads (fewer for a smaller
-// tile), each thread every kNormalThreads-th query, so the exact body's
-// register list never limits the tile. Two selection bodies, as the Pallas
-// kernel's:
+// [nx, ny, nz, curvature, count, k-th] (6, n). Two selection bodies, as
+// the Pallas kernel's, both on the staged records:
 //   band == 0 (_moments_kernel): the k nearest valid window columns, ties
-//     to the lowest column, by one sweep that inserts each candidate into a
-//     best-first register list before the first strictly smaller entry (the
-//     order of the Pallas max-extraction rounds); query-centred sums over
-//     the selected; the k-th row is the k-th -d^2 (-inf below k valid).
-//   band > 0 (_moments_band_kernel): band_bound (the union passes' radius
-//     by 6 bisection sweeps, as the Pallas kernel computes it), every
-//     window column within it selected; raw moments [1, c, c c^T] in the
-//     frame of the tile centre (the mean of the tile's valid queries), the
-//     covariance E[cc] - E[c]E[c]; the k-th row is -hi.
-// The sums are accumulated in double and rounded once to fp32 (the plain
-// version does the same in another order), so they, and everything after
-// them, have the plain version's bits except where a double sum lands
-// within 2^-53 of an fp32 rounding boundary. Every fp32 operation after
-// the sums is rounded on its own in the Pallas body's order.
+//     to the lowest column: select_window seeded from a +-min(2k, tile)
+//     band, the columns carried in the list (Pallas' max-extraction
+//     rounds and the plain version's stable sort give the same order);
+//     sums over the k selected, best first, around the query; the k-th
+//     row is -d_(k) (-inf below k valid columns).
+//   band > 0 (_moments_band_kernel): band_radius at half-width
+//     max(band, k), as the wrapper passes it, then one sums sweep over
+//     every window column within it, in column order: raw moments
+//     [1, c, c c^T] in the frame of the tile centre (the mean of the
+//     tile's valid queries), the covariance E[cc] - E[c]E[c]; the k-th
+//     row is -hi.
+// Both sweeps pass over each 16-column chunk of the window whose
+// bounding box (staged beside the records) lies beyond the query's
+// current k-th (selection) or hi (sums): none of its columns could enter
+// or be selected, so skipping it changes nothing (chunk_beyond's margin
+// keeps the fp32 box bound below every fp32 d2 it covers). The sums are
+// accumulated in double and rounded once to fp32 (the plain version does
+// the same in another order), so they, and everything after them, have
+// the plain version's bits except where a double sum lands within 2^-53
+// of an fp32 rounding boundary. Every fp32 operation after the sums is
+// rounded on its own in the Pallas body's order.
 //
-// What bounds it: instruction issue. The band body makes band_bound's 7
-// sweeps and a sums sweep of 3*tile candidates plus ~560 operations of
-// eigensolve per query; the exact body one sweep with a list insertion
-// (~KMAX compare-selects) for each candidate that beats the current k-th.
-// Device memory traffic is 16 bytes read and 24 written per query.
-
-constexpr int kNormalThreads = 128;
+// What bounds it: instruction issue, as the union passes. Per query the
+// band body makes the +-band seed list, a selection sweep and a sums
+// sweep; the exact body the +-2k seed list and one sweep whose list
+// carries each entry's column (5 operations per entry and insertion).
+// A warp scans a chunk where any of its 32 Morton-adjacent queries needs
+// it; a box test costs ~20 operations. A selected candidate's 9
+// tile-frame features are widened to double and added with 10 DADDs
+// (half the fp32 rate on the H100); the eigensolve is ~550 fp32
+// operations. The choices, timed on the H100 at k = 10, tile 256
+// (tools/window_normals_variants.py, see PERF.md): one query a thread
+// (two ran 2-38% slower: insertions diverge across a thread's queries
+// and its registers grow), 16-column chunks (8 and 32 within -1% to
+// +6%; no culling 28% slower at band 16, 15% at band 0), chunk loops
+// unrolled 4 (2: 1-4% slower), the exact body's seed at +-2k rather than
+// +-k (6% faster), lists of 12 for k <= 12 (16 ran 5-41% slower).
+// Device memory moves 16 bytes in and 24 out per query.
 
 struct Rot {
   float t, c, s;
@@ -469,125 +526,164 @@ __device__ __forceinline__ void emit_normal(const double* g, float last, float* 
   out[5L * n + col] = last;
 }
 
-__device__ __forceinline__ void add_moments(double* g, float x, float y, float z) {
+// A tile-frame candidate's 9 moment features (x, y, z, xx, yy, zz, xy, xz,
+// yz), each product rounded to fp32, widened to double.
+__device__ __forceinline__ void moment_features(double* f, float x, float y, float z) {
+  f[0] = x;
+  f[1] = y;
+  f[2] = z;
+  f[3] = __fmul_rn(x, x);
+  f[4] = __fmul_rn(y, y);
+  f[5] = __fmul_rn(z, z);
+  f[6] = __fmul_rn(x, y);
+  f[7] = __fmul_rn(x, z);
+  f[8] = __fmul_rn(y, z);
+}
+
+// g += [1, f]: one selected candidate's moments.
+__device__ __forceinline__ void add_features(double* g, const double* f) {
   g[0] += 1.0;
-  g[1] += x;
-  g[2] += y;
-  g[3] += z;
-  g[4] += __fmul_rn(x, x);
-  g[5] += __fmul_rn(y, y);
-  g[6] += __fmul_rn(z, z);
-  g[7] += __fmul_rn(x, y);
-  g[8] += __fmul_rn(x, z);
-  g[9] += __fmul_rn(y, z);
+#pragma unroll
+  for (int r = 0; r < 9; ++r) g[r + 1] += f[r];
+}
+
+__device__ __forceinline__ void add_moments(double* g, float x, float y, float z) {
+  double f[9];
+  moment_features(f, x, y, z);
+  add_features(g, f);
+}
+
+// The band body's sums: the window record b joins the tile-frame moments
+// g[j] of each query whose radius hi[j] it lies within; its 9 features
+// are formed once for the Q queries.
+template <int Q>
+__device__ __forceinline__ void sum_candidate(float4 b, const float* qx, const float* qy,
+                                              const float* qz, const float* hi, float tcx,
+                                              float tcy, float tcz, double (*g)[10]) {
+  const bool ok = __float_as_int(b.w) >= 0;
+  bool sel[Q];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    sel[j] = ok && tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z) <= hi[j];
+    any = any || sel[j];
+  }
+  if (!any) return;
+  double f[9];
+  moment_features(f, __fsub_rn(b.x, tcx), __fsub_rn(b.y, tcy), __fsub_rn(b.z, tcz));
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    if (sel[j]) add_features(g[j], f);
+  }
 }
 
 // band == 0: the exact window k-NN of each query.
 template <int KMAX>
-__global__ void __launch_bounds__(kNormalThreads)
+__global__ void __launch_bounds__(kThreads)
 window_normals_exact_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
                             float* __restrict__ out, int n, int tile, int k) {
-  extern __shared__ float smem[];
-  Window w{smem, smem + 3 * tile, smem + 6 * tile, smem + 9 * tile, nullptr};
-  load_window(pts, valid, nullptr, n, tile, w);
+  constexpr int Q = kNormalQueries;
+  extern __shared__ float4 win[];
+  float4* box = win + 3 * tile;
+  stage_records(pts, valid, nullptr, n, tile, __ffs(tile) - 1, win);
+  __syncthreads();
+  stage_boxes(win, tile, box);
   __syncthreads();
 
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int q = tile + i;
-    const float qx = w.x[q], qy = w.y[q], qz = w.z[q];
-    float best[KMAX];  // -d^2, best first
-    int bcol[KMAX];
+  for (int base = 0; base < tile; base += blockDim.x * Q) {
+    int qi[Q];
+    float qx[Q], qy[Q], qz[Q], r2[Q];
+    float best[Q][KMAX];
+    int col[Q][KMAX];
+    select_window<KMAX, Q, true>(win, box, tile, base, k, min(2 * k, tile), qi, qx, qy, qz,
+                                 best, col, r2);
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      best[j] = -kInf;
-      bcol[j] = 0;
-    }
-    for (int c = 0; c < 3 * tile; ++c) {
-      if (!(w.v[c] > 0.5f)) continue;
-      float v = -tc::sq_dist(qx, qy, qz, w.x[c], w.y[c], w.z[c]);
-      if (!(v > best[KMAX - 1])) continue;
-      int cc = c;
-      bool moved = false;
+    for (int j = 0; j < Q; ++j) {
+      const int i = base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x);
+      if (i >= tile) continue;
+      // the k selected, best first
+      double g[10] = {0., 0., 0., 0., 0., 0., 0., 0., 0., 0.};
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (moved || v > best[j]) {
-          const float tv = best[j];
-          const int tcol = bcol[j];
-          best[j] = v;
-          bcol[j] = cc;
-          v = tv;
-          cc = tcol;
-          moved = true;
+      for (int m = 0; m < KMAX; ++m) {
+        if (m >= KMAX - k && best[j][m] < kInf) {
+          const float4 b = win[col[j][m]];
+          add_moments(g, __fsub_rn(b.x, qx[j]), __fsub_rn(b.y, qy[j]),
+                      __fsub_rn(b.z, qz[j]));
         }
       }
+      emit_normal(g, -best[j][KMAX - 1], out, n, static_cast<long>(blockIdx.x) * tile + i);
     }
-    double g[10] = {0., 0., 0., 0., 0., 0., 0., 0., 0., 0.};
-    float kth = -kInf;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) {
-        kth = best[j];
-        if (best[j] > -kInf) {
-          const int c = bcol[j];
-          add_moments(g, __fsub_rn(w.x[c], qx), __fsub_rn(w.y[c], qy),
-                      __fsub_rn(w.z[c], qz));
-        }
-      }
-    }
-    emit_normal(g, kth, out, n, static_cast<long>(blockIdx.x) * tile + i);
   }
 }
 
-// band > 0: every window column within the band bound, in the tile-centre
+// band > 0: every window column within the band radius, in the tile-centre
 // frame.
 template <int KMAX>
-__global__ void __launch_bounds__(kNormalThreads)
+__global__ void __launch_bounds__(kThreads)
 window_normals_band_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
                            float* __restrict__ out, int n, int tile, int k, int band) {
-  extern __shared__ float smem[];
-  double* part = reinterpret_cast<double*>(smem);  // (4, blockDim.x) partial sums
-  float* f = reinterpret_cast<float*>(part + 4 * kNormalThreads);
-  Window w{f, f + 3 * tile, f + 6 * tile, f + 9 * tile, nullptr};
-  load_window(pts, valid, nullptr, n, tile, w);
-  __syncthreads();
+  constexpr int Q = kNormalQueries;
+  extern __shared__ float4 win[];
+  float4* box = win + 3 * tile;
+  double* part = reinterpret_cast<double*>(box + 2 * n_chunks(tile));  // (4, kThreads)
+  stage_records(pts, valid, nullptr, n, tile, __ffs(tile) - 1, win);
 
   // tile centre: the mean of the tile's valid queries, each sum in double
   // (in thread order, then over the threads) rounded once to fp32
   double s[4] = {0., 0., 0., 0.};
   for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const float v = w.v[tile + i];
-    s[0] += __fmul_rn(w.x[tile + i], v);
-    s[1] += __fmul_rn(w.y[tile + i], v);
-    s[2] += __fmul_rn(w.z[tile + i], v);
+    const long col = static_cast<long>(blockIdx.x) * tile + i;
+    const float v = valid[col];
+    s[0] += __fmul_rn(pts[col], v);
+    s[1] += __fmul_rn(pts[n + col], v);
+    s[2] += __fmul_rn(pts[2L * n + col], v);
     s[3] += v;
   }
-  for (int r = 0; r < 4; ++r) part[r * kNormalThreads + threadIdx.x] = s[r];
+  for (int r = 0; r < 4; ++r) part[r * kThreads + threadIdx.x] = s[r];
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int r = 0; r < 4; ++r) {
       double tot = 0.;
-      for (int j = 0; j < blockDim.x; ++j) tot += part[r * kNormalThreads + j];
-      part[r * kNormalThreads] = tot;
+      for (int j = 0; j < static_cast<int>(blockDim.x); ++j) tot += part[r * kThreads + j];
+      part[r * kThreads] = tot;
     }
   }
+  stage_boxes(win, tile, box);
   __syncthreads();
-  const float nq = fmaxf(static_cast<float>(part[3 * kNormalThreads]), 1.f);
+  const float nq = fmaxf(static_cast<float>(part[3 * kThreads]), 1.f);
   const float tcx = __fdiv_rn(static_cast<float>(part[0]), nq);
-  const float tcy = __fdiv_rn(static_cast<float>(part[kNormalThreads]), nq);
-  const float tcz = __fdiv_rn(static_cast<float>(part[2 * kNormalThreads]), nq);
+  const float tcy = __fdiv_rn(static_cast<float>(part[kThreads]), nq);
+  const float tcz = __fdiv_rn(static_cast<float>(part[2 * kThreads]), nq);
 
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int q = tile + i;
-    const float qx = w.x[q], qy = w.y[q], qz = w.z[q];
-    const float hi = band_bound<KMAX>(w, tile, i, k, band, qx, qy, qz);
-    double g[10] = {0., 0., 0., 0., 0., 0., 0., 0., 0., 0.};
-    for (int c = 0; c < 3 * tile; ++c) {
-      if (window_d2(w, c, qx, qy, qz) <= hi) {
-        add_moments(g, __fsub_rn(w.x[c], tcx), __fsub_rn(w.y[c], tcy),
-                    __fsub_rn(w.z[c], tcz));
-      }
+  const int w3 = 3 * tile;
+  for (int base = 0; base < tile; base += blockDim.x * Q) {
+    int qi[Q];
+    float qx[Q], qy[Q], qz[Q], hi[Q];
+    band_radius<KMAX, Q>(win, box, tile, base, k, band, qi, qx, qy, qz, hi);
+
+    // the sums sweep, in column order, past the chunks beyond every hi[j]
+    double g[Q][10];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+#pragma unroll
+      for (int r = 0; r < 10; ++r) g[j][r] = 0.;
     }
-    emit_normal(g, -hi, out, n, static_cast<long>(blockIdx.x) * tile + i);
+    for (int c0 = 0; c0 < w3; c0 += kChunk) {
+      bool beyond = true;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        beyond = beyond && chunk_beyond<false>(box, c0 / kChunk, qx[j], qy[j], qz[j], hi[j]);
+      }
+      if (beyond) continue;
+      const int c1 = min(c0 + kChunk, w3);
+#pragma unroll 4
+      for (int c = c0; c < c1; ++c) sum_candidate<Q>(win[c], qx, qy, qz, hi, tcx, tcy, tcz, g);
+    }
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int i = base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x);
+      if (i < tile) emit_normal(g[j], -hi[j], out, n, static_cast<long>(blockIdx.x) * tile + i);
+    }
   }
 }
 
@@ -598,37 +694,42 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Threads of a block serving a tile, Q queries each.
+int block_threads(int tile, int q) {
+  const int threads = tile / q;
+  return threads < 1 ? 1 : (threads > kThreads ? kThreads : threads);
+}
+
 template <int KMAX, bool PASS_B>
 cudaError_t launch_union(const float* pts, const float* valid, const int* pos_a,
                          const float* hi_a, float* out, int n, int tile, int k, int band,
                          cudaStream_t stream) {
-  int threads = tile / kUnionQueries;
-  threads = threads < 1 ? 1 : (threads > kUnionThreads ? kUnionThreads : threads);
   const size_t smem = 3 * static_cast<size_t>(tile) * sizeof(float4);
   cudaError_t err = allow_smem(union_kernel<KMAX, PASS_B>, smem);
   if (err != cudaSuccess) return err;
-  union_kernel<KMAX, PASS_B><<<n / tile, threads, smem, stream>>>(pts, valid, pos_a, hi_a,
-                                                                   out, n, tile, k, band);
+  union_kernel<KMAX, PASS_B><<<n / tile, block_threads(tile, kQueries), smem, stream>>>(
+      pts, valid, pos_a, hi_a, out, n, tile, k, band);
   return cudaGetLastError();
 }
 
 template <int KMAX>
 cudaError_t launch_normals(const float* pts, const float* valid, float* out, int n,
                            int tile, int k, int band, cudaStream_t stream) {
-  const int threads = tile < kNormalThreads ? tile : kNormalThreads;
-  const size_t win = 12 * static_cast<size_t>(tile) * sizeof(float);
+  const size_t win = (3 * static_cast<size_t>(tile) + 2 * n_chunks(tile)) * sizeof(float4);
   cudaError_t err;
   if (band == 0) {
     err = allow_smem(window_normals_exact_kernel<KMAX>, win);
     if (err != cudaSuccess) return err;
-    window_normals_exact_kernel<KMAX><<<n / tile, threads, win, stream>>>(pts, valid, out,
-                                                                          n, tile, k);
+    window_normals_exact_kernel<KMAX>
+        <<<n / tile, block_threads(tile, kNormalQueries), win, stream>>>(pts, valid, out, n,
+                                                                          tile, k);
   } else {
-    const size_t smem = win + 4 * kNormalThreads * sizeof(double);
+    const size_t smem = win + 4 * kThreads * sizeof(double);
     err = allow_smem(window_normals_band_kernel<KMAX>, smem);
     if (err != cudaSuccess) return err;
-    window_normals_band_kernel<KMAX><<<n / tile, threads, smem, stream>>>(
-        pts, valid, out, n, tile, k, band);
+    window_normals_band_kernel<KMAX>
+        <<<n / tile, block_threads(tile, kNormalQueries), smem, stream>>>(pts, valid, out, n,
+                                                                           tile, k, band);
   }
   return cudaGetLastError();
 }
@@ -671,6 +772,7 @@ extern "C" int tc_union_window_b(const float* pts, const float* valid,
 extern "C" int tc_window_normals(const float* pts, const float* valid, float* out, int n,
                                  int tile, int k, int band, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 12) return launch_normals<12>(pts, valid, out, n, tile, k, band, s);
   if (k <= 16) return launch_normals<16>(pts, valid, out, n, tile, k, band, s);
   if (k <= 32) return launch_normals<32>(pts, valid, out, n, tile, k, band, s);
   if (k <= 64) return launch_normals<64>(pts, valid, out, n, tile, k, band, s);

@@ -32,9 +32,9 @@ kernel, so the two agree bit for bit unless a float64 sum lands within
 the Pallas body's, unfused, in its order.
 
 On the card these are issue-bound scans of the 768-point window from
-shared memory, with little device-memory traffic: the union passes
-make 2 sweeps per query, ``window_normals_tiles``' band body 8 (see the
-source note in ``csrc/union_window.cu``).
+shared memory, with little device-memory traffic: the union passes and
+``window_normals_tiles``' band body make 2 sweeps per query, its exact
+body 1 (see the source note in ``csrc/union_window.cu``).
 """
 
 from __future__ import annotations
