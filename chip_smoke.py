@@ -13,7 +13,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    at the slices' real shapes: the two union-window passes on a
    1,000,192-point Morton-sorted scan, ``icp_match`` on 1M x 1M with
    w_tiles=3 at E=0 and E=3, the four FPFH kernels on the 1,000,192
-   sorted points of the registration target (r = 0.5, tile 256), the
+   sorted points of the registration target (r = 0.5, tile 256; the two
+   weight kernels also at the default FPFH's r = 0.25), the
    two banded SPFH kernels on the same points (r = 0.25, band 48, tile
    256), ``knn_window_tiles`` on the sorted 1M scan (tile 128) at k = 10,
    k = 10 with coordinates, k = 9 and k = 64 with self excluded, the
@@ -43,7 +44,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     there), union, band and weight kernels launch once each, the
     full-window SPFH kernels never; descriptors normalised, valid share
     > 0.9, median cosine >= 0.99 against ``band=None`` on the same cloud
-    and normals; times of both band settings and peak memory;
+    and normals; times of both band settings, peak memory and a device
+    profile of one call;
 12. ``method="window"`` normals on the 1M scan: ``knn_window`` twice,
     the union kernels never, valid share > 0.99, unit normals, median
     |cos| >= 0.999 against the default union normals; time;
@@ -100,7 +102,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20 and 21), error, times and bound, then ``{"ok": true,
+8, 11-16, 18, 20 and 21; the weight kernels' r = 0.25 entries repeat
+the kernel's count), error, times and bound, then ``{"ok": true,
 "device": {...}}``. A kernel's bound is the larger of the bytes it must move (each
 input read once, each output written once) over the H100's 3.35 TB/s and
 the fp32 operations of its algorithm on this run's inputs (per examined
@@ -132,6 +135,10 @@ FPFH_REL_TOL = 1e-4     # max |Δ| / Σ|row| of the query's 33 sums
 FPFH_RADIUS, FPFH_TILE = 0.5, 256
 FPFH_KERNELS = ("spfh_a", "spfh_b", "fpfh_weight_a", "fpfh_weight_b")
 BAND_RADIUS, BAND = 0.25, 48    # the rung "auto" picks on the registration target
+# the stage-2 kernels at RegistrationModel's radius and at the default
+# FPFH's (BAND_RADIUS), by timing name
+WEIGHT_RUNS = {"fpfh_weight_a": FPFH_RADIUS, "fpfh_weight_b": FPFH_RADIUS,
+               "fpfh_weight_a r=0.25": BAND_RADIUS, "fpfh_weight_b r=0.25": BAND_RADIUS}
 BAND_KERNELS = ("spfh_band_a", "spfh_band_b")
 # knn_window_tiles configurations of the window paths (k, with_coords,
 # exclude_self), all at tile 128: method="window" normals (k = 10), its
@@ -279,6 +286,16 @@ def fpfh_inputs(dev):
     return pa, pb, row_a.to(torch.int32)[None].contiguous()
 
 
+def stage2_inputs(pa, pb, pos_b, spfh_a, spfh_b):
+    """The stage-2 packed rows of both passes, ``(37, N)`` [x, y, z, valid,
+    spfh (33)], from the stage-1 outputs, as ``_fpfh_fused`` builds them."""
+    inv_b = torch.argsort(pos_b[0].long())
+    raw = spfh_a.T + spfh_b.T[inv_b]
+    spfh = raw[:, :33] / raw[:, 33:].clamp_min(1.0)
+    return (torch.cat([pa[0:4], spfh.T]).contiguous(),
+            torch.cat([pb[0:4], spfh[pos_b[0].long()].T]).contiguous())
+
+
 def pose_error(t: np.ndarray, rot: np.ndarray):
     """(|R'R - I|max, |R't + t'|max) of a recovered src → tgt transform
     against the applied tgt → src motion (R, REG_SHIFT)."""
@@ -351,8 +368,8 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
         "knn_window": (4 * n_u * 5 + 8 * 10 * n_u, n_u * 3 * KNN_TILE * 9),
         "spfh_a": (4 * n_f * (7 + 34), n_f * w3 * 12 + pairs["spfh_a"] * 100),
         "spfh_b": (4 * n_f * (8 + 34), n_f * w3 * 12 + pairs["spfh_b"] * 100),
-        "fpfh_weight_a": (4 * n_f * (37 + 34), n_f * w3 * 9 + pairs["fpfh_weight_a"] * 68),
-        "fpfh_weight_b": (4 * n_f * (38 + 34), n_f * w3 * 9 + pairs["fpfh_weight_b"] * 68),
+        **{wname: (4 * n_f * ((38 if wname.startswith("fpfh_weight_b") else 37) + 34),
+                   n_f * w3 * 9 + pairs[wname] * 68) for wname in WEIGHT_RUNS},
         "spfh_band_a": (4 * n_f * (7 + 34), n_f * (2 * BAND + 1) * 12
                         + pairs["spfh_band_a"] * 100),
         "spfh_band_b": (4 * n_f * (8 + 34), n_f * (2 * BAND + 1) * 12
@@ -635,29 +652,30 @@ def main() -> int:
             f"max abs err {fpfh_err[kname]:.3e}, mean count {ref[33][v].mean().item():.2f}")
         check(exact == 1.0, f"{kname} disagrees")
         stage1[kname] = got
-    # stage 2 on the kernels' SPFH, as _fpfh_fused builds it
-    inv_b = torch.argsort(pos_b[0].long())
-    raw = stage1["spfh_a"].T + stage1["spfh_b"].T[inv_b]
-    spfh = raw[:, :33] / raw[:, 33:].clamp_min(1.0)
-    p2a = torch.cat([pa[0:4], spfh.T]).contiguous()
-    p2b = torch.cat([pb[0:4], spfh[pos_b[0].long()].T]).contiguous()
+    # stage 2 on the kernels' SPFH, as _fpfh_fused builds it, at r = 0.5 and
+    # at the default FPFH's stage-2 radius
+    p2a, p2b = stage2_inputs(pa, pb, pos_b, stage1["spfh_a"], stage1["spfh_b"])
     fpfh_args = {"spfh_a": (pa,), "spfh_b": (pb, pos_b),
                  "fpfh_weight_a": (p2a,), "fpfh_weight_b": (p2b, pos_b)}
-    for kname, kern, plain, v in (
-            ("fpfh_weight_a", fpfh.fpfh_weight_a_tiles, fpfh.fpfh_weight_a_plain, v_a),
-            ("fpfh_weight_b", fpfh.fpfh_weight_b_tiles, fpfh.fpfh_weight_b_plain, v_b)):
-        got = kern(*fpfh_args[kname], r2, FPFH_TILE)
-        ref = plain(*fpfh_args[kname], r2, FPFH_TILE)
+    weight_r2 = {}
+    for kname, radius in WEIGHT_RUNS.items():
+        base = kname.split()[0]
+        kern, plain = getattr(fpfh, base + "_tiles"), getattr(fpfh, base + "_plain")
+        v = v_a if base == "fpfh_weight_a" else v_b
+        weight_r2[kname] = radius * radius
+        got = kern(*fpfh_args[base], weight_r2[kname], FPFH_TILE)
+        ref = plain(*fpfh_args[base], weight_r2[kname], FPFH_TILE)
         torch.cuda.synchronize()
         cnt_exact = share((got[33] == ref[33])[v])
         rel = ((got[:33] - ref[:33]).abs().amax(0)
                / ref[:33].abs().sum(0).clamp_min(1e-30))[v].max().item()
         fpfh_err[kname] = (got - ref).abs().max().item()
         pairs[kname] = ref[33].sum().item()
-        log(f"  {kname}: count bit-equal {cnt_exact:.6f} (need 1), sums max rel err "
-            f"{rel:.3e} (tol {FPFH_REL_TOL}), max abs err {fpfh_err[kname]:.3e}")
+        log(f"  {kname}: r={radius} count bit-equal {cnt_exact:.6f} (need 1), sums max rel "
+            f"err {rel:.3e} (tol {FPFH_REL_TOL}), max abs err {fpfh_err[kname]:.3e}, mean "
+            f"count {ref[33][v].mean().item():.2f}")
         check(cnt_exact == 1.0 and rel <= FPFH_REL_TOL, f"{kname} disagrees")
-    del stage1, raw, spfh
+    del stage1
 
     rb2 = BAND_RADIUS * BAND_RADIUS
     band_args = {"spfh_band_a": (pa,),
@@ -686,11 +704,12 @@ def main() -> int:
         "icp_match": (lambda: icp_match_tiles(*icp_args[0], tile=128, w_tiles=3),
                       lambda: icp_match_plain(*icp_args[0], tile=128, w_tiles=3)),
     }
-    for kname in fpfh_args:
-        kern, plain = getattr(fpfh, kname + "_tiles"), getattr(fpfh, kname + "_plain")
-        args = fpfh_args[kname]
-        times[kname] = (lambda kern=kern, args=args: kern(*args, r2, FPFH_TILE),
-                        lambda plain=plain, args=args: plain(*args, r2, FPFH_TILE))
+    for kname in ("spfh_a", "spfh_b", *WEIGHT_RUNS):
+        base = kname.split()[0]
+        kern, plain = getattr(fpfh, base + "_tiles"), getattr(fpfh, base + "_plain")
+        args, kr2 = fpfh_args[base], weight_r2.get(kname, r2)
+        times[kname] = (lambda kern=kern, args=args, kr2=kr2: kern(*args, kr2, FPFH_TILE),
+                        lambda plain=plain, args=args, kr2=kr2: plain(*args, kr2, FPFH_TILE))
     for kname in BAND_KERNELS:
         kern, plain = getattr(fpfh, kname + "_tiles"), getattr(fpfh, kname + "_plain")
         args = band_args[kname]
@@ -717,7 +736,7 @@ def main() -> int:
     ms["knn_window"] = ms["knn_window k=10"]     # method="window" normals' shape
     work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs)
     del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls
-    del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, inv_b, got, ref, args
+    del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
 
     log("phase 5: PerceptionStep() on the 1M scan pair")
@@ -796,6 +815,10 @@ def main() -> int:
                                 "threecrate_tpu/kernels/fpfh_pallas.py:292"),
               "fpfh_weight_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
                                 "threecrate_tpu/kernels/fpfh_pallas.py:314"),
+              "fpfh_weight_a r=0.25": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                                       "threecrate_tpu/kernels/fpfh_pallas.py:292"),
+              "fpfh_weight_b r=0.25": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                                       "threecrate_tpu/kernels/fpfh_pallas.py:314"),
               "spfh_band_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
                               "threecrate_tpu/kernels/fpfh_pallas.py:444"),
               "spfh_band_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
@@ -821,7 +844,7 @@ def main() -> int:
         bound_ms, bound_by = bound(*work[kname])
         report["kernels"].append(
             {"name": kname, "route": "cuda", "source": src_of[kname][0],
-             "replaces": src_of[kname][1], "launches": launches[kname],
+             "replaces": src_of[kname][1], "launches": launches[kname.split()[0]],
              "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1],
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     usc_ms = {k: ms[f"{k} usc"] for k in ("shot_hist_a", "shot_hist_b")}
@@ -949,7 +972,7 @@ def window_phases(dev, kernels):
     import threecrate_tpu_torch as tt
     from threecrate_tpu_torch.ops import filtering, neighbors
     from threecrate_tpu_torch.ops.features import FpfhConfig, _resolve_fpfh_band
-    from threecrate_tpu_torch.utils.profiling import median_time
+    from threecrate_tpu_torch.utils.profiling import device_profile, median_time
 
     total = dict.fromkeys(kernels.WRAPPERS, 0)
 
@@ -1000,6 +1023,11 @@ def window_phases(dev, kernels):
     log(f"  extract_fpfh_features (normals included) {1e3 * t_default:.2f} ms median of 3, "
         f"peak allocated {peak_default / 2**30:.3f} GiB; FPFH on given normals: band "
         f"{band} {1e3 * t_band:.2f} ms, band=None {1e3 * t_full:.2f} ms")
+    fpfh_wall, fpfh_busy, entries = device_profile(lambda: tt.extract_fpfh_features(tgt))
+    log(f"  profiled call: wall {fpfh_wall:.2f} ms, device busy {fpfh_busy:.2f} ms, idle "
+        f"share {1 - fpfh_busy / fpfh_wall:.3f}; largest device entries:")
+    for ename, ems, ecount in entries:
+        log(f"    {ems:9.3f} ms x{ecount:<4d} {ename[:100]}")
 
     log("phase 12: method='window' normals on the 1M scan")
     pc = tt.PointCloud.from_numpy(scan(N_SCAN, 0), device=dev)
@@ -1081,6 +1109,7 @@ def window_phases(dev, kernels):
               "fpfh_default_ms": 1e3 * t_default,
               "fpfh_band_ms": 1e3 * t_band, "fpfh_full_ms": 1e3 * t_full,
               "fpfh_default_peak_gib": peak_default / 2**30, "band_median_cos": med_cos,
+              "fpfh_profiled_wall_ms": fpfh_wall, "fpfh_busy_ms": fpfh_busy,
               "window_normals_ms": 1e3 * t_wn, "window_normals_median_cos": med_n,
               "sor_ms": 1e3 * t_sor, "sor_kept": kept, "sor_agree": [agree, not_below],
               "soft_fpfh_ms": 1e3 * t_soft, "soft_fpfh_peak_gib": peak_soft / 2**30}

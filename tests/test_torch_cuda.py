@@ -11,7 +11,8 @@ kernel and the plain version evaluate the same unfused fp32 operations);
 central sums within 1e-4 of the neighbourhood's scale (summation
 order); icp_match outputs within 1e-6; FPFH vote and count rows
 (full-window and banded) bit-equal, the stage-2 weighted sums within
-1e-4 of each point's Σ|row|; window kNN −d², ids and coordinates
+1e-4 of each point's Σ|row| (the plain version's cuBLAS matmul sums in
+another order); window kNN −d², ids and coordinates
 bit-equal in every slot (the same unfused d², the same order); a small
 ``RegistrationModel`` recovers its pose within 1e-3 on the card and on
 the CPU; the window normals, outlier removal and staged FPFH agree with
@@ -43,7 +44,7 @@ from threecrate_tpu_torch.ops import features as tf  # noqa: E402
 from threecrate_tpu_torch.ops import morton  # noqa: E402
 from threecrate_tpu_torch.ops import normals as tn  # noqa: E402
 from threecrate_tpu_torch.ops import registration as tr  # noqa: E402
-from union_clouds import union_cloud  # noqa: E402
+from union_clouds import union_cloud, weight_inputs  # noqa: E402
 
 K, TILE, BAND = 10, 256, 16
 
@@ -231,6 +232,32 @@ def test_fpfh_kernels_other_tiles(cuda):
             fpfh.fpfh_weight_b_plain(p2, pos, 0.25, tile)
         assert torch.equal(got[33], ref[33])
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pass_b", [False, True], ids=["A", "B"])
+@pytest.mark.parametrize("lattice", [False, True], ids=["normal", "lattice"])
+@pytest.mark.parametrize("radius", [1e-4, 1.5, 100.0], ids=["none", "typical", "whole"])
+@pytest.mark.parametrize("tile", [64, 256, 1024])
+def test_fpfh_weight_kernel_edges(cuda, tile, radius, lattice, pass_b):
+    """The weighted-sum kernels at each block shape, with a radius that
+    selects nothing, a typical one and one over the whole window:
+    duplicate points, 10% invalid columns, the first tile (no prev) and
+    the last (no next); on an integer lattice distances tie. The count row
+    is bit-equal; the sums are not held bit-equal, because the plain
+    version sums by a cuBLAS matmul in its own order, and are held within
+    1e-4 of each query's Σ|row|."""
+    packed, pos = weight_inputs(tile, 1.0, pass_b, lattice, cuda)
+    r2 = radius * radius
+    if pass_b:
+        got, ref = (fpfh.fpfh_weight_b_tiles(packed, pos, r2, tile),
+                    fpfh.fpfh_weight_b_plain(packed, pos, r2, tile))
+    else:
+        got, ref = (fpfh.fpfh_weight_a_tiles(packed, r2, tile),
+                    fpfh.fpfh_weight_a_plain(packed, r2, tile))
+    assert torch.equal(got[33], ref[33])
+    assert (ref[33].sum() == 0) == (radius < 1e-3)
+    scale = ref[:33].abs().sum(0).clamp_min(1e-30)
+    assert ((got[:33] - ref[:33]).abs().amax(0) / scale).max().item() <= 1e-4
 
 
 def test_registration_model_on_card(cuda, monkeypatch):

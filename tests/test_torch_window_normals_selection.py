@@ -23,7 +23,7 @@ bounding box, at the query's fp32 box distance shrunk by a margin,
 already lies beyond the threshold. That is exact only if the shrunk box
 distance never exceeds the fp32 d² of a column in the box; the last
 test holds that on the same clouds, with the kernel's own chunk and
-margin read from its source.
+margin read from its sources.
 
 The clouds (``union_clouds.union_cloud``) have duplicate points, ~10%
 invalid columns and a last tile whose window holds k − 1 valid points,
@@ -42,11 +42,12 @@ from threecrate_tpu_torch.kernels.knn import window_normals_plain  # noqa: E402
 from union_clouds import band_kth, radius_from_kth, union_cloud, window_d2  # noqa: E402
 
 BAND = 16
-_SRC = (Path(__file__).resolve().parent.parent / "threecrate_tpu_torch" / "csrc"
-        / "union_window.cu").read_text()
-CHUNK = int(re.search(r"constexpr int kChunk = (\d+);", _SRC).group(1))
+_CSRC = Path(__file__).resolve().parent.parent / "threecrate_tpu_torch" / "csrc"
+CHUNK = int(re.search(r"constexpr int kChunk = (\d+);",
+                      (_CSRC / "union_window.cu").read_text()).group(1))
 MARGIN = np.float32(1) - np.float32(1) / np.float32(
-    re.search(r"kCullMargin = 1\.f - 1\.f / (\d+)\.f;", _SRC).group(1))
+    re.search(r"kCullMargin = 1\.f - 1\.f / (\d+)\.f;",
+              (_CSRC / "window.cuh").read_text()).group(1))
 SCALES = [1e-2, 1.0, 1e2, "lattice"]
 KS = [1, 3, 10, 16, 17, 64]
 TILES = [64, 256]

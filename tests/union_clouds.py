@@ -1,10 +1,12 @@
-"""The small clouds that the union passes' and the fused window normals'
-CPU and card tests share, and the numpy selection radius they are held to."""
+"""The small clouds that the union passes', the fused window normals' and
+the FPFH weighted sums' CPU and card tests share, and the numpy
+selection radius they are held to."""
 
 import numpy as np
 import torch
 
 from threecrate_tpu_torch.ops import morton
+from threecrate_tpu_torch.ops.features import fused_stage1_inputs
 
 
 def union_cloud(n, tile, k, scale=1.0, seed=0, lattice=False):
@@ -65,3 +67,25 @@ def radius_from_kth(d2, k, tile, band):
         ge = dk <= mid
         hi, lo = np.where(ge, mid, hi), np.where(ge, lo, mid)
     return np.minimum(hi, f32(3.4e38))
+
+
+def weight_inputs(tile, scale, pass_b, lattice=False, device="cpu"):
+    """Stage-2 FPFH packed rows (37, N) [x, y, z, valid, spfh (33)] of one
+    pass of a ``union_cloud`` (N = max(3·tile, 1024)) as
+    ``fused_stage1_inputs`` sorts it, with ~10% of the columns invalid
+    at random and uniform SPFH rows in [0, 10), and its pass-A positions
+    (1, N) int32 (pass B, else None)."""
+    n = max(3 * tile, 1024)
+    pts, _ = union_cloud(n, tile, 10, scale, seed=tile, lattice=lattice)
+    rng = np.random.default_rng(tile + 1)
+    nrm = torch.from_numpy(rng.normal(0, 1, (n, 3)).astype(np.float32))
+    pa, _, row_a, _ = fused_stage1_inputs(pts.T.contiguous(), torch.ones(n, dtype=torch.bool),
+                                          nrm, tile)
+    pa[3] = torch.from_numpy((rng.uniform(0, 1, n) > 0.1).astype(np.float32))
+    spfh = torch.from_numpy(rng.uniform(0, 10, (33, n)).astype(np.float32))
+    packed = torch.cat([pa[0:4], spfh])
+    pos = None
+    if pass_b:
+        packed = packed[:, row_a]
+        pos = row_a.to(torch.int32)[None].contiguous().to(device)
+    return packed.contiguous().to(device), pos

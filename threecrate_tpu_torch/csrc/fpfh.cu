@@ -15,17 +15,14 @@
 // pass-A positions (n) int32; outputs (34, n) row-major, all in sorted
 // order.
 //
-// Per query (one thread each, one block per tile), over the 3*tile
-// window candidates with valid & d2 <= r2 & d2 > 1e-12 (pass B: and the
-// candidate's pass-A tile more than one tile from the query's):
+// Per query, over the 3*tile window candidates with valid & d2 <= r2 &
+// d2 > 1e-12 (pass B: and the candidate's pass-A tile more than one tile
+// from the query's):
 //   stage 1: the PCL pair features (theta, cos phi, cos alpha) binned
 //            into 3 x 11 vote counters kept in shared memory, plus the
 //            count;
 //   stage 2: sum of (1/d) * spfh(candidate) into 33 register
-//            accumulators, plus the count.
-// The window is staged one tile-wide segment at a time (prev, self,
-// next), so a block needs (8 + 33) * tile floats of shared memory in
-// stage 1 and 38 * tile in stage 2: 42 KB and 39 KB at tile 256.
+//            accumulators, in column order, plus the count.
 //
 // Every operation of the features and of the selection is rounded on its
 // own (the _rn intrinsics keep nvcc from contracting products into FMAs,
@@ -35,14 +32,45 @@
 // _atan2_approx is reproduced (tc::atan2_approx in common.cuh), not
 // atan2f: its ~5e-3 rad error moves votes across bin edges.
 //
-// What bounds it: fp32 ALU. Stage 1 evaluates ~100 unfused operations
-// for each in-radius pair and ~12 for each other candidate; stage 2 a
-// distance and, in radius, 33 FMAs with broadcast shared-memory reads.
-// Device memory traffic is ~(4 * R * 3 + 136) bytes per query. Register
-// tiling across queries and tensor cores for the stage-2 sum are later
-// work.
+// Stage 1 (one thread a query, one block a tile) stages the window one
+// tile-wide segment at a time as rows, (8 + 33) * tile floats of shared
+// memory (42 KB at tile 256). What bounds it: fp32 ALU, ~100 unfused
+// operations for each in-radius pair and ~12 for each other candidate.
+//
+// Stage 2 stages the window once as 16-byte (x, y, z, tag) records and
+// the bounding boxes of its 16-column chunks (window.cuh; pass B's tag is
+// the column's pass-A tile, so its window test is one integer compare),
+// and each segment's SPFH payload in turn as 9 float4 planes (bins
+// 4p ... 4p + 3 of every column in plane p): 50 KB at tile 256, 198 KB at
+// 1024. A thread serves one query (256 threads a block, looping over
+// larger tiles). A query passes over a chunk whose box lies beyond r2
+// (tc::chunk_beyond: its fp32 distance bound, shrunk by 2^-15, above r2),
+// and a warp when all its queries do; no column of such a chunk could be
+// selected, so culling drops only fmaf(0, s, acc) == acc steps. The
+// missing prev tile of tile 0 and next tile of the last are staged as not
+// valid, boxed at +-inf and never read. In a surviving chunk a candidate
+// costs one broadcast LDS.128 and ~15 operations; a selected one 1/sqrt,
+// 9 broadcast LDS.128 and 33 FMAs, paid by its warp whenever any lane
+// selects it. The sums take the same FMAs in the same column order as the
+// one-query-a-thread full sweep, so its rows are kept bit for bit; they
+// differ from the plain version's matmul in summation order only.
+//
+// What bounds it: instruction issue. At r = 0.5 on a 1M LiDAR scan pass A
+// selects ~98 of the 768 candidates a query, ~300 a warp, so the 33-FMA
+// bodies of the selected candidates take most of the issue and the sweep
+// of the chunks that some lane needs the rest; a warp's neighbourhoods
+// cover much of its window there, so few chunks are culled. Device
+// memory moves ~(4 * 37 * 3 + 136) bytes per query, the payload read once
+// per segment and block. The choices, timed on the H100 at tile 256, 1M
+// points, r = 0.5 and 0.25 (tools/fpfh_weight_variants.py, see PERF.md):
+// 4 blocks an SM, which caps a thread at 64 registers (uncapped, 96
+// registers and 2 blocks: 34-39% slower); payload planes (33 scalar
+// rows: 6-36% slower); culling (none: 7-26% slower); one segment's
+// payload at a time (the whole window's, 124 KB, one block an SM: 2.1x);
+// one query a thread (two spill under the cap: 3-4x); 16-column chunks
+// (8: 6-11% slower; 32: -2% to +2%).
 
-#include "common.cuh"
+#include "window.cuh"
 
 namespace {
 
@@ -267,44 +295,175 @@ __global__ void spfh_band_kernel(const float* __restrict__ packed,
   store_votes(hist, cnt, out, n, col);
 }
 
-// Stage 2: rows [sum (1/d) * spfh(33), count].
-template <bool kPassB>
-__global__ void fpfh_weight_kernel(const float* __restrict__ packed,
-                                   const int* __restrict__ pos_a,
-                                   float* __restrict__ out, int n, float r2) {
-  extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  const int n_t = n / tile;
-  float* seg = smem;                                         // (37, tile)
-  int* pos = reinterpret_cast<int*>(smem + (4 + kHist) * tile);
-  const int shift = __ffs(tile) - 1;
-  const long col = static_cast<long>(blockIdx.x) * tile + threadIdx.x;
-  const Query q = load_query<kPassB>(packed, pos_a, n, col, shift);
-  float acc[kHist];
-#pragma unroll
-  for (int j = 0; j < kHist; ++j) acc[j] = 0.f;
-  int cnt = 0;
+// ---------------------------------------------------------------------------
+// Stage 2 (fpfh_weight_a/b): rows [sum (1/d) * spfh(33), count].
 
-  for (int s = 0; s < 3; ++s) {
-    const int ct = static_cast<int>(blockIdx.x) - 1 + s;
-    if (ct < 0 || ct >= n_t) continue;  // block-uniform
-    __syncthreads();
-    load_segment(packed, pos_a, n, 4 + kHist, ct, seg, pos);
-    __syncthreads();
-    for (int c = 0; c < tile; ++c) {
-      float dx, dy, dz;
-      const float d2 = select_d2<kPassB>(seg, pos, c, q, shift, r2, dx, dy, dz);
-      if (d2 < 0.f) continue;
-      const float w = rsqrt_rn(d2);
-      const float* spfh = seg + 4 * tile + c;
+// Window columns under one bounding box (a tile where the tile is
+// smaller, so that no chunk straddles two segments), threads of a block,
+// blocks an SM (which caps a thread at 64 registers), queries a thread,
+// and window segments whose payload is staged at a time.
+constexpr int kWeightChunk = 16;
+constexpr int kWeightThreads = 256;
+constexpr int kWeightBlocks = 4;
+constexpr int kWeightQueries = 1;
+constexpr int kPlaneSegments = 1;
+// float4 payload planes: bins 4p ... 4p + 3 in plane p, the last holding
+// bin 32 alone
+constexpr int kPlanes = (kHist + 3) / 4;
+static_assert(kHist == 4 * (kPlanes - 1) + 1, "the last plane holds one bin");
+
+// Stage the SPFH payload of window segments [s0, s0 + kPlaneSegments) as
+// kPlanes float4 planes, column j of the staged segments at
+// plane[p * kPlaneSegments * tile + j]: neighbouring threads write
+// neighbouring 16 bytes. A segment outside [0, n) is not read: its
+// records are not valid, so no candidate of it is ever weighted.
+__device__ __forceinline__ void stage_payload(const float* __restrict__ packed, int n,
+                                              int tile, int s0, float4* plane) {
+  const int n_t = n / tile;
+  const int stride = kPlaneSegments * tile;
+  const int t0 = static_cast<int>(blockIdx.x) - 1 + s0;
+  for (int j = threadIdx.x; j < stride; j += blockDim.x) {
+    const int ct = t0 + j / tile;
+    if (ct < 0 || ct >= n_t) continue;
+    const float* spfh = packed + 4L * n + static_cast<long>(t0) * tile + j;
 #pragma unroll
-      for (int j = 0; j < kHist; ++j) acc[j] = fmaf(w, spfh[j * tile], acc[j]);
-      ++cnt;
+    for (int p = 0; p < kPlanes - 1; ++p) {
+      const long b = 4L * p;
+      plane[p * stride + j] = make_float4(spfh[b * n], spfh[(b + 1) * n], spfh[(b + 2) * n],
+                                          spfh[(b + 3) * n]);
+    }
+    plane[(kPlanes - 1) * stride + j] =
+        make_float4(spfh[(kHist - 1) * static_cast<long>(n)], 0.f, 0.f, 0.f);
+  }
+}
+
+// acc += w * the payload of staged column j, bin by bin in order.
+__device__ __forceinline__ void weigh(const float4* __restrict__ plane, int stride, int j,
+                                      float w, float* acc) {
+#pragma unroll
+  for (int p = 0; p < kPlanes - 1; ++p) {
+    const float4 s = plane[p * stride + j];
+    acc[4 * p] = fmaf(w, s.x, acc[4 * p]);
+    acc[4 * p + 1] = fmaf(w, s.y, acc[4 * p + 1]);
+    acc[4 * p + 2] = fmaf(w, s.z, acc[4 * p + 2]);
+    acc[4 * p + 3] = fmaf(w, s.w, acc[4 * p + 3]);
+  }
+  acc[kHist - 1] = fmaf(w, plane[(kPlanes - 1) * stride + j].x, acc[kHist - 1]);
+}
+
+// One candidate of the sweep: record b (staged column j) is weighted into
+// each of the Q queries that selects it: valid, d2 <= r2, d2 > 1e-12 and,
+// in pass B, its pass-A tile more than one tile from the query's.
+template <bool kPassB, int Q>
+__device__ __forceinline__ void weigh_candidate(float4 b, const float4* __restrict__ plane,
+                                                int stride, int j, const float* qx,
+                                                const float* qy, const float* qz,
+                                                const int* tile_q, float r2,
+                                                float (*acc)[kHist], int* cnt) {
+  const int tag = __float_as_int(b.w);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float d2 = tc::sq_dist(qx[q], qy[q], qz[q], b.x, b.y, b.z);
+    bool sel = tag >= 0 && d2 <= r2 && d2 > 1e-12f;
+    if (kPassB) sel = sel && static_cast<unsigned>(tag - tile_q[q] + 1) > 2u;
+    if (sel) {
+      weigh(plane, stride, j, rsqrt_rn(d2), acc[q]);
+      ++cnt[q];
     }
   }
+}
+
+template <bool kPassB>
+__global__ void __launch_bounds__(kWeightThreads, kWeightBlocks)
+fpfh_weight_kernel(const float* __restrict__ packed, const int* __restrict__ pos_a,
+                   float* __restrict__ out, int n, int tile, float r2) {
+  constexpr int Q = kWeightQueries;
+  extern __shared__ float4 win[];
+  const int chunk = min(kWeightChunk, tile);
+  const int stride = kPlaneSegments * tile;
+  const int n_t = n / tile;
+  float4* box = win + 3 * tile;
+  float4* plane = box + 2 * tc::n_chunks(tile, chunk);
+  tc::stage_records(packed, packed + 3L * n, pos_a, n, tile, __ffs(tile) - 1, win);
+  __syncthreads();
+  tc::stage_boxes(win, tile, chunk, box);
+  __syncthreads();
+
+  for (int base = 0; base < tile; base += blockDim.x * Q) {
+    // a thread past the tile's end (tile < Q) repeats its last query
+    float qx[Q], qy[Q], qz[Q];
+    int tile_q[Q], cnt[Q];
+    float acc[Q][kHist];
 #pragma unroll
-  for (int j = 0; j < kHist; ++j) out[j * static_cast<long>(n) + col] = acc[j];
-  out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
+    for (int q = 0; q < Q; ++q) {
+      const int i = min(base + static_cast<int>(threadIdx.x) + q * static_cast<int>(blockDim.x),
+                        tile - 1);
+      const float4 r = win[tile + i];
+      qx[q] = r.x;
+      qy[q] = r.y;
+      qz[q] = r.z;
+      const int tag = __float_as_int(r.w);
+      tile_q[q] = tag ^ (tag >> 31);
+      cnt[q] = 0;
+#pragma unroll
+      for (int b = 0; b < kHist; ++b) acc[q][b] = 0.f;
+    }
+    for (int s0 = 0; s0 < 3; s0 += kPlaneSegments) {
+      bool staged = false;
+      for (int s = s0; s < s0 + kPlaneSegments; ++s) {
+        const int ct = static_cast<int>(blockIdx.x) - 1 + s;
+        staged = staged || (ct >= 0 && ct < n_t);
+      }
+      if (!staged) continue;  // block-uniform
+      __syncthreads();  // the previous planes are no longer read
+      stage_payload(packed, n, tile, s0, plane);
+      __syncthreads();
+      // the sweep in column order, past the chunks beyond r2 for every query
+      const int c_lo = s0 * tile;
+      for (int c0 = c_lo; c0 < c_lo + stride; c0 += chunk) {
+        bool beyond = true;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          beyond = beyond && tc::chunk_beyond<false>(box, c0 / chunk, qx[q], qy[q], qz[q], r2);
+        }
+        if (beyond) continue;
+#pragma unroll 4
+        for (int c = c0; c < c0 + chunk; ++c) {
+          weigh_candidate<kPassB, Q>(win[c], plane, stride, c - c_lo, qx, qy, qz, tile_q, r2,
+                                     acc, cnt);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = base + static_cast<int>(threadIdx.x) + q * static_cast<int>(blockDim.x);
+      if (i >= tile) continue;
+      const long col = static_cast<long>(blockIdx.x) * tile + i;
+#pragma unroll
+      for (int b = 0; b < kHist; ++b) out[b * static_cast<long>(n) + col] = acc[q][b];
+      out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt[q]);
+    }
+  }
+}
+
+template <bool kPassB>
+cudaError_t launch_weight(const float* packed, const int* pos_a, float* out, int n, int tile,
+                          float r2, void* stream) {
+  const int chunk = tile < kWeightChunk ? tile : kWeightChunk;
+  const size_t smem =
+      (3 * static_cast<size_t>(tile) + 2 * tc::n_chunks(tile, chunk) +
+       static_cast<size_t>(kPlanes) * kPlaneSegments * tile) * sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fpfh_weight_kernel<kPassB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = tile / kWeightQueries;
+  fpfh_weight_kernel<kPassB>
+      <<<n / tile, threads < 1 ? 1 : (threads > kWeightThreads ? kWeightThreads : threads),
+         smem, static_cast<cudaStream_t>(stream)>>>(packed, pos_a, out, n, tile, r2);
+  return cudaGetLastError();
 }
 
 // One block of tile threads per query tile, with smem_rows * tile floats
@@ -322,8 +481,7 @@ cudaError_t launch(Kernel kernel, int smem_rows, int n, int tile, void* stream,
   return cudaGetLastError();
 }
 
-constexpr int kSpfhSmemRows = 8 + kHist;        // segment (7 or 8) + pos + votes
-constexpr int kWeightSmemRows = 4 + kHist + 1;  // segment (37) + pos
+constexpr int kSpfhSmemRows = 8 + kHist;  // segment (7 or 8) + pos + votes
 
 }  // namespace
 
@@ -344,14 +502,12 @@ extern "C" int tc_spfh_b(const float* packed, const int* pos_a, float* out, int 
 
 extern "C" int tc_fpfh_weight_a(const float* packed, float* out, int n, int tile,
                                 float r2, void* stream) {
-  return launch(fpfh_weight_kernel<false>, kWeightSmemRows, n, tile, stream, packed,
-                static_cast<const int*>(nullptr), out, n, r2);
+  return launch_weight<false>(packed, nullptr, out, n, tile, r2, stream);
 }
 
 extern "C" int tc_fpfh_weight_b(const float* packed, const int* pos_a, float* out,
                                 int n, int tile, float r2, void* stream) {
-  return launch(fpfh_weight_kernel<true>, kWeightSmemRows, n, tile, stream, packed,
-                pos_a, out, n, r2);
+  return launch_weight<true>(packed, pos_a, out, n, tile, r2, stream);
 }
 
 extern "C" int tc_spfh_band_a(const float* packed, float* out, int n, int tile, int band,

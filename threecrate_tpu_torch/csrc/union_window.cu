@@ -65,11 +65,16 @@
 // not device memory: wgmma and TMA have no role in these per-query scans.
 // Kernel 4's own note is in its section below.
 
-#include "common.cuh"
+#include "window.cuh"
 
 namespace {
 
+using tc::chunk_beyond;
 using tc::kInf;
+using tc::n_chunks;
+using tc::stage_boxes;
+using tc::stage_records;
+
 // Largest finite radius: a query with fewer than k valid band candidates
 // keeps hi = inf, and inf <= inf would select invalid candidates.
 constexpr float kHiClamp = 3.4e38f;
@@ -81,42 +86,8 @@ constexpr float kHiClamp = 3.4e38f;
 constexpr int kThreads = 128;
 constexpr int kQueries = 2;
 constexpr int kNormalQueries = 1;
-// Window columns under one bounding box in kernel 4's sweeps, and the
-// factor that keeps a box's fp32 distance bound below every fp32 d2 it
-// covers (both carry ~5 roundings of 2^-24).
+// Window columns under one bounding box in kernel 4's sweeps.
 constexpr int kChunk = 16;
-constexpr float kCullMargin = 1.f - 1.f / 32768.f;
-
-// Chunks of kChunk columns in a 3-tile window.
-__host__ __device__ __forceinline__ int n_chunks(int tile) {
-  return (3 * tile + kChunk - 1) / kChunk;
-}
-
-// Stage the prev/self/next tiles as (x, y, z, tag) records; tile 0 has no
-// prev and the last tile no next, staged as not valid. The tag is >= 0
-// exactly where the column is valid: pass B stores the tile of the
-// column's pass-A position there (its complement where not valid, so
-// that both stay readable as tag ^ (tag >> 31)), the others 0 (-1).
-__device__ void stage_records(const float* __restrict__ pts,
-                              const float* __restrict__ valid,
-                              const int* __restrict__ pos, int n, int tile,
-                              int shift, float4* win) {
-  const int t = blockIdx.x;
-  const int n_t = n / tile;
-  for (int j = threadIdx.x; j < 3 * tile; j += blockDim.x) {
-    const int seg = j >> shift;
-    const bool ok = seg == 1 || (seg == 0 && t > 0) || (seg == 2 && t < n_t - 1);
-    float4 r = make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
-    if (ok) {
-      const long col = static_cast<long>(t - 1) * tile + j;
-      const int tl =
-          pos == nullptr ? 0 : static_cast<int>(static_cast<unsigned>(pos[col]) >> shift);
-      r = make_float4(pts[col], pts[n + col], pts[2L * n + col],
-                      __int_as_float(valid[col] > 0.5f ? tl : ~tl));
-    }
-    win[j] = r;
-  }
-}
 
 // Insert v into the ascending list b, dropping its largest entry. Every
 // entry is computed from the old list, so the 2 * KMAX operations carry
@@ -139,44 +110,6 @@ __device__ __forceinline__ void insert_ranked(float* b, int* col, float v, int c
   }
   col[0] = b[0] <= v ? col[0] : c;
   b[0] = fminf(b[0], v);
-}
-
-// Bounding boxes of the valid columns of each kChunk-column chunk of the
-// staged window, as (min, max) record pairs; a chunk without a valid
-// column gets min = +inf, max = -inf.
-__device__ void stage_boxes(const float4* __restrict__ win, int tile, float4* box) {
-  const int w3 = 3 * tile;
-  for (int ch = threadIdx.x; ch * kChunk < w3; ch += blockDim.x) {
-    float4 lo = make_float4(kInf, kInf, kInf, 0.f);
-    float4 hi = make_float4(-kInf, -kInf, -kInf, 0.f);
-    for (int c = ch * kChunk; c < min(ch * kChunk + kChunk, w3); ++c) {
-      const float4 b = win[c];
-      if (__float_as_int(b.w) < 0) continue;
-      lo = make_float4(fminf(lo.x, b.x), fminf(lo.y, b.y), fminf(lo.z, b.z), 0.f);
-      hi = make_float4(fmaxf(hi.x, b.x), fmaxf(hi.y, b.y), fmaxf(hi.z, b.z), 0.f);
-    }
-    box[2 * ch] = lo;
-    box[2 * ch + 1] = hi;
-  }
-}
-
-// True where no column of chunk ch can have d2 < thr (STRICT) or
-// d2 <= thr (!STRICT) from the query: its box's squared distance, shrunk
-// by kCullMargin, already reaches thr. Above 1e-30 no term underflows, so
-// the roundings of the bound and of every d2 stay relative.
-template <bool STRICT>
-__device__ __forceinline__ bool chunk_beyond(const float4* __restrict__ box, int ch, float qx,
-                                             float qy, float qz, float thr) {
-  const float4 lo = box[2 * ch];
-  const float4 hi = box[2 * ch + 1];
-  const float gx = fmaxf(fmaxf(__fsub_rn(lo.x, qx), __fsub_rn(qx, hi.x)), 0.f);
-  const float gy = fmaxf(fmaxf(__fsub_rn(lo.y, qy), __fsub_rn(qy, hi.y)), 0.f);
-  const float gz = fmaxf(fmaxf(__fsub_rn(lo.z, qz), __fsub_rn(qz, hi.z)), 0.f);
-  const float lb = __fmul_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz)),
-      kCullMargin);
-  const float t = fmaxf(thr, 1e-30f);
-  return STRICT ? lb >= t : lb > t;
 }
 
 // One step of the selection sweep: window record b (column c) enters the
@@ -587,7 +520,7 @@ window_normals_exact_kernel(const float* __restrict__ pts, const float* __restri
   float4* box = win + 3 * tile;
   stage_records(pts, valid, nullptr, n, tile, __ffs(tile) - 1, win);
   __syncthreads();
-  stage_boxes(win, tile, box);
+  stage_boxes(win, tile, kChunk, box);
   __syncthreads();
 
   for (int base = 0; base < tile; base += blockDim.x * Q) {
@@ -625,7 +558,8 @@ window_normals_band_kernel(const float* __restrict__ pts, const float* __restric
   constexpr int Q = kNormalQueries;
   extern __shared__ float4 win[];
   float4* box = win + 3 * tile;
-  double* part = reinterpret_cast<double*>(box + 2 * n_chunks(tile));  // (4, kThreads)
+  // (4, kThreads) partial sums of the tile centre
+  double* part = reinterpret_cast<double*>(box + 2 * n_chunks(tile, kChunk));
   stage_records(pts, valid, nullptr, n, tile, __ffs(tile) - 1, win);
 
   // tile centre: the mean of the tile's valid queries, each sum in double
@@ -648,7 +582,7 @@ window_normals_band_kernel(const float* __restrict__ pts, const float* __restric
       part[r * kThreads] = tot;
     }
   }
-  stage_boxes(win, tile, box);
+  stage_boxes(win, tile, kChunk, box);
   __syncthreads();
   const float nq = fmaxf(static_cast<float>(part[3 * kThreads]), 1.f);
   const float tcx = __fdiv_rn(static_cast<float>(part[0]), nq);
@@ -715,7 +649,8 @@ cudaError_t launch_union(const float* pts, const float* valid, const int* pos_a,
 template <int KMAX>
 cudaError_t launch_normals(const float* pts, const float* valid, float* out, int n,
                            int tile, int k, int band, cudaStream_t stream) {
-  const size_t win = (3 * static_cast<size_t>(tile) + 2 * n_chunks(tile)) * sizeof(float4);
+  const size_t win =
+      (3 * static_cast<size_t>(tile) + 2 * n_chunks(tile, kChunk)) * sizeof(float4);
   cudaError_t err;
   if (band == 0) {
     err = allow_smem(window_normals_exact_kernel<KMAX>, win);

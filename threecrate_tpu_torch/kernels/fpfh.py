@@ -34,8 +34,9 @@ correctly rounded 1/sqrt, no FMA contraction), so the histogram and
 count rows of kernel and plain version are equal bit for bit; the
 stage-2 sums differ only by summation order.
 
-On the card these are fp32 ALU-bound scans of 3·tile candidates per
-query from shared memory (see the source note in ``csrc/fpfh.cu``).
+On the card these are scans of the 3·tile window candidates of each
+query from shared memory; stage 2 passes over the 16-column chunks whose
+bounding box lies beyond r2 (see the source note in ``csrc/fpfh.cu``).
 """
 
 from __future__ import annotations
@@ -297,8 +298,8 @@ def spfh_band_b_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Te
 
 
 def _launch(name, packed, pos_a, r2, tile, rows):
-    # tile <= 1024 keeps a block's shared memory (41 floats per column at
-    # most) under the card's 227 KB
+    # tile <= 1024 keeps a block's shared memory (41 floats per column in
+    # stage 1, ~50 in stage 2) under the card's 227 KB
     n = _check(packed, rows, tile, pos_a)
     if packed.dtype != torch.float32:
         raise TypeError(f"expected float32 packed rows, got {packed.dtype}")

@@ -67,7 +67,8 @@ def build(tmp: Path):
             text = text.replace(old, new)
         d = tmp / f"v{i}"
         d.mkdir()
-        (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
+        for header in csrc.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
         (d / "union_window.cu").write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
