@@ -13,8 +13,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    at the slices' real shapes: the two union-window passes on a
    1,000,192-point Morton-sorted scan, ``icp_match`` on 1M x 1M with
    w_tiles=3 at E=0 and E=3, the four FPFH kernels on the 1,000,192
-   sorted points of the registration target (r = 0.5, tile 256; the two
-   weight kernels also at the default FPFH's r = 0.25), the
+   sorted points of the registration target (r = 0.5, tile 256, and at
+   the default FPFH's stage-2 radius r = 0.25), the
    two banded SPFH kernels on the same points (r = 0.25, band 48, tile
    256), ``knn_window_tiles`` on the sorted 1M scan (tile 128) at k = 10,
    k = 10 with coordinates, k = 9 and k = 64 with self excluded, the
@@ -102,21 +102,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20 and 21; the weight kernels' r = 0.25 entries repeat
-the kernel's count), error, times and bound, then ``{"ok": true,
-"device": {...}}``. A kernel's bound is the larger of the bytes it must move (each
-input read once, each output written once) over the H100's 3.35 TB/s and
-the fp32 operations of its algorithm on this run's inputs (per examined
-candidate and per selected pair, counted as each source's note says)
-over 67 TFLOP/s.
+8, 11-16, 18, 20 and 21; the FPFH kernels' r = 0.25 entries repeat the
+kernel's count, each ``knn_window`` entry counts its own shape's
+launches), error, times and bound, then ``{"ok": true, "device":
+{...}}``. A kernel's bound is the larger of the bytes it must move
+(each input read once, each output written once) over the H100's
+3.35 TB/s and the fp32 operations of its algorithm on this run's inputs
+(per examined candidate and per selected pair, counted as each source's
+note says) over 67 TFLOP/s. The full-window FPFH kernels (6-9) examine
+only the candidates of the 16-column chunks that their box test cannot
+exclude for the query, counted on this run's inputs.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -139,6 +144,11 @@ BAND_RADIUS, BAND = 0.25, 48    # the rung "auto" picks on the registration targ
 # FPFH's (BAND_RADIUS), by timing name
 WEIGHT_RUNS = {"fpfh_weight_a": FPFH_RADIUS, "fpfh_weight_b": FPFH_RADIUS,
                "fpfh_weight_a r=0.25": BAND_RADIUS, "fpfh_weight_b r=0.25": BAND_RADIUS}
+# the stage-1 kernels likewise; the plain versions (~0.4 s a call) of the
+# r = 0.25 runs are timed once a side
+SPFH_RUNS = {"spfh_a": FPFH_RADIUS, "spfh_b": FPFH_RADIUS,
+             "spfh_a r=0.25": BAND_RADIUS, "spfh_b r=0.25": BAND_RADIUS}
+SPARE_PLAIN = ("spfh_a r=0.25", "spfh_b r=0.25")
 BAND_KERNELS = ("spfh_band_a", "spfh_band_b")
 # knn_window_tiles configurations of the window paths (k, with_coords,
 # exclude_self), all at tile 128: method="window" normals (k = 10), its
@@ -176,6 +186,9 @@ NORMALS_EIG_OPS = 550     # per query: covariance and 4-sweep Jacobi eigensolve
 PLANAR_CURVATURE = 0.01
 VOXEL = 0.2               # the voxel grid's size at 1M (bench.py's)
 VOXEL_TOL = 1e-4          # metres: fp32 centroid sums vs the float64 oracle
+# tc::chunk_beyond's box test of a chunk for a query: 6 differences, 7
+# maxima, 3 products, 2 sums, the margin product and a compare
+BOX_TEST_OPS = 20
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 REG_ANGLE = 0.35
@@ -320,6 +333,53 @@ def union_error(got: torch.Tensor, ref: torch.Tensor, valid: torch.Tensor):
     return exact, rel, (g - r).abs().max().item()
 
 
+def knn_name(cname: str) -> str:
+    """Timing name of a ``KNN_CONFIGS`` entry: ``knn_window`` for
+    ``method="window"`` normals' k = 10, else ``knn_window <config>``."""
+    return "knn_window" if cname == "k=10" else f"knn_window {cname}"
+
+
+def open_columns(p: torch.Tensor, tile: int, r2: float, chunk_name: str):
+    """(window columns, box tests) that a culled full-window FPFH sweep
+    (kernels 6-9, chunks of ``chunk_name`` columns in ``csrc/fpfh.cu``)
+    cannot skip on the packed rows ``p`` [x, y, z, valid, ...] at r2:
+    summed over the valid queries, the columns of each chunk of the
+    query's 3-tile window whose fp32 box bound (``tc::chunk_beyond<false>``,
+    shrunk by ``kCullMargin``) does not lie beyond r2, and one box test
+    per chunk and query."""
+    csrc = Path(__file__).resolve().parent / "threecrate_tpu_torch" / "csrc"
+    chunk = min(tile, int(re.search(rf"constexpr int {chunk_name} = (\d+);",
+                                    (csrc / "fpfh.cu").read_text()).group(1)))
+    margin = 1.0 - 1.0 / float(re.search(r"kCullMargin = 1\.f - 1\.f / (\d+)\.f;",
+                                         (csrc / "window.cuh").read_text()).group(1))
+    xyz, ok = p[0:3], p[3] > 0.5
+    inf, per_tile = float("inf"), tile // chunk
+    # each chunk's box over its valid columns; a tile of empty chunks
+    # beyond either end (an empty box is beyond every query)
+    pad = torch.nn.functional.pad
+    lo = pad(torch.where(ok, xyz, inf).view(3, -1, chunk).amin(2), (per_tile,) * 2, value=inf)
+    hi = pad(torch.where(ok, xyz, -inf).view(3, -1, chunk).amax(2), (per_tile,) * 2,
+             value=-inf)
+    n_t, step, cols = p.shape[1] // tile, 256, 0
+    for t0 in range(0, n_t, step):
+        t = torch.arange(t0, min(t0 + step, n_t), device=p.device)
+        win = t[:, None] * per_tile + torch.arange(3 * per_tile, device=p.device)
+        q = xyz[:, t0 * tile:(t0 + len(t)) * tile].view(3, len(t), tile, 1)
+        gap = torch.maximum(lo[:, win][:, :, None] - q, q - hi[:, win][:, :, None]).clamp_min(0)
+        lb = (gap[0] * gap[0] + gap[1] * gap[1] + gap[2] * gap[2]) * margin
+        kept = (lb <= max(r2, 1e-30)) & ok[t0 * tile:(t0 + len(t)) * tile].view(-1, tile, 1)
+        cols += kept.sum().item() * chunk
+    return cols, ok.sum().item() * 3 * per_tile
+
+
+def knn_launch_key(shape) -> str:
+    """Launch-count key of ``knn_window_tiles``' (k, with_coords,
+    exclude_self) shape: ``knn_window <config>`` for each of
+    ``KNN_CONFIGS``."""
+    names = {tuple(v): cname for cname, v in KNN_CONFIGS.items()}
+    return f"knn_window {names.get(tuple(shape), shape)}"
+
+
 def bound(nbytes: float, ops: float):
     """(least ms the card could take, what bounds it) for a kernel that
     moves ``nbytes`` and does ``ops`` fp32 operations."""
@@ -327,12 +387,14 @@ def bound(nbytes: float, ops: float):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
+def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
     """(bytes, fp32 operations) of each timed kernel call on this run's
-    inputs: the union passes and ``knn_window`` (k = 10) on ``n_u`` sorted
-    scan points, ``icp_match`` on ``icp_args`` (E = 0), the FPFH, SHOT and
-    union kernels on their points with ``pairs`` selected candidates each
-    (from their count rows). Operations per examined candidate and per
+    inputs: the union passes and ``knn_window`` (each of ``KNN_CONFIGS``)
+    on ``n_u`` sorted scan points, ``icp_match`` on ``icp_args`` (E = 0),
+    the FPFH, SHOT and union kernels on their points with ``pairs``
+    selected candidates each (from their count rows), the full-window
+    FPFH kernels examining the (columns, box tests) of ``windows`` (from
+    ``open_columns``). Operations per examined candidate and per
     selected pair are those of each source's note in csrc/: a distance
     test ~9, with the selection ~12; a pair's SPFH features ~100, its
     stage-2 weighting ~68, its SHOT moments ~30, its SHOT histogram vote
@@ -345,10 +407,9 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
     and ~19 per selected pair for the sums (3 differences, 6 products,
     10 additions). Kernel 4's band body computes the same radius."""
     src, tgt, starts = icp_args
-    w3 = 3 * FPFH_TILE
     shot_c = 2 * SHOT_BAND + 1
     union_ops = n_u * (3 * tile * (9 + 1 + 1) + (2 * band + 1) * 2 + 6 * 2)
-    k = 10
+    k = 10     # window_normals' k
     work = {
         # the band body: union A's selection, ~19 per selected pair for the
         # moments, NORMALS_EIG_OPS per query; 16 bytes in and 24 out per query
@@ -365,11 +426,17 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
                            + pairs["union_window_b"] * 19),
         "icp_match": (4 * (src.numel() + tgt.numel() + starts.numel() + src.numel()),
                       src.shape[1] * 3 * 128 * 9),
-        "knn_window": (4 * n_u * 5 + 8 * 10 * n_u, n_u * 3 * KNN_TILE * 9),
-        "spfh_a": (4 * n_f * (7 + 34), n_f * w3 * 12 + pairs["spfh_a"] * 100),
-        "spfh_b": (4 * n_f * (8 + 34), n_f * w3 * 12 + pairs["spfh_b"] * 100),
+        # coordinates, validity and ids in; -d^2 and ids (and 3 coordinates)
+        # out per slot
+        **{knn_name(cname): (4 * n_u * 5 + 4 * n_u * kk * (5 if coords else 2),
+                             n_u * 3 * KNN_TILE * 9)
+           for cname, (kk, coords, _) in KNN_CONFIGS.items()},
+        **{sname: (4 * n_f * ((8 if sname.startswith("spfh_b") else 7) + 34),
+                   windows[sname][0] * 12 + windows[sname][1] * BOX_TEST_OPS
+                   + pairs[sname] * 100) for sname in SPFH_RUNS},
         **{wname: (4 * n_f * ((38 if wname.startswith("fpfh_weight_b") else 37) + 34),
-                   n_f * w3 * 9 + pairs[wname] * 68) for wname in WEIGHT_RUNS},
+                   windows[wname][0] * 9 + windows[wname][1] * BOX_TEST_OPS
+                   + pairs[wname] * 68) for wname in WEIGHT_RUNS},
         "spfh_band_a": (4 * n_f * (7 + 34), n_f * (2 * BAND + 1) * 12
                         + pairs["spfh_band_a"] * 100),
         "spfh_band_b": (4 * n_f * (8 + 34), n_f * (2 * BAND + 1) * 12
@@ -388,13 +455,16 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs):
 
 def run_counted(kernels, total, fn):
     """fn() with the launch counters reset just before and read just
-    after; the counts are added to ``total``."""
+    after; the counts are added to ``total``, ``knn_window``'s also by
+    shape under ``knn_launch_key``."""
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     for kname, n in counts.items():
         total[kname] += n
+    for shape, n in kernels.knn_window_tiles.shape_launches.items():
+        total[knn_launch_key(shape)] = total.get(knn_launch_key(shape), 0) + n
     return out, counts
 
 
@@ -599,7 +669,7 @@ def main() -> int:
     normals_err, normals_pairs = normals_kernel_checks(pts_a, valid_a, k, tile)
 
     ids_a = perm_a.to(torch.int32)[None].contiguous()
-    knn_err = 0.0
+    knn_err = {}
     for cname, (kk, coords, excl) in KNN_CONFIGS.items():
         got = knn_window_tiles(pts_a, valid_a, ids_a, kk, KNN_TILE, with_coords=coords,
                                exclude_self=excl)
@@ -609,7 +679,7 @@ def main() -> int:
         equal = all(torch.equal(g, r) for g, r in zip(got, ref))
         fin = torch.isfinite(ref[0])
         err = (got[0][fin] - ref[0][fin]).abs().max().item()
-        knn_err = max(knn_err, err)
+        knn_err[knn_name(cname)] = err
         log(f"  knn_window {cname}: N={pts_a.shape[1]} outputs bit-equal {equal} (need "
             f"True), finite slots {fin.float().mean().item():.5f}, max abs err of -d2 "
             f"{err:.3e}")
@@ -631,7 +701,6 @@ def main() -> int:
         icp_err = max(icp_err, err)
         icp_args[n_extra] = args
 
-    r2 = FPFH_RADIUS * FPFH_RADIUS
     pa, pb, pos_b = fpfh_inputs(dev)
     v_a, v_b = pa[3] > 0.5, pb[3] > 0.5
     fpfh_err = {}
@@ -639,32 +708,41 @@ def main() -> int:
     pairs = {"union_window_a": ref_a[0].sum().item(), "union_window_b": ref_b[0].sum().item(),
              **normals_pairs}
     stage1 = {}
-    for kname, kern, plain, args, v in (
-            ("spfh_a", fpfh.spfh_a_tiles, fpfh.spfh_a_plain, (pa,), v_a),
-            ("spfh_b", fpfh.spfh_b_tiles, fpfh.spfh_b_plain, (pb, pos_b), v_b)):
-        got = kern(*args, r2, FPFH_TILE)
-        ref = plain(*args, r2, FPFH_TILE)
+    fpfh_args = {"spfh_a": (pa,), "spfh_b": (pb, pos_b)}
+    run_r2, windows = {}, {}
+    for kname, radius in SPFH_RUNS.items():
+        base = kname.split()[0]
+        kern, plain = getattr(fpfh, base + "_tiles"), getattr(fpfh, base + "_plain")
+        v = v_a if base == "spfh_a" else v_b
+        run_r2[kname] = radius * radius
+        windows[kname] = open_columns(fpfh_args[base][0], FPFH_TILE, run_r2[kname],
+                                      "kSpfhChunk")
+        got = kern(*fpfh_args[base], run_r2[kname], FPFH_TILE)
+        ref = plain(*fpfh_args[base], run_r2[kname], FPFH_TILE)
         torch.cuda.synchronize()
         exact = share((got == ref).all(0)[v])
         fpfh_err[kname] = (got - ref).abs().max().item()
         pairs[kname] = ref[33].sum().item()
-        log(f"  {kname}: N={pa.shape[1]} vote+count rows bit-equal {exact:.6f} (need 1), "
-            f"max abs err {fpfh_err[kname]:.3e}, mean count {ref[33][v].mean().item():.2f}")
+        log(f"  {kname}: N={pa.shape[1]} r={radius} vote+count rows bit-equal {exact:.6f} "
+            f"(need 1), max abs err {fpfh_err[kname]:.3e}, mean count "
+            f"{ref[33][v].mean().item():.2f}, unculled columns a query "
+            f"{windows[kname][0] / v.sum().item():.2f} of {3 * FPFH_TILE}")
         check(exact == 1.0, f"{kname} disagrees")
-        stage1[kname] = got
+        if kname == base:
+            stage1[kname] = got
     # stage 2 on the kernels' SPFH, as _fpfh_fused builds it, at r = 0.5 and
     # at the default FPFH's stage-2 radius
     p2a, p2b = stage2_inputs(pa, pb, pos_b, stage1["spfh_a"], stage1["spfh_b"])
-    fpfh_args = {"spfh_a": (pa,), "spfh_b": (pb, pos_b),
-                 "fpfh_weight_a": (p2a,), "fpfh_weight_b": (p2b, pos_b)}
-    weight_r2 = {}
+    fpfh_args.update({"fpfh_weight_a": (p2a,), "fpfh_weight_b": (p2b, pos_b)})
     for kname, radius in WEIGHT_RUNS.items():
         base = kname.split()[0]
         kern, plain = getattr(fpfh, base + "_tiles"), getattr(fpfh, base + "_plain")
         v = v_a if base == "fpfh_weight_a" else v_b
-        weight_r2[kname] = radius * radius
-        got = kern(*fpfh_args[base], weight_r2[kname], FPFH_TILE)
-        ref = plain(*fpfh_args[base], weight_r2[kname], FPFH_TILE)
+        run_r2[kname] = radius * radius
+        windows[kname] = open_columns(fpfh_args[base][0], FPFH_TILE, run_r2[kname],
+                                      "kWeightChunk")
+        got = kern(*fpfh_args[base], run_r2[kname], FPFH_TILE)
+        ref = plain(*fpfh_args[base], run_r2[kname], FPFH_TILE)
         torch.cuda.synchronize()
         cnt_exact = share((got[33] == ref[33])[v])
         rel = ((got[:33] - ref[:33]).abs().amax(0)
@@ -673,7 +751,8 @@ def main() -> int:
         pairs[kname] = ref[33].sum().item()
         log(f"  {kname}: r={radius} count bit-equal {cnt_exact:.6f} (need 1), sums max rel "
             f"err {rel:.3e} (tol {FPFH_REL_TOL}), max abs err {fpfh_err[kname]:.3e}, mean "
-            f"count {ref[33][v].mean().item():.2f}")
+            f"count {ref[33][v].mean().item():.2f}, unculled columns a query "
+            f"{windows[kname][0] / v.sum().item():.2f} of {3 * FPFH_TILE}")
         check(cnt_exact == 1.0 and rel <= FPFH_REL_TOL, f"{kname} disagrees")
     del stage1
 
@@ -704,10 +783,10 @@ def main() -> int:
         "icp_match": (lambda: icp_match_tiles(*icp_args[0], tile=128, w_tiles=3),
                       lambda: icp_match_plain(*icp_args[0], tile=128, w_tiles=3)),
     }
-    for kname in ("spfh_a", "spfh_b", *WEIGHT_RUNS):
+    for kname in (*SPFH_RUNS, *WEIGHT_RUNS):
         base = kname.split()[0]
         kern, plain = getattr(fpfh, base + "_tiles"), getattr(fpfh, base + "_plain")
-        args, kr2 = fpfh_args[base], weight_r2.get(kname, r2)
+        args, kr2 = fpfh_args[base], run_r2[kname]
         times[kname] = (lambda kern=kern, args=args, kr2=kr2: kern(*args, kr2, FPFH_TILE),
                         lambda plain=plain, args=args, kr2=kr2: plain(*args, kr2, FPFH_TILE))
     for kname in BAND_KERNELS:
@@ -717,8 +796,8 @@ def main() -> int:
                         lambda plain=plain, args=args: plain(*args, rb2, BAND, FPFH_TILE))
     for cname, (kk, coords, excl) in KNN_CONFIGS.items():
         knn_args = (pts_a, valid_a, ids_a, kk, KNN_TILE, coords, excl)
-        times["knn_window " + cname] = (lambda a=knn_args: knn_window_tiles(*a),
-                                        lambda a=knn_args: knn_window_plain(*a))
+        times[knn_name(cname)] = (lambda a=knn_args: knn_window_tiles(*a),
+                                  lambda a=knn_args: knn_window_plain(*a))
     times.update(shot_calls)
     for tname, nband in NORMALS_BANDS.items():
         times[tname] = (lambda b=nband: window_normals_tiles(pts_a, valid_a, k, tile, b),
@@ -726,15 +805,16 @@ def main() -> int:
     ms = {}
     for kname, (kern, plain) in times.items():
         # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = median_time(plain, warmup=1, iters=5)
+        spare = kname in SPARE_PLAIN
+        p1 = median_time(plain, warmup=0 if spare else 1, iters=1 if spare else 5)
         k1 = median_time(kern, warmup=1, iters=10)
         k2 = median_time(kern, warmup=0, iters=10)
-        p2 = median_time(plain, warmup=0, iters=5)
+        p2 = median_time(plain, warmup=0, iters=1 if spare else 5)
         ms[kname] = (1e3 * (k1 + k2) / 2, 1e3 * (p1 + p2) / 2)
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms")
-    ms["knn_window"] = ms["knn_window k=10"]     # method="window" normals' shape
-    work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs)
+    work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs,
+                       windows)
     del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls
     del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
@@ -797,9 +877,9 @@ def main() -> int:
     win_launches, win_report = window_phases(dev, kernels)
     shot_launches, shot_report = shot_phases(dev, kernels)
     fast_launches, fast_report = window_fast_phases(dev, kernels)
-    for kname in launches:
-        launches[kname] += (reg_launches[kname] + win_launches[kname] + shot_launches[kname]
-                            + fast_launches[kname])
+    for part in (reg_launches, win_launches, shot_launches, fast_launches):
+        for kname, n in part.items():
+            launches[kname] = launches.get(kname, 0) + n
 
     src_of = {"union_window_a": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:564"),
@@ -811,6 +891,10 @@ def main() -> int:
                          "threecrate_tpu/kernels/fpfh_pallas.py:189"),
               "spfh_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
                          "threecrate_tpu/kernels/fpfh_pallas.py:211"),
+              "spfh_a r=0.25": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                                "threecrate_tpu/kernels/fpfh_pallas.py:189"),
+              "spfh_b r=0.25": ("threecrate_tpu_torch/csrc/fpfh.cu",
+                                "threecrate_tpu/kernels/fpfh_pallas.py:211"),
               "fpfh_weight_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
                                 "threecrate_tpu/kernels/fpfh_pallas.py:292"),
               "fpfh_weight_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
@@ -823,8 +907,9 @@ def main() -> int:
                               "threecrate_tpu/kernels/fpfh_pallas.py:444"),
               "spfh_band_b": ("threecrate_tpu_torch/csrc/fpfh.cu",
                               "threecrate_tpu/kernels/fpfh_pallas.py:468"),
-              "knn_window": ("threecrate_tpu_torch/csrc/knn_window.cu",
-                             "threecrate_tpu/kernels/knn_pallas.py:645"),
+              **{knn_name(cname): ("threecrate_tpu_torch/csrc/knn_window.cu",
+                                   "threecrate_tpu/kernels/knn_pallas.py:645")
+                 for cname in KNN_CONFIGS},
               "shot_moments_a": ("threecrate_tpu_torch/csrc/shot.cu",
                                  "threecrate_tpu/kernels/shot_pallas.py:262"),
               "shot_moments_b": ("threecrate_tpu_torch/csrc/shot.cu",
@@ -836,15 +921,18 @@ def main() -> int:
               "window_normals": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:505")}
     errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
-            "knn_window": knn_err, "window_normals": normals_err, **fpfh_err, **shot_err}
+            **knn_err, "window_normals": normals_err, **fpfh_err, **shot_err}
     for kname in ("shot_hist_a", "shot_hist_b"):      # both variants
         errs[kname] = max(errs[kname], errs.pop(f"{kname} usc"))
+    # each knn_window entry counts its own shape's launches
+    launch_key = {knn_name(cname): f"knn_window {cname}" for cname in KNN_CONFIGS}
     report = {"kernels": []}
     for kname in src_of:
         bound_ms, bound_by = bound(*work[kname])
         report["kernels"].append(
             {"name": kname, "route": "cuda", "source": src_of[kname][0],
-             "replaces": src_of[kname][1], "launches": launches[kname.split()[0]],
+             "replaces": src_of[kname][1],
+             "launches": launches.get(launch_key.get(kname, kname.split()[0]), 0),
              "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1],
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     usc_ms = {k: ms[f"{k} usc"] for k in ("shot_hist_a", "shot_hist_b")}
@@ -1082,21 +1170,12 @@ def window_phases(dev, kernels):
 
     log("phase 14: extract_fpfh_features_with_normals(target, FpfhConfig(soft_binning=True))")
     scfg = FpfhConfig(soft_binning=True)
-    seen = []
-    real = neighbors.knn_window
-
-    def spy(*args, **kwargs):
-        seen.append((args[2], kwargs.get("exclude_self", False)))
-        return real(*args, **kwargs)
-
-    neighbors.knn_window = spy
-    try:
-        sres, counts = run(lambda: tt.extract_fpfh_features_with_normals(tgt_n, scfg))
-    finally:
-        neighbors.knn_window = real
+    sres, counts = run(lambda: tt.extract_fpfh_features_with_normals(tgt_n, scfg))
+    shapes = dict(kernels.knn_window_tiles.shape_launches)
     s_share = sres.valid.float().sum().item() / N_SCAN
-    log(f"  launches {counts} with (k, exclude_self) {seen}; valid share {s_share:.4f}")
-    check(only(counts, {"knn_window": 2}) and seen == [(64, True)],
+    log(f"  launches {counts} by (k, with_coords, exclude_self) {shapes}; valid share "
+        f"{s_share:.4f}")
+    check(only(counts, {"knn_window": 2}) and shapes == {(64, False, True): 2},
           "staged FPFH did not search k=64 with self excluded in two kernel launches")
     check(normalised(sres), "staged FPFH descriptors not finite or not normalised")
     torch.cuda.reset_peak_memory_stats()

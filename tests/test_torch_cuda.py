@@ -10,7 +10,8 @@ Stated tolerances: counts, radii and pass B's use_b flag bit-equal (the
 kernel and the plain version evaluate the same unfused fp32 operations);
 central sums within 1e-4 of the neighbourhood's scale (summation
 order); icp_match outputs within 1e-6; FPFH vote and count rows
-(full-window and banded) bit-equal, the stage-2 weighted sums within
+(full-window and banded, also at the edge cases of the compacted pair
+voting) bit-equal, the stage-2 weighted sums within
 1e-4 of each point's Σ|row| (the plain version's cuBLAS matmul sums in
 another order); window kNN −d², ids and coordinates
 bit-equal in every slot (the same unfused d², the same order); a small
@@ -44,7 +45,7 @@ from threecrate_tpu_torch.ops import features as tf  # noqa: E402
 from threecrate_tpu_torch.ops import morton  # noqa: E402
 from threecrate_tpu_torch.ops import normals as tn  # noqa: E402
 from threecrate_tpu_torch.ops import registration as tr  # noqa: E402
-from union_clouds import union_cloud, weight_inputs  # noqa: E402
+from union_clouds import spfh_inputs, union_cloud, weight_inputs  # noqa: E402
 
 K, TILE, BAND = 10, 256, 16
 
@@ -165,6 +166,7 @@ def test_wrappers_count_launches(cuda):
                                        "knn_window": 1, "shot_moments_a": 1,
                                        "shot_moments_b": 1, "shot_hist_a": 1,
                                        "shot_hist_b": 1, "window_normals": 1}
+    assert knn_window_tiles.shape_launches == {(4, False, False): 1}
 
 
 def test_step_on_card_matches_cpu(cuda, monkeypatch):
@@ -258,6 +260,70 @@ def test_fpfh_weight_kernel_edges(cuda, tile, radius, lattice, pass_b):
     assert (ref[33].sum() == 0) == (radius < 1e-3)
     scale = ref[:33].abs().sum(0).clamp_min(1e-30)
     assert ((got[:33] - ref[:33]).abs().amax(0) / scale).max().item() <= 1e-4
+
+
+def _spfh_pair(packed, pos, r2, tile):
+    """(kernel rows, plain rows) of stage-1 pass A (pos None) or B."""
+    if pos is None:
+        return fpfh.spfh_a_tiles(packed, r2, tile), fpfh.spfh_a_plain(packed, r2, tile)
+    return (fpfh.spfh_b_tiles(packed, pos, r2, tile),
+            fpfh.spfh_b_plain(packed, pos, r2, tile))
+
+
+@pytest.mark.parametrize("pass_b", [False, True], ids=["A", "B"])
+@pytest.mark.parametrize("radius", [1e-4, 0.4, 100.0], ids=["none", "typical", "whole"])
+@pytest.mark.parametrize("tile", [8, 16, 32, 64, 256, 1024])
+def test_spfh_kernel_edges(cuda, tile, radius, pass_b):
+    """The SPFH histogram kernels at each block shape (tiles 8 and 16 leave
+    lanes of the warp idle; at 1024 shared memory is at its largest) with
+    a radius that selects nothing, a typical one and one over the whole
+    window, where every lane appends on every column and the vote atomics
+    collide: duplicate points (d² = 0), 10% invalid columns, the first tile
+    (no prev) and the last (no next). All 34 rows bit-equal."""
+    packed, pos = spfh_inputs(tile, 1.0, pass_b, device=cuda)
+    got, ref = _spfh_pair(packed, pos, radius * radius, tile)
+    assert torch.equal(got, ref)
+    assert (ref[33].sum() == 0) == (radius < 1e-3)
+
+
+@pytest.mark.parametrize("case", ["invalid tiles", "duplicates", "random pos_a"])
+@pytest.mark.parametrize("tile", [16, 256])
+def test_spfh_kernel_special_inputs(cuda, tile, case):
+    """All 34 rows bit-equal where whole tiles are invalid, where every
+    point has copies at d² <= 1e-12 (exact duplicates and offsets of one
+    ulp), and in pass B with pass-A positions in a random order."""
+    packed, pos = spfh_inputs(tile, 1.0, True, device=cuda)
+    n = packed.shape[1]
+    if case == "invalid tiles":
+        packed[3, :tile] = 0.0
+        packed[3, 2 * tile:4 * tile] = 0.0
+    elif case == "duplicates":
+        base = packed[0:3, 0:n:4]
+        packed[0:3, 1:n:4] = base
+        packed[0:3, 2:n:4] = torch.nextafter(base, torch.full_like(base, np.inf))
+        packed[0:3, 3:n:4] = base + 2e-7
+    else:
+        g = torch.Generator().manual_seed(tile)
+        pos = torch.randperm(n, generator=g).to(torch.int32)[None].to(cuda).contiguous()
+    for r2 in (0.16, 1e4):
+        for p in (None, pos):
+            got, ref = _spfh_pair(packed, p, r2, tile)
+            assert torch.equal(got, ref)
+            assert ref[33].sum() > 0
+
+
+@pytest.mark.parametrize("band,tile", [(16, 64), (64, 64), (48, 256), (256, 256)])
+def test_band_kernels_edges(cuda, band, tile):
+    """The banded SPFH kernels, which share the pair arithmetic of the
+    full-window ones, on the edge-case clouds: all 34 rows bit-equal."""
+    pa, _ = spfh_inputs(tile, 1.0, False, device=cuda)
+    pb, pos = spfh_inputs(tile, 1.0, True, device=cuda)
+    p8 = torch.cat([pb, pos.to(torch.float32)]).contiguous()
+    for r2 in (0.16, 1e4):
+        assert torch.equal(fpfh.spfh_band_a_tiles(pa, r2, band, tile),
+                           fpfh.spfh_band_a_plain(pa, r2, band, tile))
+        assert torch.equal(fpfh.spfh_band_b_tiles(p8, r2, band, tile),
+                           fpfh.spfh_band_b_plain(p8, r2, band, tile))
 
 
 def test_registration_model_on_card(cuda, monkeypatch):

@@ -1,6 +1,6 @@
 """The small clouds that the union passes', the fused window normals' and
-the FPFH weighted sums' CPU and card tests share, and the numpy
-selection radius they are held to."""
+the FPFH kernels' CPU and card tests share, and the numpy selection
+radius they are held to."""
 
 import numpy as np
 import torch
@@ -69,23 +69,45 @@ def radius_from_kth(d2, k, tile, band):
     return np.minimum(hi, f32(3.4e38))
 
 
-def weight_inputs(tile, scale, pass_b, lattice=False, device="cpu"):
-    """Stage-2 FPFH packed rows (37, N) [x, y, z, valid, spfh (33)] of one
-    pass of a ``union_cloud`` (N = max(3·tile, 1024)) as
-    ``fused_stage1_inputs`` sorts it, with ~10% of the columns invalid
-    at random and uniform SPFH rows in [0, 10), and its pass-A positions
-    (1, N) int32 (pass B, else None)."""
-    n = max(3 * tile, 1024)
+def _stage1_rows(n, tile, scale, lattice):
+    """Pass-A stage-1 rows (7, N) of a ``union_cloud`` with normal rows
+    drawn at random and ~10% of the columns invalid at random, its
+    pass-B permutation, and the generator for further draws."""
     pts, _ = union_cloud(n, tile, 10, scale, seed=tile, lattice=lattice)
     rng = np.random.default_rng(tile + 1)
     nrm = torch.from_numpy(rng.normal(0, 1, (n, 3)).astype(np.float32))
     pa, _, row_a, _ = fused_stage1_inputs(pts.T.contiguous(), torch.ones(n, dtype=torch.bool),
                                           nrm, tile)
     pa[3] = torch.from_numpy((rng.uniform(0, 1, n) > 0.1).astype(np.float32))
-    spfh = torch.from_numpy(rng.uniform(0, 10, (33, n)).astype(np.float32))
-    packed = torch.cat([pa[0:4], spfh])
+    return pa, row_a, rng
+
+
+def _pass_rows(packed, row_a, pass_b, device):
+    """The rows of pass A, or of pass B with its pass-A positions (1, N)."""
     pos = None
     if pass_b:
         packed = packed[:, row_a]
         pos = row_a.to(torch.int32)[None].contiguous().to(device)
     return packed.contiguous().to(device), pos
+
+
+def weight_inputs(tile, scale, pass_b, lattice=False, device="cpu"):
+    """Stage-2 FPFH packed rows (37, N) [x, y, z, valid, spfh (33)] of one
+    pass of a ``union_cloud`` (N = max(3·tile, 1024)) as
+    ``fused_stage1_inputs`` sorts it, with ~10% of the columns invalid
+    at random and uniform SPFH rows in [0, 10), and its pass-A positions
+    (1, N) int32 (pass B, else None)."""
+    pa, row_a, rng = _stage1_rows(max(3 * tile, 1024), tile, scale, lattice)
+    spfh = torch.from_numpy(rng.uniform(0, 10, (33, pa.shape[1])).astype(np.float32))
+    return _pass_rows(torch.cat([pa[0:4], spfh]), row_a, pass_b, device)
+
+
+def spfh_inputs(tile, scale, pass_b, lattice=False, device="cpu", n=None):
+    """Stage-1 FPFH packed rows (7, N) [x, y, z, valid, nx, ny, nz] of one
+    pass of a ``union_cloud`` (N = max(3·tile, 1024) unless given) as
+    ``fused_stage1_inputs`` sorts it: duplicate points, ~10% of the
+    columns invalid at random, unit normals; and its pass-A positions
+    (1, N) int32 (pass B, else None)."""
+    pa, row_a, _ = _stage1_rows(n or max(3 * tile, 1024), tile, scale, lattice)
+    pa[4:7] /= pa[4:7].norm(dim=0).clamp_min(1e-12)
+    return _pass_rows(pa, row_a, pass_b, device)

@@ -32,10 +32,36 @@
 // _atan2_approx is reproduced (tc::atan2_approx in common.cuh), not
 // atan2f: its ~5e-3 rad error moves votes across bin edges.
 //
-// Stage 1 (one thread a query, one block a tile) stages the window one
-// tile-wide segment at a time as rows, (8 + 33) * tile floats of shared
-// memory (42 KB at tile 256). What bounds it: fp32 ALU, ~100 unfused
-// operations for each in-radius pair and ~12 for each other candidate.
+// Stage 1 (spfh_a/b, one block a tile) stages the window once as the
+// 16-byte records and 16-column boxes of stage 2 below (window.cuh) and
+// its normals as one float4 plane. A warp serves 32 queries (256 threads
+// a block, looping over larger tiles; a tile narrower than a warp leaves
+// lanes idle) and sweeps the window in column order, past the chunks
+// whose box lies beyond r2 for all of them. The sweep only selects: a
+// lane tests its query against the broadcast record (~15 operations), and
+// the warp appends the selected (column, lane) pairs to its ring in
+// shared memory in lane order (__ballot_sync and a __popc prefix).
+// Whenever the ring holds a warp of pairs, the warp drains one: each lane
+// takes a pair, reloads both records and normals (4 LDS.128), forms d and
+// d2 again with the sweep's operations and runs the pair features (~165
+// instructions), and adds its three votes to the pair's query with shared
+// atomics into two 16-bit counters a word (a count is at most 3 * tile <=
+// 3072). At the end the warp drains the rest. Integer votes commute, so
+// the order of the pairs does not touch the rows. Shared memory: 102 bytes
+// a tile column plus 2.4 KB a warp (45 KB at tile 256, 122 KB at 1024).
+//
+// What bounds it: instruction issue. The earlier one-query-a-thread sweep
+// ran the ~165-instruction body for every column that any lane of a warp
+// selected (~300 of 768 at r = 0.5 on a 1M LiDAR scan, a query's own
+// count being ~98), so two thirds of its lanes idled through it; the ring
+// runs ~98 full rounds instead, beside a sweep of ~20 instructions a
+// column. Chosen on the H100 at tile 256, 1M points, r = 0.5 and 0.25
+// (tools/spfh_variants.py, see PERF.md): the ring over a per-lane mask
+// loop that votes its own selections with no atomics (that pays the
+// busiest lane's count: 16-40% slower); culling (none: 6-42% slower);
+// 16-bit counters (int counters, 64 KB a block: 2-9% slower); 256
+// threads (128: 7-17% slower); a cap of 64 registers, 4 blocks an SM
+// (uncapped, 72 registers: 6-11% slower); the earlier sweep: 1.7-2.4x.
 //
 // Stage 2 stages the window once as 16-byte (x, y, z, tag) records and
 // the bounding boxes of its 16-column chunks (window.cuh; pass B's tag is
@@ -93,55 +119,14 @@ __device__ __forceinline__ int bin_of(float scaled) {
   return min(max(static_cast<int>(scaled), 0), kBins - 1);
 }
 
-struct Query {
-  float x, y, z;
-  int tile_a;  // pass-A tile of the query (pass B only)
-};
-
 // Stage rows [0, rows) of the sorted columns of candidate tile ct into
-// seg (rows x tile), and their pass-A positions into pos when given.
-// Columns of a tile outside [0, n_t) are never read (the caller skips
-// the segment).
-__device__ __forceinline__ void load_segment(const float* __restrict__ packed,
-                                             const int* __restrict__ pos_a,
-                                             int n, int rows, int ct,
-                                             float* seg, int* pos) {
+// seg (rows x tile). Columns of a tile outside [0, n_t) are never read
+// (the caller skips the segment).
+__device__ __forceinline__ void load_segment(const float* __restrict__ packed, int n, int rows,
+                                             int ct, float* seg) {
   const int tile = blockDim.x;
   const long col = static_cast<long>(ct) * tile + threadIdx.x;
   for (int r = 0; r < rows; ++r) seg[r * tile + threadIdx.x] = packed[r * static_cast<long>(n) + col];
-  if (pos_a != nullptr) pos[threadIdx.x] = pos_a[col];
-}
-
-// d2 of candidate c of the staged segment, or -1 when it is not
-// selected: invalid, inside the query's pass-A window (pass B), out of
-// radius, or a duplicate of the query.
-template <bool kPassB>
-__device__ __forceinline__ float select_d2(const float* seg, const int* pos, int c,
-                                           const Query& q, int shift, float r2,
-                                           float& dx, float& dy, float& dz) {
-  const int tile = blockDim.x;
-  if (!(seg[3 * tile + c] > 0.5f)) return -1.f;
-  if (kPassB) {
-    const int dt = static_cast<int>(static_cast<unsigned>(pos[c]) >> shift) - q.tile_a;
-    if (dt >= -1 && dt <= 1) return -1.f;
-  }
-  dx = __fsub_rn(seg[c], q.x);
-  dy = __fsub_rn(seg[tile + c], q.y);
-  dz = __fsub_rn(seg[2 * tile + c], q.z);
-  const float d2 = dot3(dx, dy, dz, dx, dy, dz);
-  return (d2 <= r2 && d2 > 1e-12f) ? d2 : -1.f;
-}
-
-template <bool kPassB>
-__device__ __forceinline__ Query load_query(const float* __restrict__ packed,
-                                            const int* __restrict__ pos_a, int n,
-                                            long col, int shift) {
-  Query q;
-  q.x = packed[col];
-  q.y = packed[n + col];
-  q.z = packed[2L * n + col];
-  q.tile_a = kPassB ? static_cast<int>(static_cast<unsigned>(pos_a[col]) >> shift) : 0;
-  return q;
 }
 
 // The query's normal and the bin scales of stage 1.
@@ -150,19 +135,22 @@ struct QueryFrame {
   float theta_scale, cos_scale;
 };
 
+__device__ __forceinline__ float theta_scale() {
+  return __fdiv_rn(static_cast<float>(kBins), kTwoPi);
+}
+
 __device__ __forceinline__ QueryFrame load_frame(const float* __restrict__ packed,
                                                  int n, long col) {
   return QueryFrame{packed[4L * n + col], packed[5L * n + col], packed[6L * n + col],
-                    __fdiv_rn(static_cast<float>(kBins), kTwoPi), 0.5f * kBins};
+                    theta_scale(), 0.5f * kBins};
 }
 
-// One selected pair's three votes into the query's column i of hist
-// (33, tile): the PCL pair features of d = c - q (|d|^2 = d2) and the
-// normals of query (f) and candidate (cn0..2).
-__device__ __forceinline__ void vote_pair(int* hist, int i, float dx, float dy,
-                                          float dz, float d2, const QueryFrame& f,
-                                          float cn0, float cn1, float cn2) {
-  const int tile = blockDim.x;
+// The vote rows (theta, cos phi, cos alpha) of one selected pair: the PCL
+// pair features of d = c - q (|d|^2 = d2) and the normals of query (f)
+// and candidate (cn0..2), binned.
+__device__ __forceinline__ int3 pair_bins(float dx, float dy, float dz, float d2,
+                                          const QueryFrame& f, float cn0, float cn1,
+                                          float cn2) {
   const float inv_d = rsqrt_rn(d2);
   float ux = __fmul_rn(dx, inv_d);
   float uy = __fmul_rn(dy, inv_d);
@@ -194,9 +182,21 @@ __device__ __forceinline__ void vote_pair(int* hist, int i, float dx, float dy,
   const float f2 = dot3(vx, vy, vz, ntx, nty, ntz);
   const float f1 = atan2_approx(dot3(wx, wy, wz, ntx, nty, ntz),
                                 dot3(nsx, nsy, nsz, ntx, nty, ntz));
-  ++hist[bin_of(__fmul_rn(__fadd_rn(f1, kPi), f.theta_scale)) * tile + i];
-  ++hist[(kBins + bin_of(__fmul_rn(__fadd_rn(f2, 1.f), f.cos_scale))) * tile + i];
-  ++hist[(2 * kBins + bin_of(__fmul_rn(__fadd_rn(f3, 1.f), f.cos_scale))) * tile + i];
+  return make_int3(bin_of(__fmul_rn(__fadd_rn(f1, kPi), f.theta_scale)),
+                   kBins + bin_of(__fmul_rn(__fadd_rn(f2, 1.f), f.cos_scale)),
+                   2 * kBins + bin_of(__fmul_rn(__fadd_rn(f3, 1.f), f.cos_scale)));
+}
+
+// One selected pair's three votes into the query's column i of hist
+// (33, tile).
+__device__ __forceinline__ void vote_pair(int* hist, int i, float dx, float dy,
+                                          float dz, float d2, const QueryFrame& f,
+                                          float cn0, float cn1, float cn2) {
+  const int tile = blockDim.x;
+  const int3 b = pair_bins(dx, dy, dz, d2, f, cn0, cn1, cn2);
+  ++hist[b.x * tile + i];
+  ++hist[b.y * tile + i];
+  ++hist[b.z * tile + i];
 }
 
 __device__ __forceinline__ void store_votes(const int* hist, int cnt,
@@ -208,42 +208,193 @@ __device__ __forceinline__ void store_votes(const int* hist, int cnt,
   out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
 }
 
-// Stage 1: rows [theta bins(11), cos phi bins(11), cos alpha bins(11),
-// count].
-template <bool kPassB>
-__global__ void spfh_kernel(const float* __restrict__ packed,
-                            const int* __restrict__ pos_a,
-                            float* __restrict__ out, int n, float r2) {
-  extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  const int i = threadIdx.x;
-  const int n_t = n / tile;
-  float* seg = smem;                                        // (7, tile)
-  int* pos = reinterpret_cast<int*>(smem + 7 * tile);       // (tile)
-  int* hist = reinterpret_cast<int*>(smem + 8 * tile);      // (33, tile)
-  const int shift = __ffs(tile) - 1;  // log2(tile): tile is a power of two
-  const long col = static_cast<long>(blockIdx.x) * tile + i;
-  const Query q = load_query<kPassB>(packed, pos_a, n, col, shift);
-  const QueryFrame f = load_frame(packed, n, col);
-  for (int b = 0; b < kHist; ++b) hist[b * tile + i] = 0;
-  int cnt = 0;
+// ---------------------------------------------------------------------------
+// Stage 1 (spfh_a/b): rows [theta bins(11), cos phi bins(11), cos alpha
+// bins(11), count].
 
-  for (int s = 0; s < 3; ++s) {
-    const int ct = static_cast<int>(blockIdx.x) - 1 + s;
-    if (ct < 0 || ct >= n_t) continue;  // block-uniform
-    __syncthreads();  // the previous segment is no longer read
-    load_segment(packed, pos_a, n, 7, ct, seg, pos);
-    __syncthreads();
-    for (int c = 0; c < tile; ++c) {
-      float dx, dy, dz;
-      const float d2 = select_d2<kPassB>(seg, pos, c, q, shift, r2, dx, dy, dz);
-      if (d2 < 0.f) continue;
-      vote_pair(hist, i, dx, dy, dz, d2, f, seg[4 * tile + c], seg[5 * tile + c],
-                seg[6 * tile + c]);
+// Window columns under one bounding box (a tile where the tile is
+// smaller), threads of a block (at least a warp: lanes past a narrower
+// tile select nothing), blocks an SM (which caps a thread's registers),
+// entries of a warp's ring of selected pairs, and vote counters a 32-bit
+// word (a counter reaches at most 3 * tile <= 3072).
+constexpr int kWarp = 32;
+constexpr int kSpfhChunk = 16;
+constexpr int kSpfhThreads = 256;
+constexpr int kSpfhBlocks = 4;
+constexpr int kQueue = 64;
+constexpr int kVotesPerWord = 2;
+constexpr int kVoteBits = 32 / kVotesPerWord;
+constexpr int kVoteWords = (kHist + kVotesPerWord - 1) / kVotesPerWord;
+// a row of a warp's counters holds one word of each of its 32 queries,
+// padded so that one query's rows fall on distinct banks
+constexpr int kVoteStride = kWarp + 1;
+static_assert(kQueue >= 2 * kWarp && (kQueue & (kQueue - 1)) == 0,
+              "a column appends at most a warp of pairs to a ring holding fewer");
+
+// Stage the normals of the prev/self/next tiles as (nx, ny, nz, 0),
+// column for column beside tc::stage_records' records; a column outside
+// [0, n) is not staged (its record is not valid, so it is never read).
+__device__ __forceinline__ void stage_normals(const float* __restrict__ packed, int n,
+                                              int tile, float4* nrm) {
+  const int t0 = static_cast<int>(blockIdx.x) - 1;
+  const int n_t = n / tile;
+  for (int j = threadIdx.x; j < 3 * tile; j += blockDim.x) {
+    const int ct = t0 + j / tile;
+    if (ct < 0 || ct >= n_t) continue;
+    const long col = static_cast<long>(t0) * tile + j;
+    nrm[j] = make_float4(packed[4L * n + col], packed[5L * n + col], packed[6L * n + col], 0.f);
+  }
+}
+
+// A warp's selected pairs and votes: a ring of kQueue (column * 32 +
+// query lane) entries, appended in column order and lane order and
+// drained a warp at a time, and kVoteWords rows of vote counters, query
+// lane l in word l of each row.
+struct PairQueue {
+  int* ring;
+  unsigned* votes;
+  unsigned head, tail;  // entries drained and appended so far (warp-uniform)
+};
+
+__device__ __forceinline__ void add_vote(unsigned* votes, int bin, int lane) {
+  atomicAdd(&votes[bin / kVotesPerWord * kVoteStride + lane],
+            1u << (kVoteBits * (bin % kVotesPerWord)));
+}
+
+__device__ __forceinline__ unsigned read_vote(const unsigned* votes, int bin, int lane) {
+  const unsigned w = votes[bin / kVotesPerWord * kVoteStride + lane];
+  return kVotesPerWord == 1 ? w
+                            : (w >> (kVoteBits * (bin % kVotesPerWord))) & ((1u << kVoteBits) - 1u);
+}
+
+// Vote the ring's next k <= kWarp entries, one a lane: the pair's offsets
+// and d2 again from the staged records, with the sweep's operations, its
+// bins, and three shared atomic adds into its query's counters. self0 is
+// the window column of the warp's lane-0 query.
+__device__ __forceinline__ void drain(PairQueue& pq, int k, const float4* __restrict__ win,
+                                      const float4* __restrict__ nrm, int self0,
+                                      float th_scale) {
+  __syncwarp();  // the entries are written
+  const int lane = threadIdx.x % kWarp;
+  if (lane < k) {
+    const int e = pq.ring[(pq.head + lane) % kQueue];
+    const int ql = e % kWarp;
+    const int c = e / kWarp;
+    const float4 q = win[self0 + ql];
+    const float4 b = win[c];
+    const float dx = __fsub_rn(b.x, q.x);
+    const float dy = __fsub_rn(b.y, q.y);
+    const float dz = __fsub_rn(b.z, q.z);
+    const float4 qn = nrm[self0 + ql];
+    const float4 cn = nrm[c];
+    const int3 bins = pair_bins(dx, dy, dz, dot3(dx, dy, dz, dx, dy, dz),
+                                QueryFrame{qn.x, qn.y, qn.z, th_scale, 0.5f * kBins}, cn.x,
+                                cn.y, cn.z);
+    add_vote(pq.votes, bins.x, ql);
+    add_vote(pq.votes, bins.y, ql);
+    add_vote(pq.votes, bins.z, ql);
+  }
+  pq.head += k;
+  __syncwarp();  // the entries are read before the ring is written again
+}
+
+// The sweep over columns c0 ... c0 + chunk - 1: each lane tests its query
+// (valid, d2 <= r2, d2 > 1e-12 and, in pass B, the column's pass-A tile
+// more than one tile from the query's), the warp appends the selected
+// pairs to its ring in lane order, and drains a warp of them whenever the
+// ring holds that many.
+template <bool kPassB>
+__device__ __forceinline__ void sweep_chunk(PairQueue& pq, int c0, int chunk,
+                                            const float4* __restrict__ win,
+                                            const float4* __restrict__ nrm, float4 q,
+                                            int tile_q, bool active, float r2, int self0,
+                                            float th_scale, int& cnt) {
+  const int lane = threadIdx.x % kWarp;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll 4
+  for (int c = c0; c < c0 + chunk; ++c) {
+    const float4 b = win[c];
+    const int tag = __float_as_int(b.w);
+    const float d2 = tc::sq_dist(q.x, q.y, q.z, b.x, b.y, b.z);
+    bool sel = active && tag >= 0 && d2 <= r2 && d2 > 1e-12f;
+    if (kPassB) sel = sel && static_cast<unsigned>(tag - tile_q + 1) > 2u;
+    const unsigned ballot = __ballot_sync(~0u, sel);
+    if (ballot == 0u) continue;
+    if (sel) {
+      pq.ring[(pq.tail + __popc(ballot & below)) % kQueue] = c * kWarp + lane;
       ++cnt;
     }
+    pq.tail += __popc(ballot);
+    if (pq.tail - pq.head >= kWarp) drain(pq, kWarp, win, nrm, self0, th_scale);
   }
-  store_votes(hist, cnt, out, n, col);
+}
+
+template <bool kPassB>
+__global__ void __launch_bounds__(kSpfhThreads, kSpfhBlocks)
+spfh_kernel(const float* __restrict__ packed, const int* __restrict__ pos_a,
+            float* __restrict__ out, int n, int tile, float r2) {
+  extern __shared__ float4 win[];
+  const int chunk = min(kSpfhChunk, tile);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  float4* box = win + 3 * tile;
+  float4* nrm = box + 2 * tc::n_chunks(tile, chunk);
+  unsigned* votes = reinterpret_cast<unsigned*>(nrm + 3 * tile);
+  int* rings = reinterpret_cast<int*>(votes + (blockDim.x / kWarp) * kVoteWords * kVoteStride);
+  PairQueue pq{rings + warp * kQueue, votes + warp * kVoteWords * kVoteStride, 0u, 0u};
+  tc::stage_records(packed, packed + 3L * n, pos_a, n, tile, __ffs(tile) - 1, win);
+  stage_normals(packed, n, tile, nrm);
+  __syncthreads();
+  tc::stage_boxes(win, tile, chunk, box);
+  __syncthreads();
+  const float th_scale = theta_scale();
+
+  for (int base = 0; base < tile; base += blockDim.x) {  // block-uniform
+    const int i = base + static_cast<int>(threadIdx.x);
+    const bool active = i < tile;
+    const float4 q = win[tile + min(i, tile - 1)];
+    const int tag = __float_as_int(q.w);
+    const int tile_q = tag ^ (tag >> 31);
+    const int self0 = tile + base + warp * kWarp;
+    for (int w = 0; w < kVoteWords; ++w) pq.votes[w * kVoteStride + lane] = 0u;
+    pq.head = pq.tail = 0u;
+    int cnt = 0;
+    // the sweep in column order, past the chunks beyond r2 for every query
+    for (int c0 = 0; c0 < 3 * tile; c0 += chunk) {
+      const bool beyond =
+          !active || tc::chunk_beyond<false>(box, c0 / chunk, q.x, q.y, q.z, r2);
+      if (__all_sync(~0u, beyond)) continue;
+      sweep_chunk<kPassB>(pq, c0, chunk, win, nrm, q, tile_q, active, r2, self0, th_scale,
+                          cnt);
+    }
+    drain(pq, static_cast<int>(pq.tail - pq.head), win, nrm, self0, th_scale);
+    if (active) {
+      const long col = static_cast<long>(blockIdx.x) * tile + i;
+      for (int b = 0; b < kHist; ++b) {
+        out[b * static_cast<long>(n) + col] = static_cast<float>(read_vote(pq.votes, b, lane));
+      }
+      out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
+    }
+  }
+}
+
+template <bool kPassB>
+cudaError_t launch_spfh(const float* packed, const int* pos_a, float* out, int n, int tile,
+                        float r2, void* stream) {
+  const int chunk = tile < kSpfhChunk ? tile : kSpfhChunk;
+  const int threads = tile < kWarp ? kWarp : (tile > kSpfhThreads ? kSpfhThreads : tile);
+  const size_t smem =
+      (6 * static_cast<size_t>(tile) + 2 * tc::n_chunks(tile, chunk)) * sizeof(float4) +
+      static_cast<size_t>(threads / kWarp) * (kVoteWords * kVoteStride + kQueue) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spfh_kernel<kPassB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  spfh_kernel<kPassB><<<n / tile, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      packed, pos_a, out, n, tile, r2);
+  return cudaGetLastError();
 }
 
 // Banded stage 1 (_spfh_band_body): the candidates are the sorted
@@ -274,7 +425,7 @@ __global__ void spfh_band_kernel(const float* __restrict__ packed,
     const int ct = static_cast<int>(blockIdx.x) - 1 + s;
     if (ct < 0 || ct >= n_t) continue;  // block-uniform
     __syncthreads();
-    load_segment(packed, nullptr, n, kRows, ct, seg, nullptr);
+    load_segment(packed, n, kRows, ct, seg);
     __syncthreads();
     // window column s*tile + c holds offset s*tile + c - (tile + i)
     const int lo = max(0, i - band + (1 - s) * tile);
@@ -481,7 +632,7 @@ cudaError_t launch(Kernel kernel, int smem_rows, int n, int tile, void* stream,
   return cudaGetLastError();
 }
 
-constexpr int kSpfhSmemRows = 8 + kHist;  // segment (7 or 8) + pos + votes
+constexpr int kBandSmemRows = 8 + kHist;  // segment (7 or 8) + votes
 
 }  // namespace
 
@@ -490,14 +641,12 @@ constexpr int kSpfhSmemRows = 8 + kHist;  // segment (7 or 8) + pos + votes
 // shared-memory size; r2 arrives rounded to fp32.
 extern "C" int tc_spfh_a(const float* packed, float* out, int n, int tile, float r2,
                          void* stream) {
-  return launch(spfh_kernel<false>, kSpfhSmemRows, n, tile, stream, packed,
-                static_cast<const int*>(nullptr), out, n, r2);
+  return launch_spfh<false>(packed, nullptr, out, n, tile, r2, stream);
 }
 
 extern "C" int tc_spfh_b(const float* packed, const int* pos_a, float* out, int n,
                          int tile, float r2, void* stream) {
-  return launch(spfh_kernel<true>, kSpfhSmemRows, n, tile, stream, packed, pos_a, out,
-                n, r2);
+  return launch_spfh<true>(packed, pos_a, out, n, tile, r2, stream);
 }
 
 extern "C" int tc_fpfh_weight_a(const float* packed, float* out, int n, int tile,
@@ -512,12 +661,12 @@ extern "C" int tc_fpfh_weight_b(const float* packed, const int* pos_a, float* ou
 
 extern "C" int tc_spfh_band_a(const float* packed, float* out, int n, int tile, int band,
                               float r2, void* stream) {
-  return launch(spfh_band_kernel<false>, kSpfhSmemRows, n, tile, stream, packed, out, n,
+  return launch(spfh_band_kernel<false>, kBandSmemRows, n, tile, stream, packed, out, n,
                 band, r2);
 }
 
 extern "C" int tc_spfh_band_b(const float* packed, float* out, int n, int tile, int band,
                               float r2, void* stream) {
-  return launch(spfh_band_kernel<true>, kSpfhSmemRows, n, tile, stream, packed, out, n,
+  return launch(spfh_band_kernel<true>, kBandSmemRows, n, tile, stream, packed, out, n,
                 band, r2);
 }

@@ -38,3 +38,4 @@ def launch_counts():
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    knn_window_tiles.shape_launches.clear()

@@ -35,8 +35,10 @@ count rows of kernel and plain version are equal bit for bit; the
 stage-2 sums differ only by summation order.
 
 On the card these are scans of the 3·tile window candidates of each
-query from shared memory; stage 2 passes over the 16-column chunks whose
-bounding box lies beyond r2 (see the source note in ``csrc/fpfh.cu``).
+query from shared memory, past the 16-column chunks whose bounding box
+lies beyond r2; stage 1 only selects in its scan and votes the selected
+pairs a warp at a time from a per-warp queue (see the source note in
+``csrc/fpfh.cu``).
 """
 
 from __future__ import annotations
@@ -298,8 +300,9 @@ def spfh_band_b_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Te
 
 
 def _launch(name, packed, pos_a, r2, tile, rows):
-    # tile <= 1024 keeps a block's shared memory (41 floats per column in
-    # stage 1, ~50 in stage 2) under the card's 227 KB
+    # tile <= 1024 keeps a block's shared memory under the card's 227 KB:
+    # stage 1 takes 102 bytes a column plus 2.4 KB a warp of 256 threads
+    # (122 KB at 1024), stage 2 ~200 bytes a column (198 KB)
     n = _check(packed, rows, tile, pos_a)
     if packed.dtype != torch.float32:
         raise TypeError(f"expected float32 packed rows, got {packed.dtype}")

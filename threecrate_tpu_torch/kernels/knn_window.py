@@ -124,7 +124,11 @@ def knn_window_tiles(sorted_pts_t, sorted_valid, sorted_ids, k: int, tile: int =
             int(exclude_self), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "knn_window")
     knn_window_tiles.launches += 1
+    shape = (k, bool(with_coords), bool(exclude_self))
+    knn_window_tiles.shape_launches[shape] = knn_window_tiles.shape_launches.get(shape, 0) + 1
     return (neg, idx, crd) if with_coords else (neg, idx)
 
 
 knn_window_tiles.launches = 0
+# launches by (k, with_coords, exclude_self), reset with ``launches``
+knn_window_tiles.shape_launches = {}
