@@ -12,12 +12,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. compare each kernel with its plain PyTorch version on the same inputs
    at the slices' real shapes: the two union-window passes on a
    1,000,192-point Morton-sorted scan, ``icp_match`` on 1M x 1M with
-   w_tiles=3 at E=0 and E=3, the four FPFH kernels on the 1,000,192
+   w_tiles=3 at E=0, 3 and 6 (the match row bit-equal, every row
+   bit-equal on the points whose nearest target is unique and within
+   ``ICP_ABS_TOL`` where ties average), the four FPFH kernels on the 1,000,192
    sorted points of the registration target (r = 0.5, tile 256, and at
    the default FPFH's stage-2 radius r = 0.25), the
    two banded SPFH kernels on the same points (r = 0.25, band 48, tile
    256), ``knn_window_tiles`` on the sorted 1M scan (tile 128) at k = 10,
-   k = 10 with coordinates, k = 9 and k = 64 with self excluded, the
+   k = 10 with coordinates, k = 9, k = 64 with self excluded and k = 128
+   with coordinates and self excluded (its plain version timed once), the
    four SHOT/USC kernels on the same sorted target points (r = 0.25,
    band 32, tile 256; the histograms in both variants, on one set of
    frames built from the plain moments), and ``window_normals_tiles`` on
@@ -48,18 +51,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
     profile of one call;
 12. ``method="window"`` normals on the 1M scan: ``knn_window`` twice,
     the union kernels never, valid share > 0.99, unit normals, median
-    |cos| >= 0.999 against the default union normals; time;
+    |cos| >= 0.999 against the default union normals; time and device
+    busy time (one profiled call);
 13. ``statistical_outlier_removal`` with defaults (k = 8, std 1.0) on
     the 1M scan: ``knn_window`` twice; on a strided subset of 16,384
     points the window path's mean neighbour distance agrees with the
     exact one (``neighbors.knn`` candidates, distances recomputed as
     direct differences) within 1e-4 relative on >= 80% (a point whose 8
     neighbours the two passes do not all find differs) and is not below
-    it on >= 99.9%; time;
+    it on >= 99.9%; time and device busy time;
 14. ``extract_fpfh_features_with_normals(FpfhConfig(soft_binning=True))``
     on the 1M target (the staged window FPFH): ``knn_window`` twice at
     k = 64 with self excluded, no FPFH kernel; descriptors normalised;
-    time and peak memory;
+    time, peak memory and device busy time;
 15. ``extract_shot_features(target)`` with default settings on the 1M
     target: union, SHOT moments and SHOT histogram kernels launch once
     each, no other kernel; valid descriptors unit length; on a strided
@@ -94,7 +98,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     default normals; 20 iterations, convergence 0, distance limit 1e9):
     the shift within 1e-3 m and the rotation within 1e-3 of the
     identity, ``icp_match`` launched 1-20 times with 3 payload rows and
-    no other kernel; ms per iteration, peak memory;
+    no other kernel; ms per iteration, peak memory, device busy time;
 21. ``multiscale_icp_point_to_point`` with the default config on the
     same pair: the same pose checks, ``icp_match`` only; time;
 22. ``window_fast`` (two launches), brute-force point-to-plane and the
@@ -109,14 +113,17 @@ launches), error, times and bound, then ``{"ok": true, "device":
 (each input read once, each output written once) over the H100's
 3.35 TB/s and the fp32 operations of its algorithm on this run's inputs
 (per examined candidate and per selected pair, counted as each source's
-note says) over 67 TFLOP/s. The full-window FPFH kernels (6-9) examine
-only the candidates of the 16-column chunks that their box test cannot
-exclude for the query, counted on this run's inputs.
+note says) over 67 TFLOP/s. The full-window FPFH kernels (6-9),
+``icp_match`` and ``knn_window`` examine only the candidates of the
+16-column chunks that their box test cannot exclude for the query (at
+r2, the nearest d² or the k-th d²), counted on this run's inputs; phase
+3 logs them per query.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -148,7 +155,7 @@ WEIGHT_RUNS = {"fpfh_weight_a": FPFH_RADIUS, "fpfh_weight_b": FPFH_RADIUS,
 # r = 0.25 runs are timed once a side
 SPFH_RUNS = {"spfh_a": FPFH_RADIUS, "spfh_b": FPFH_RADIUS,
              "spfh_a r=0.25": BAND_RADIUS, "spfh_b r=0.25": BAND_RADIUS}
-SPARE_PLAIN = ("spfh_a r=0.25", "spfh_b r=0.25")
+SPARE_PLAIN = ("spfh_a r=0.25", "spfh_b r=0.25", "knn_window k=128 coords exclude_self")
 BAND_KERNELS = ("spfh_band_a", "spfh_band_b")
 # knn_window_tiles configurations of the window paths (k, with_coords,
 # exclude_self), all at tile 128: method="window" normals (k = 10), its
@@ -158,6 +165,13 @@ BAND_KERNELS = ("spfh_band_a", "spfh_band_b")
 KNN_CONFIGS = {"k=10": (10, False, False), "k=10 coords": (10, True, False),
                "k=9": (9, False, False), "k=64 exclude_self": (64, False, True)}
 KNN_TILE = 128
+# the largest k of the kernel (radius_neighbors_window's max_neighbors),
+# checked and timed beside KNN_CONFIGS, its plain version once
+KNN_K128 = "k=128 coords exclude_self"
+KNN_SHAPES = {**KNN_CONFIGS, KNN_K128: (128, True, True)}
+# icp_match payload rows checked at full size: none, point-to-plane's
+# normals and the six rows GICP carries
+ICP_EXTRAS = (0, 3, 6)
 # The SHOT/USC kernels at ShotConfig's defaults. Moment count rows and
 # histogram count rows must equal the plain version's bit for bit, USC
 # histograms in every row (integer votes of the same unfused bins); the
@@ -278,6 +292,28 @@ def icp_inputs(dev, n_extra: int, w_tiles: int = 3, tile: int = 128):
     return src_packed.contiguous(), tgt_packed, blk
 
 
+def icp_nearest(src, tgt, starts, tile: int, w_tiles: int):
+    """(nearest d², number of window columns at it) of each source point
+    of ``icp_match``'s inputs, in the plain version's d² order, chunked
+    over source tiles."""
+    ns, nt = src.shape[1], tgt.shape[1]
+    m = torch.empty(ns, device=src.device)
+    ties = torch.empty(ns, dtype=torch.int64, device=src.device)
+    j = torch.arange(w_tiles * tile, device=src.device)
+    for t0 in range(0, ns // tile, 256):
+        t1 = min(t0 + 256, ns // tile)
+        cols = starts[t0:t1, None].long() * tile + j
+        inside = (cols >= 0) & (cols < nt)
+        pay = torch.where(inside[None], tgt[0:3, cols.clamp(0, nt - 1)], 2e19)
+        q = src[0:3, t0 * tile:t1 * tile].reshape(3, t1 - t0, tile)
+        d = [pay[r][:, None, :] - q[r][:, :, None] for r in range(3)]
+        s = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        mm = s.amin(2)
+        m[t0 * tile:t1 * tile] = mm.reshape(-1)
+        ties[t0 * tile:t1 * tile] = (s == mm[..., None]).sum(2).reshape(-1)
+    return m, ties
+
+
 def registration_pair():
     """The 1M registration pair as numpy arrays: (source, target, R)."""
     tgt = scan(N_SCAN, 3)
@@ -339,37 +375,74 @@ def knn_name(cname: str) -> str:
     return "knn_window" if cname == "k=10" else f"knn_window {cname}"
 
 
-def open_columns(p: torch.Tensor, tile: int, r2: float, chunk_name: str):
-    """(window columns, box tests) that a culled full-window FPFH sweep
-    (kernels 6-9, chunks of ``chunk_name`` columns in ``csrc/fpfh.cu``)
-    cannot skip on the packed rows ``p`` [x, y, z, valid, ...] at r2:
-    summed over the valid queries, the columns of each chunk of the
-    query's 3-tile window whose fp32 box bound (``tc::chunk_beyond<false>``,
-    shrunk by ``kCullMargin``) does not lie beyond r2, and one box test
-    per chunk and query."""
+def open_columns(p: torch.Tensor, tile: int, thr, chunk_name: str, source: str = "fpfh.cu",
+                 *, queries=None, col_ok=None, starts=None, w_tiles: int = 3):
+    """(window columns, box tests) that a culled window sweep cannot skip
+    on the rows ``p`` [x, y, z, valid, ...]: summed over the counted
+    queries, the columns of each chunk of the query's window whose fp32
+    box bound (``tc::chunk_beyond<false>``, shrunk by ``kCullMargin``)
+    does not lie beyond the query's threshold ``thr`` (one float, or one
+    per query), and one box test per chunk and query.
+
+    Chunks hold ``chunk_name`` columns (read from ``csrc/<source>``), at
+    most a tile (the FPFH kernels' rule; the others run here at tiles of
+    at least a chunk). The window of query tile t is the ``w_tiles``
+    tiles from ``starts[t]`` (default t - 1: prev/self/next); its columns
+    outside ``p`` and those not ``col_ok`` (default: valid) are in no
+    box. Every one of ``queries`` (3, Nq) counts; without them, p's valid
+    points (the full-window FPFH kernels 6-9)."""
     csrc = Path(__file__).resolve().parent / "threecrate_tpu_torch" / "csrc"
     chunk = min(tile, int(re.search(rf"constexpr int {chunk_name} = (\d+);",
-                                    (csrc / "fpfh.cu").read_text()).group(1)))
+                                    (csrc / source).read_text()).group(1)))
     margin = 1.0 - 1.0 / float(re.search(r"kCullMargin = 1\.f - 1\.f / (\d+)\.f;",
                                          (csrc / "window.cuh").read_text()).group(1))
-    xyz, ok = p[0:3], p[3] > 0.5
-    inf, per_tile = float("inf"), tile // chunk
-    # each chunk's box over its valid columns; a tile of empty chunks
-    # beyond either end (an empty box is beyond every query)
-    pad = torch.nn.functional.pad
-    lo = pad(torch.where(ok, xyz, inf).view(3, -1, chunk).amin(2), (per_tile,) * 2, value=inf)
-    hi = pad(torch.where(ok, xyz, -inf).view(3, -1, chunk).amax(2), (per_tile,) * 2,
-             value=-inf)
-    n_t, step, cols = p.shape[1] // tile, 256, 0
+    dev, n = p.device, p.shape[1]
+    xyz = p[0:3]
+    col_ok = p[3] > 0.5 if col_ok is None else col_ok
+    q = xyz if queries is None else queries
+    q_ok = p[3] > 0.5 if queries is None else torch.ones(q.shape[1], dtype=torch.bool,
+                                                         device=dev)
+    n_t = q.shape[1] // tile
+    starts = (torch.arange(n_t, device=dev) - 1 if starts is None else starts.long())
+    wc = w_tiles * tile
+    nch = -(-wc // chunk)
+    j = torch.arange(nch * chunk, device=dev)
+    width = (wc - torch.arange(nch, device=dev) * chunk).clamp(max=chunk)  # columns a chunk
+    thr = torch.as_tensor(thr, dtype=torch.float32, device=dev).expand(q.shape[1])
+    thr = thr.clamp_min(1e-30)
+    inf, step, cols = float("inf"), 256, 0
     for t0 in range(0, n_t, step):
-        t = torch.arange(t0, min(t0 + step, n_t), device=p.device)
-        win = t[:, None] * per_tile + torch.arange(3 * per_tile, device=p.device)
-        q = xyz[:, t0 * tile:(t0 + len(t)) * tile].view(3, len(t), tile, 1)
-        gap = torch.maximum(lo[:, win][:, :, None] - q, q - hi[:, win][:, :, None]).clamp_min(0)
+        t1 = min(t0 + step, n_t)
+        c = starts[t0:t1, None] * tile + j
+        cc = c.clamp(0, n - 1)
+        ok = (c >= 0) & (c < n) & (j < wc) & col_ok[cc]
+        w = xyz[:, cc]
+        lo = torch.where(ok, w, inf).view(3, t1 - t0, nch, chunk).amin(3)[:, :, None]
+        hi = torch.where(ok, w, -inf).view(3, t1 - t0, nch, chunk).amax(3)[:, :, None]
+        qq = q[:, t0 * tile:t1 * tile].reshape(3, t1 - t0, tile, 1)
+        gap = torch.maximum(lo - qq, qq - hi).clamp_min(0)
         lb = (gap[0] * gap[0] + gap[1] * gap[1] + gap[2] * gap[2]) * margin
-        kept = (lb <= max(r2, 1e-30)) & ok[t0 * tile:(t0 + len(t)) * tile].view(-1, tile, 1)
-        cols += kept.sum().item() * chunk
-    return cols, ok.sum().item() * 3 * per_tile
+        kept = ((lb <= thr[t0 * tile:t1 * tile].view(-1, tile, 1))
+                & q_ok[t0 * tile:t1 * tile].view(-1, tile, 1))
+        cols += (kept * width).sum().item()
+    return cols, q_ok[:n_t * tile].sum().item() * nch
+
+
+def icp_open_columns(src, tgt, starts, tile: int, w_tiles: int, nearest_d2):
+    """``open_columns`` of ``icp_match``'s records body: every source
+    point against its tile's window of ``w_tiles`` target tiles from
+    ``starts``, threshold its final nearest d², boxes over the targets
+    below the sentinel magnitude (``kFarTarget``)."""
+    return open_columns(tgt, tile, nearest_d2, "kChunk", "window.cuh", queries=src[0:3],
+                        col_ok=tgt[0:3].abs().amax(0) < 2e19, starts=starts, w_tiles=w_tiles)
+
+
+def knn_open_columns(pts, valid, neg, tile: int):
+    """``open_columns`` of ``knn_window``: every query against its 3-tile
+    window, threshold the final k-th d² (row k - 1 of the plain -d²;
+    +inf, every chunk open, where fewer than k candidates are finite)."""
+    return open_columns(torch.cat([pts, valid]), tile, -neg[-1], "kChunk", "window.cuh",
+                        queries=pts)
 
 
 def knn_launch_key(shape) -> str:
@@ -389,12 +462,16 @@ def bound(nbytes: float, ops: float):
 
 def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
     """(bytes, fp32 operations) of each timed kernel call on this run's
-    inputs: the union passes and ``knn_window`` (each of ``KNN_CONFIGS``)
+    inputs: the union passes and ``knn_window`` (each of ``KNN_SHAPES``)
     on ``n_u`` sorted scan points, ``icp_match`` on ``icp_args`` (E = 0),
     the FPFH, SHOT and union kernels on their points with ``pairs``
     selected candidates each (from their count rows), the full-window
-    FPFH kernels examining the (columns, box tests) of ``windows`` (from
-    ``open_columns``). Operations per examined candidate and per
+    FPFH kernels, ``icp_match`` and ``knn_window`` examining the
+    (columns, box tests) of ``windows`` (from ``open_columns``: no sweep
+    order can pass over a chunk whose box bound lies at or below the
+    query's final threshold, r2, the nearest d² or the k-th d²), and
+    ``knn_window`` ~k·log2(k) operations a query to order its k slots
+    (the merges). Operations per examined candidate and per
     selected pair are those of each source's note in csrc/: a distance
     test ~9, with the selection ~12; a pair's SPFH features ~100, its
     stage-2 weighting ~68, its SHOT moments ~30, its SHOT histogram vote
@@ -424,13 +501,17 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
         "union_window_a": (4 * n_u * (4 + 11), union_ops + pairs["union_window_a"] * 19),
         "union_window_b": (4 * n_u * (6 + 11), union_ops + n_u * 3 * tile * 3
                            + pairs["union_window_b"] * 19),
+        # each examined target's d^2 and a compare with the running minimum
         "icp_match": (4 * (src.numel() + tgt.numel() + starts.numel() + src.numel()),
-                      src.shape[1] * 3 * 128 * 9),
+                      windows["icp_match"][0] * 9 + windows["icp_match"][1] * BOX_TEST_OPS),
         # coordinates, validity and ids in; -d^2 and ids (and 3 coordinates)
-        # out per slot
+        # out per slot; each examined candidate's d^2 and a compare with the
+        # k-th
         **{knn_name(cname): (4 * n_u * 5 + 4 * n_u * kk * (5 if coords else 2),
-                             n_u * 3 * KNN_TILE * 9)
-           for cname, (kk, coords, _) in KNN_CONFIGS.items()},
+                             windows[knn_name(cname)][0] * 9
+                             + windows[knn_name(cname)][1] * BOX_TEST_OPS
+                             + n_u * kk * math.log2(kk))
+           for cname, (kk, coords, _) in KNN_SHAPES.items()},
         **{sname: (4 * n_f * ((8 if sname.startswith("spfh_b") else 7) + 34),
                    windows[sname][0] * 12 + windows[sname][1] * BOX_TEST_OPS
                    + pairs[sname] * 100) for sname in SPFH_RUNS},
@@ -451,6 +532,15 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
             work[tname] = (4 * n_f * (rows + dim + 1),
                            n_f * shot_c * 12 + pairs[tname] * per_pair)
     return work
+
+
+def busy_time(fn) -> float:
+    """Device busy ms of one call of ``fn`` under ``torch.profiler``
+    (``utils.profiling.device_profile``): for host-bound calls, the part
+    that the kernels can move."""
+    from threecrate_tpu_torch.utils.profiling import device_profile
+
+    return device_profile(fn)[1]
 
 
 def run_counted(kernels, total, fn):
@@ -669,8 +759,8 @@ def main() -> int:
     normals_err, normals_pairs = normals_kernel_checks(pts_a, valid_a, k, tile)
 
     ids_a = perm_a.to(torch.int32)[None].contiguous()
-    knn_err = {}
-    for cname, (kk, coords, excl) in KNN_CONFIGS.items():
+    knn_err, knn_open = {}, {}
+    for cname, (kk, coords, excl) in KNN_SHAPES.items():
         got = knn_window_tiles(pts_a, valid_a, ids_a, kk, KNN_TILE, with_coords=coords,
                                exclude_self=excl)
         ref = knn_window_plain(pts_a, valid_a, ids_a, kk, KNN_TILE, with_coords=coords,
@@ -680,26 +770,40 @@ def main() -> int:
         fin = torch.isfinite(ref[0])
         err = (got[0][fin] - ref[0][fin]).abs().max().item()
         knn_err[knn_name(cname)] = err
+        knn_open[knn_name(cname)] = knn_open_columns(pts_a, valid_a, ref[0], KNN_TILE)
         log(f"  knn_window {cname}: N={pts_a.shape[1]} outputs bit-equal {equal} (need "
             f"True), finite slots {fin.float().mean().item():.5f}, max abs err of -d2 "
-            f"{err:.3e}")
+            f"{err:.3e}, unculled columns a query "
+            f"{knn_open[knn_name(cname)][0] / pts_a.shape[1]:.2f} of {3 * KNN_TILE}")
         check(equal, f"knn_window {cname} disagrees")
     del got, ref, fin
 
     icp_err = 0.0
-    icp_args = {}
-    for n_extra in (0, 3):
+    icp_args, icp_open = {}, None
+    for n_extra in ICP_EXTRAS:
         args = icp_inputs(dev, n_extra)
         got = icp_match_tiles(*args, tile=128, w_tiles=3)
         ref = icp_match_plain(*args, tile=128, w_tiles=3)
+        nearest, ties = icp_nearest(*args, 128, 3)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
+        match_equal = torch.equal(got[3], ref[3])
+        single = ties == 1
+        exact = share((got == ref).all(0)[single])
         match_share = got[3].mean().item()
+        if n_extra == 0:
+            icp_open = icp_open_columns(*args, 128, 3, nearest)
         log(f"  icp_match E={n_extra}: Ns=Nt={args[0].shape[1]} max abs err {err:.3e} "
-            f"(tol {ICP_ABS_TOL}), matched share {match_share:.4f}")
-        check(err <= ICP_ABS_TOL and match_share > 0.99, f"icp_match E={n_extra} disagrees")
+            f"(tol {ICP_ABS_TOL}), match row bit-equal {match_equal} (need True), all rows "
+            f"bit-equal on {exact:.6f} of the points without a tie (need 1; ties "
+            f"{(~single).sum().item()}), matched share {match_share:.4f}, unculled columns a "
+            f"point {icp_open[0] / args[0].shape[1]:.2f} of {3 * 128}")
+        check(err <= ICP_ABS_TOL and match_equal and exact == 1.0 and match_share > 0.99,
+              f"icp_match E={n_extra} disagrees")
         icp_err = max(icp_err, err)
-        icp_args[n_extra] = args
+        if n_extra == 0:
+            icp_args[n_extra] = args
+        del args, got, ref, nearest, ties
 
     pa, pb, pos_b = fpfh_inputs(dev)
     v_a, v_b = pa[3] > 0.5, pb[3] > 0.5
@@ -794,7 +898,7 @@ def main() -> int:
         args = band_args[kname]
         times[kname] = (lambda kern=kern, args=args: kern(*args, rb2, BAND, FPFH_TILE),
                         lambda plain=plain, args=args: plain(*args, rb2, BAND, FPFH_TILE))
-    for cname, (kk, coords, excl) in KNN_CONFIGS.items():
+    for cname, (kk, coords, excl) in KNN_SHAPES.items():
         knn_args = (pts_a, valid_a, ids_a, kk, KNN_TILE, coords, excl)
         times[knn_name(cname)] = (lambda a=knn_args: knn_window_tiles(*a),
                                   lambda a=knn_args: knn_window_plain(*a))
@@ -814,7 +918,7 @@ def main() -> int:
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms")
     work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs,
-                       windows)
+                       {**windows, **knn_open, "icp_match": icp_open})
     del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls
     del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
@@ -945,6 +1049,9 @@ def main() -> int:
     exact_ms = ms["window_normals band=0"]
     log(f"window_normals band=0 (kernel ms, plain ms; bound ms, by): {json.dumps(exact_ms)} "
         f"{json.dumps(bound(*work['window_normals band=0']))}")
+    k128 = knn_name(KNN_K128)
+    log(f"{k128} (kernel ms, plain ms; bound ms, by; max abs err): {json.dumps(ms[k128])} "
+        f"{json.dumps(bound(*work[k128]))} {errs[k128]}")
     log(f"window_fast, voxel grid and ICP variants: {json.dumps(fast_report)}")
     print(card)
     print(json.dumps(report))
@@ -1135,7 +1242,8 @@ def window_phases(dev, kernels):
           "window normals: fewer than 99% valid or not unit length")
     check(med_n >= 0.999, "window normals too far from the union normals")
     t_wn = median_time(lambda: tt.estimate_normals_detailed(pc, wcfg), warmup=1, iters=3)
-    log(f"  window normals {1e3 * t_wn:.2f} ms median of 3")
+    wn_busy = busy_time(lambda: tt.estimate_normals_detailed(pc, wcfg))
+    log(f"  window normals {1e3 * t_wn:.2f} ms median of 3, device busy {wn_busy:.2f} ms")
     del wres, ures, norms, cos_n, both
 
     log("phase 13: statistical_outlier_removal(cloud), defaults, on the 1M scan")
@@ -1165,7 +1273,9 @@ def window_phases(dev, kernels):
     check(agree >= 0.8 and not_below >= 0.999,
           "window mean distances disagree with the exact ones")
     t_sor = median_time(lambda: tt.statistical_outlier_removal(pc), warmup=1, iters=3)
-    log(f"  statistical_outlier_removal {1e3 * t_sor:.2f} ms median of 3")
+    sor_busy = busy_time(lambda: tt.statistical_outlier_removal(pc))
+    log(f"  statistical_outlier_removal {1e3 * t_sor:.2f} ms median of 3, device busy "
+        f"{sor_busy:.2f} ms")
     del sor, mean_w, cand, d, d9, pc
 
     log("phase 14: extract_fpfh_features_with_normals(target, FpfhConfig(soft_binning=True))")
@@ -1182,16 +1292,19 @@ def window_phases(dev, kernels):
     t_soft = median_time(lambda: tt.extract_fpfh_features_with_normals(tgt_n, scfg),
                          warmup=1, iters=3)
     peak_soft = torch.cuda.max_memory_allocated()
+    soft_busy = busy_time(lambda: tt.extract_fpfh_features_with_normals(tgt_n, scfg))
     log(f"  staged window FPFH {1e3 * t_soft:.2f} ms median of 3, peak allocated "
-        f"{peak_soft / 2**30:.3f} GiB")
+        f"{peak_soft / 2**30:.3f} GiB, device busy {soft_busy:.2f} ms")
     report = {"band": band, "fpfh_valid_share": [valid_share, full_share],
               "fpfh_default_ms": 1e3 * t_default,
               "fpfh_band_ms": 1e3 * t_band, "fpfh_full_ms": 1e3 * t_full,
               "fpfh_default_peak_gib": peak_default / 2**30, "band_median_cos": med_cos,
               "fpfh_profiled_wall_ms": fpfh_wall, "fpfh_busy_ms": fpfh_busy,
               "window_normals_ms": 1e3 * t_wn, "window_normals_median_cos": med_n,
-              "sor_ms": 1e3 * t_sor, "sor_kept": kept, "sor_agree": [agree, not_below],
-              "soft_fpfh_ms": 1e3 * t_soft, "soft_fpfh_peak_gib": peak_soft / 2**30}
+              "window_normals_busy_ms": wn_busy, "sor_ms": 1e3 * t_sor, "sor_busy_ms": sor_busy,
+              "sor_kept": kept, "sor_agree": [agree, not_below],
+              "soft_fpfh_ms": 1e3 * t_soft, "soft_fpfh_busy_ms": soft_busy,
+              "soft_fpfh_peak_gib": peak_soft / 2**30}
     return total, report
 
 
@@ -1443,10 +1556,11 @@ def window_fast_phases(dev, kernels):
           and 1 <= counts["icp_match"] <= 20 and set(rows) == {3},
           "point-to-plane did not launch icp_match with 3 payload rows, 1-20 times")
     tp, peakp = timed(lambda: tt.icp_point_to_plane(pc, tgt, **p2pl))
+    p2pl_busy = busy_time(lambda: tt.icp_point_to_plane(pc, tgt, **p2pl))
     log(f"  icp_point_to_plane {tp:.2f} ms median of 3, {tp / ires.iterations:.3f} ms per "
-        f"iteration, peak {peakp:.3f} GiB")
+        f"iteration, peak {peakp:.3f} GiB, device busy {p2pl_busy:.2f} ms")
     report["point_to_plane"] = {"ms": tp, "ms_per_iteration": tp / ires.iterations,
-                                "peak_gib": peakp}
+                                "peak_gib": peakp, "busy_ms": p2pl_busy}
 
     log("phase 21: multiscale_icp_point_to_point on the 1M scan pair, default config")
     mres, counts = run(lambda: tt.multiscale_icp_point_to_point(pc, tgt))

@@ -9,7 +9,9 @@ runs where JAX is not installed:
 Stated tolerances: counts, radii and pass B's use_b flag bit-equal (the
 kernel and the plain version evaluate the same unfused fp32 operations);
 central sums within 1e-4 of the neighbourhood's scale (summation
-order); icp_match outputs within 1e-6; FPFH vote and count rows
+order); icp_match's match row bit-equal, every row bit-equal where the
+nearest target is unique and within 1e-6 where ties average (the plain
+version sums them in a matmul); FPFH vote and count rows
 (full-window and banded, also at the edge cases of the compacted pair
 voting) bit-equal, the stage-2 weighted sums within
 1e-4 of each point's Σ|row| (the plain version's cuBLAS matmul sums in
@@ -116,22 +118,87 @@ def test_union_kernel_edges(cuda, tile, k, lattice):
     _assert_sums(b, rb, va[ob] > 0.5)
 
 
-@pytest.mark.parametrize("n_extra,w_tiles", [(0, 3), (3, 3), (6, 16)])
-def test_icp_kernel_matches_plain(cuda, n_extra, w_tiles):
-    rng = np.random.default_rng(n_extra)
+def _icp_case(cuda, n_extra, w_tiles, tile=128, ns=1024, nt=4096, seed=None):
+    """Random (4, Ns) sources, 10% invalid; (4+E, Nt) targets, 20% at the
+    2e19 sentinels, with a duplicate (an exact tie); random windows."""
+    rng = np.random.default_rng(n_extra if seed is None else seed)
     src = torch.from_numpy(np.concatenate(
-        [rng.normal(0, 1, (3, 1024)), rng.uniform(0, 1, (1, 1024)) > 0.1])
+        [rng.normal(0, 1, (3, ns)), rng.uniform(0, 1, (1, ns)) > 0.1])
         .astype(np.float32)).to(cuda)
-    tgt = rng.normal(0, 1, (4 + n_extra, 4096)).astype(np.float32)
-    invalid = rng.uniform(0, 1, 4096) < 0.2
+    tgt = rng.normal(0, 1, (4 + n_extra, nt)).astype(np.float32)
+    invalid = rng.uniform(0, 1, nt) < 0.2
     tgt[0:3, invalid] = 2e19
     tgt[3] = ~invalid
     tgt[0:3, 100] = tgt[0:3, 101]            # a duplicate target: a tie
     tgt = torch.from_numpy(tgt).to(cuda)
-    ws = torch.from_numpy(rng.integers(0, 32 - w_tiles + 1, 8).astype(np.int32)).to(cuda)
-    got = icp_match_tiles(src, tgt, ws, 128, w_tiles)
-    ref = icp_match_plain(src, tgt, ws, 128, w_tiles)
+    ws = torch.from_numpy(rng.integers(0, nt // tile - w_tiles + 1, ns // tile)
+                          .astype(np.int32)).to(cuda)
+    return src, tgt, ws
+
+
+def _icp_unique(src, tgt, ws, tile, w_tiles):
+    """Points whose nearest window target is unique (no exact tie)."""
+    nt = tgt.shape[1]
+    cols = ws.long()[:, None] * tile + torch.arange(w_tiles * tile, device=src.device)
+    inside = (cols >= 0) & (cols < nt)
+    pay = torch.where(inside, tgt[0:3, cols.clamp(0, nt - 1)], 2e19)  # (3, T, wc)
+    q = src[0:3].reshape(3, -1, tile)
+    d = [pay[r][:, None, :] - q[r][:, :, None] for r in range(3)]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    return ((d2 == d2.amin(2, keepdim=True)).sum(2) == 1).reshape(-1)
+
+
+def _assert_icp(got, ref, unique):
+    """Match flags bit-equal, every row bit-equal where the nearest target
+    is unique, within 1e-6 where ties average (summation order)."""
+    assert torch.equal(got[3], ref[3])
+    assert torch.equal(got[:, unique], ref[:, unique])
     torch.testing.assert_close(got, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n_extra,w_tiles", [(0, 3), (3, 3), (6, 16), (6, 3), (0, 16), (3, 4)])
+def test_icp_kernel_matches_plain(cuda, n_extra, w_tiles):
+    args = _icp_case(cuda, n_extra, w_tiles)
+    got = icp_match_tiles(*args, 128, w_tiles)
+    ref = icp_match_plain(*args, 128, w_tiles)
+    _assert_icp(got, ref, _icp_unique(*args, 128, w_tiles))
+
+
+@pytest.mark.parametrize("n_extra,w_tiles", [(0, 16), (3, 8)])
+def test_icp_rows_body_matches_plain(cuda, n_extra, w_tiles):
+    """Windows of tile 1024 whose records and payload rows exceed a
+    block's shared memory run the rows body; (0, 16) is the largest
+    window the wrapper accepts at E = 0."""
+    args = _icp_case(cuda, n_extra, w_tiles, tile=1024, ns=4096, nt=32768)
+    got = icp_match_tiles(*args, 1024, w_tiles)
+    ref = icp_match_plain(*args, 1024, w_tiles)
+    _assert_icp(got, ref, _icp_unique(*args, 1024, w_tiles))
+
+
+@pytest.mark.parametrize("case", ["duplicates", "equidistant", "far queries", "edges"])
+def test_icp_kernel_special_inputs(cuda, case):
+    """Exact ties (duplicate targets; targets on a lattice around lattice
+    queries), a block holding a query at the sentinel magnitude (its
+    culling off; its nearest a sentinel target), and windows reaching
+    past either end of the target."""
+    src, tgt, ws = _icp_case(cuda, 3, 3, seed=7)
+    if case == "duplicates":
+        tgt[:, 1::2] = tgt[:, 0::2]
+    elif case == "equidistant":
+        g = torch.arange(4096, device=cuda)
+        tgt[0:3] = torch.stack([g % 16, (g // 16) % 16, g // 256]).float()
+        tgt[3] = 1.0
+        src[0:3] = torch.randint(0, 16, (3, 1024), device=cuda).float() + 0.5
+    elif case == "far queries":
+        src[0:3, 5] = 3e19
+        tgt[0:3, 7] = 3e19
+    else:
+        ws[0], ws[1] = -1, 4096 // 128 - 2
+    got = icp_match_tiles(src, tgt, ws, 128, 3)
+    ref = icp_match_plain(src, tgt, ws, 128, 3)
+    _assert_icp(got, ref, _icp_unique(src, tgt, ws, 128, 3))
+    if case in ("duplicates", "equidistant"):
+        assert not _icp_unique(src, tgt, ws, 128, 3).all()
 
 
 def test_wrappers_count_launches(cuda):
@@ -405,6 +472,30 @@ def test_knn_window_kernel_matches_plain(cuda, k, tile, with_coords, exclude_sel
             assert torch.equal(g, r)
         if n_valid is not None and k > n_valid:
             assert torch.isinf(got[0][:, 3 * tile:4 * tile]).any()
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("k,tile", [(k, tile) for tile in (8, 128, 1024)
+                                    for k in (1, 9, 10, 12, 13, 16, 17, 33, 64, 128)
+                                    if k <= 3 * tile])
+def test_knn_window_kernel_edges(cuda, k, tile, exclude_self):
+    """Each k on either side of the cut between the list and warp bodies
+    (and of the list sizes) at tiles 8, 128 and 1024: tiles with fewer
+    than k valid candidates, and tile 0 with -inf slots, which report
+    column 0 of the clamped window (tile 0's own first column)."""
+    for n_valid in (None, 5):
+        pts, valid, ids = _window_case(cuda, max(12 * tile, 400) + 37, 11, tile, n_valid)
+        valid[0, 3:2 * tile] = 0               # tile 0's window: 3 valid columns
+        got = knn_window_tiles(pts, valid, ids, k, tile, with_coords=True,
+                               exclude_self=exclude_self)
+        ref = knn_window_plain(pts, valid, ids, k, tile, with_coords=True,
+                               exclude_self=exclude_self)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        empty = torch.isinf(got[0][:, :tile])
+        assert empty.any() == (k > 3)
+        assert (got[1][:, :tile][empty] == ids[0, 0]).all()
+        assert (got[2][0::3, :tile][empty] == pts[0, 0]).all()
 
 
 def test_window_paths_on_card_match_cpu(cuda):

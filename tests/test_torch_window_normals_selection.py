@@ -44,7 +44,7 @@ from union_clouds import band_kth, radius_from_kth, union_cloud, window_d2  # no
 BAND = 16
 _CSRC = Path(__file__).resolve().parent.parent / "threecrate_tpu_torch" / "csrc"
 CHUNK = int(re.search(r"constexpr int kChunk = (\d+);",
-                      (_CSRC / "union_window.cu").read_text()).group(1))
+                      (_CSRC / "window.cuh").read_text()).group(1))
 MARGIN = np.float32(1) - np.float32(1) / np.float32(
     re.search(r"kCullMargin = 1\.f - 1\.f / (\d+)\.f;",
               (_CSRC / "window.cuh").read_text()).group(1))

@@ -338,14 +338,14 @@ spfh_kernel(const float* __restrict__ packed, const int* __restrict__ pos_a,
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   float4* box = win + 3 * tile;
-  float4* nrm = box + 2 * tc::n_chunks(tile, chunk);
+  float4* nrm = box + 2 * tc::n_chunks(3 * tile, chunk);
   unsigned* votes = reinterpret_cast<unsigned*>(nrm + 3 * tile);
   int* rings = reinterpret_cast<int*>(votes + (blockDim.x / kWarp) * kVoteWords * kVoteStride);
   PairQueue pq{rings + warp * kQueue, votes + warp * kVoteWords * kVoteStride, 0u, 0u};
   tc::stage_records(packed, packed + 3L * n, pos_a, n, tile, __ffs(tile) - 1, win);
   stage_normals(packed, n, tile, nrm);
   __syncthreads();
-  tc::stage_boxes(win, tile, chunk, box);
+  tc::stage_boxes(win, 3 * tile, chunk, box);
   __syncthreads();
   const float th_scale = theta_scale();
 
@@ -384,7 +384,7 @@ cudaError_t launch_spfh(const float* packed, const int* pos_a, float* out, int n
   const int chunk = tile < kSpfhChunk ? tile : kSpfhChunk;
   const int threads = tile < kWarp ? kWarp : (tile > kSpfhThreads ? kSpfhThreads : tile);
   const size_t smem =
-      (6 * static_cast<size_t>(tile) + 2 * tc::n_chunks(tile, chunk)) * sizeof(float4) +
+      (6 * static_cast<size_t>(tile) + 2 * tc::n_chunks(3 * tile, chunk)) * sizeof(float4) +
       static_cast<size_t>(threads / kWarp) * (kVoteWords * kVoteStride + kQueue) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -534,10 +534,10 @@ fpfh_weight_kernel(const float* __restrict__ packed, const int* __restrict__ pos
   const int stride = kPlaneSegments * tile;
   const int n_t = n / tile;
   float4* box = win + 3 * tile;
-  float4* plane = box + 2 * tc::n_chunks(tile, chunk);
+  float4* plane = box + 2 * tc::n_chunks(3 * tile, chunk);
   tc::stage_records(packed, packed + 3L * n, pos_a, n, tile, __ffs(tile) - 1, win);
   __syncthreads();
-  tc::stage_boxes(win, tile, chunk, box);
+  tc::stage_boxes(win, 3 * tile, chunk, box);
   __syncthreads();
 
   for (int base = 0; base < tile; base += blockDim.x * Q) {
@@ -602,7 +602,7 @@ cudaError_t launch_weight(const float* packed, const int* pos_a, float* out, int
                           float r2, void* stream) {
   const int chunk = tile < kWeightChunk ? tile : kWeightChunk;
   const size_t smem =
-      (3 * static_cast<size_t>(tile) + 2 * tc::n_chunks(tile, chunk) +
+      (3 * static_cast<size_t>(tile) + 2 * tc::n_chunks(3 * tile, chunk) +
        static_cast<size_t>(kPlanes) * kPlaneSegments * tile) * sizeof(float4);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

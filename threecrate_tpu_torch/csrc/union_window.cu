@@ -70,8 +70,10 @@
 namespace {
 
 using tc::chunk_beyond;
+using tc::kChunk;
 using tc::kInf;
 using tc::n_chunks;
+using tc::select_window;
 using tc::stage_boxes;
 using tc::stage_records;
 
@@ -86,113 +88,6 @@ constexpr float kHiClamp = 3.4e38f;
 constexpr int kThreads = 128;
 constexpr int kQueries = 2;
 constexpr int kNormalQueries = 1;
-// Window columns under one bounding box in kernel 4's sweeps.
-constexpr int kChunk = 16;
-
-// Insert v into the ascending list b, dropping its largest entry. Every
-// entry is computed from the old list, so the 2 * KMAX operations carry
-// no dependency chain.
-template <int KMAX>
-__device__ __forceinline__ void insert_sorted(float* b, float v) {
-#pragma unroll
-  for (int m = KMAX - 1; m > 0; --m) b[m] = fminf(b[m], fmaxf(b[m - 1], v));
-  b[0] = fminf(b[0], v);
-}
-
-// insert_sorted with the column c of v carried beside it, after the
-// entries equal to v.
-template <int KMAX>
-__device__ __forceinline__ void insert_ranked(float* b, int* col, float v, int c) {
-#pragma unroll
-  for (int m = KMAX - 1; m > 0; --m) {
-    col[m] = b[m] <= v ? col[m] : (b[m - 1] <= v ? c : col[m - 1]);
-    b[m] = fminf(b[m], fmaxf(b[m - 1], v));
-  }
-  col[0] = b[0] <= v ? col[0] : c;
-  b[0] = fminf(b[0], v);
-}
-
-// One step of the selection sweep: window record b (column c) enters the
-// list of each query it strictly beats the k-th of.
-template <int KMAX, int Q, bool COLS>
-__device__ __forceinline__ void select_candidate(float4 b, int c, const float* qx,
-                                                 const float* qy, const float* qz,
-                                                 float (*best)[KMAX], int (*col)[KMAX]) {
-  const bool ok = __float_as_int(b.w) >= 0;
-#pragma unroll
-  for (int j = 0; j < Q; ++j) {
-    const float d = tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z);
-    if (ok && d < best[j][KMAX - 1]) {
-      if constexpr (COLS) {
-        insert_ranked<KMAX>(best[j], col[j], d, c);
-      } else {
-        insert_sorted<KMAX>(best[j], d);
-      }
-    }
-  }
-}
-
-// Steps 1-2 for the Q queries of a thread in the round from base: sets
-// qi[j] (window column tile + qi[j]; a thread past the tile's end,
-// tile < Q, repeats its last query) and its coordinates (qx, qy, qz)[j];
-// best[j] ends as the window's k smallest d2, right-aligned (with COLS,
-// col[j] holds their columns), r2[j] is the band's k-th. win holds the
-// window's 3 * tile records. With box (kernel 4) the sweep passes over
-// each chunk that lies beyond the current k-th of all Q queries: none of
-// its columns could enter.
-template <int KMAX, int Q, bool COLS>
-__device__ __forceinline__ void select_window(const float4* __restrict__ win,
-                                              const float4* __restrict__ box, int tile,
-                                              int base, int k, int band, int* qi, float* qx,
-                                              float* qy, float* qz, float (*best)[KMAX],
-                                              int (*col)[KMAX], float* r2) {
-#pragma unroll
-  for (int j = 0; j < Q; ++j) {
-    qi[j] = min(base + static_cast<int>(threadIdx.x) + j * static_cast<int>(blockDim.x),
-                tile - 1);
-    const float4 r = win[tile + qi[j]];
-    qx[j] = r.x;
-    qy[j] = r.y;
-    qz[j] = r.z;
-#pragma unroll
-    for (int m = 0; m < KMAX; ++m) best[j][m] = m < KMAX - k ? -kInf : kInf;
-    // 1. r2: the k-th smallest over the +-band sorted neighbours
-    for (int c = tile + qi[j] - band; c <= tile + qi[j] + band; ++c) {
-      const float4 b = win[c];
-      const float d = __float_as_int(b.w) >= 0
-                          ? tc::sq_dist(qx[j], qy[j], qz[j], b.x, b.y, b.z)
-                          : kInf;
-      insert_sorted<KMAX>(best[j], d);
-    }
-    r2[j] = best[j][KMAX - 1];
-    const float seed = nextafterf(r2[j], kInf);
-#pragma unroll
-    for (int m = 0; m < KMAX; ++m) {
-      if (m >= KMAX - k) best[j][m] = seed;
-      if constexpr (COLS) col[j][m] = 0;
-    }
-  }
-
-  // 2. the selection sweep: best[j] ends as the window's k smallest
-  const int w3 = 3 * tile;
-  if (box == nullptr) {
-#pragma unroll 2
-    for (int c = 0; c < w3; ++c) select_candidate<KMAX, Q, COLS>(win[c], c, qx, qy, qz, best, col);
-    return;
-  }
-  for (int c0 = 0; c0 < w3; c0 += kChunk) {
-    bool beyond = true;
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      beyond = beyond && chunk_beyond<true>(box, c0 / kChunk, qx[j], qy[j], qz[j],
-                                            best[j][KMAX - 1]);
-    }
-    if (beyond) continue;
-    const int c1 = min(c0 + kChunk, w3);
-#pragma unroll 4
-    for (int c = c0; c < c1; ++c) select_candidate<KMAX, Q, COLS>(win[c], c, qx, qy, qz, best, col);
-  }
-}
 
 // Steps 1-3: the selection radius hi[j] of each of a thread's Q queries,
 // clamped to kHiClamp.
@@ -520,7 +415,7 @@ window_normals_exact_kernel(const float* __restrict__ pts, const float* __restri
   float4* box = win + 3 * tile;
   stage_records(pts, valid, nullptr, n, tile, __ffs(tile) - 1, win);
   __syncthreads();
-  stage_boxes(win, tile, kChunk, box);
+  stage_boxes(win, 3 * tile, kChunk, box);
   __syncthreads();
 
   for (int base = 0; base < tile; base += blockDim.x * Q) {
@@ -559,7 +454,7 @@ window_normals_band_kernel(const float* __restrict__ pts, const float* __restric
   extern __shared__ float4 win[];
   float4* box = win + 3 * tile;
   // (4, kThreads) partial sums of the tile centre
-  double* part = reinterpret_cast<double*>(box + 2 * n_chunks(tile, kChunk));
+  double* part = reinterpret_cast<double*>(box + 2 * n_chunks(3 * tile, kChunk));
   stage_records(pts, valid, nullptr, n, tile, __ffs(tile) - 1, win);
 
   // tile centre: the mean of the tile's valid queries, each sum in double
@@ -582,7 +477,7 @@ window_normals_band_kernel(const float* __restrict__ pts, const float* __restric
       part[r * kThreads] = tot;
     }
   }
-  stage_boxes(win, tile, kChunk, box);
+  stage_boxes(win, 3 * tile, kChunk, box);
   __syncthreads();
   const float nq = fmaxf(static_cast<float>(part[3 * kThreads]), 1.f);
   const float tcx = __fdiv_rn(static_cast<float>(part[0]), nq);
@@ -650,7 +545,7 @@ template <int KMAX>
 cudaError_t launch_normals(const float* pts, const float* valid, float* out, int n,
                            int tile, int k, int band, cudaStream_t stream) {
   const size_t win =
-      (3 * static_cast<size_t>(tile) + 2 * n_chunks(tile, kChunk)) * sizeof(float4);
+      (3 * static_cast<size_t>(tile) + 2 * n_chunks(3 * tile, kChunk)) * sizeof(float4);
   cudaError_t err;
   if (band == 0) {
     err = allow_smem(window_normals_exact_kernel<KMAX>, win);

@@ -17,8 +17,9 @@ their payloads; an all-invalid window gives zeros and match-valid 0; an
 invalid source point gets match-valid 0 (its payload is still the
 window's nearest, as in the Pallas kernel).
 
-On the card this is an fp32 ALU-bound scan of w_tiles·tile candidates
-per point from shared memory (see ``csrc/icp_match.cu``).
+On the card each warp scans the 16-column chunks of the window that its
+points' box tests cannot exclude, nearest first, from shared memory
+(see ``csrc/icp_match.cu``).
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@ it again once the finite candidates are used up.
 
 d² is (dx·dx + dy·dy) + dz·dz with dx = q − c, every operation rounded
 on its own in the kernel and here, so both give the same bits and pick
-the same neighbours.
+the same neighbours. On the card k <= 16 runs one query a thread with a
+register list, larger k one query a warp with a sorted list of keys
+(see ``csrc/knn_window.cu``).
 """
 
 from __future__ import annotations

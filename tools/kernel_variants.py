@@ -3,9 +3,10 @@ build each variant of one ``csrc/`` source into a shared library of its
 own, check its output against the committed source's, and time it.
 
 A variant is a list of (committed text, replacement) pairs applied to
-the source. Every variant compiles alone (one ``nvcc`` per variant, all
-started together, with ``-Xptxas -v``) beside a copy of every
-``csrc/*.cuh``; registers and spills come from ptxas. Times are
+the source or, where the text is not in the source, to the one
+``csrc/*.cuh`` header that holds it. Every variant compiles alone (one
+``nvcc`` per variant, all started together, with ``-Xptxas -v``) beside
+its copy of every header; registers and spills come from ptxas. Times are
 CUDA-event medians of 10 launches, taken in two rounds over all
 variants within the one call. Needs ``nvcc`` and one CUDA card.
 """
@@ -33,19 +34,24 @@ def build(tmp: Path, source: str, variants, functions, label):
     for the others)."""
     from threecrate_tpu_torch.kernels import _build
 
-    text0 = (CSRC / source).read_text()
     procs = {}
     for i, (name, subs) in enumerate(variants.items()):
-        text = text0
+        # the source and every header; a substitution applies where its
+        # text occurs once: in the source, else in exactly one header
+        files = {source: (CSRC / source).read_text(),
+                 **{h.name: h.read_text() for h in CSRC.glob("*.cuh")}}
         for old, new in subs:
-            if text.count(old) != 1:
-                raise SystemExit(f"variant {name!r}: {old[:60]!r} not found once in the source")
-            text = text.replace(old, new)
+            where = [f for f, text in files.items() if old in text]
+            if files[source].count(old) == 1:
+                where = [source]
+            if len(where) != 1 or files[where[0]].count(old) != 1:
+                raise SystemExit(f"variant {name!r}: {old[:60]!r} not found once in the "
+                                 "source or its headers")
+            files[where[0]] = files[where[0]].replace(old, new)
         d = tmp / f"v{i}"
         d.mkdir()
-        for header in CSRC.glob("*.cuh"):
-            (d / header.name).write_text(header.read_text())
-        (d / source).write_text(text)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
              str(d / "lib.so"), str(d / source)],
@@ -86,23 +92,27 @@ def ptxas_summary(log: str, label):
 
 def compare_and_time(libs, runs, launch, out):
     """{variant: report}: each run of ``runs`` launched once per variant
-    (``launch(lib, run)`` writes ``out``) and compared with the committed
-    variant's output, then timed."""
+    (``launch(lib, run)`` writes ``out``, one tensor or a tuple of them)
+    and compared with the committed variant's output, then timed."""
     from threecrate_tpu_torch.utils.profiling import median_time
 
+    outs = out if isinstance(out, (tuple, list)) else (out,)
     ref = {}
     for run in runs:
+        for o in outs:
+            o.fill_(-1)
         launch(libs["committed"][0], run)
         torch.cuda.synchronize()
-        ref[run] = out.clone()
+        ref[run] = [o.clone() for o in outs]
     report = {}
     for name, (lib, regs) in libs.items():
         equal = []
         for run in runs:
-            out.fill_(-1.0)
+            for o in outs:
+                o.fill_(-1)
             launch(lib, run)
             torch.cuda.synchronize()
-            equal.append(bool(torch.equal(out, ref[run])))
+            equal.append(all(torch.equal(o, r) for o, r in zip(outs, ref[run])))
         report[name] = {"rows_equal_committed": equal, "ptxas": regs,
                         "ms": {run: [] for run in runs}}
     for _ in range(2):

@@ -27,7 +27,8 @@ import torch
 import kernel_variants
 
 K, TILE, BAND = 10, 256, 16
-# name -> (committed text, replacement) pairs applied to union_window.cu
+# name -> (committed text, replacement) pairs applied to union_window.cu, or to
+# the header that holds the text (kChunk and the selection sweep: window.cuh)
 SEL_LOOP = "#pragma unroll 4\n    for (int c = c0; c < c1; ++c) select_candidate"
 SUM_LOOP = "#pragma unroll 4\n      for (int c = c0; c < c1; ++c) sum_candidate"
 VARIANTS = {
