@@ -23,10 +23,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    with coordinates and self excluded (its plain version timed once), the
    four SHOT/USC kernels on the same sorted target points (r = 0.25,
    band 32, tile 256; the histograms in both variants, on one set of
-   frames built from the plain moments), and ``window_normals_tiles`` on
+   frames built from the plain moments, standalone and placed as
+   ``_shot_fused`` places them: pass B written at each position's input
+   row of a query-major buffer, then pass A added at its own; each twice,
+   the two calls bit-equal), and ``window_normals_tiles`` on
    the sorted 1M scan (k = 10, tile 256) at band 16 (``window_fast``'s
    shape) and band 0 (the exact body);
-4. time each kernel and its plain version (CUDA-event medians);
+4. time each kernel and its plain version (CUDA-event medians), with the
+   card's SM clock read beside each;
 5. run ``PerceptionStep()`` on a 1M-point scan pair (target = source +
    (0.05, -0.03, 0.02)) with every launch counter reset just before:
    the shift must come back within 1e-3, valid normals must be unit
@@ -222,6 +226,13 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def sm_clock() -> str:
+    """The card's SM clock now, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unread"
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -324,15 +335,16 @@ def registration_pair():
 
 def fpfh_inputs(dev):
     """Phase-3 FPFH inputs: the registration target with the port's
-    normals, Morton-sorted twice and packed as ``_fpfh_fused`` packs it."""
+    normals, Morton-sorted twice and packed as ``_fpfh_fused`` packs it,
+    and the input row of each pass-A position."""
     from threecrate_tpu_torch.core import PointCloud
     from threecrate_tpu_torch.ops.features import fused_stage1_inputs
     from threecrate_tpu_torch.ops.normals import estimate_normals_detailed
 
     pc = PointCloud.from_numpy(scan(N_SCAN, 3), pad_multiple=FPFH_TILE, device=dev)
     nrm = estimate_normals_detailed(pc).normals
-    pa, pb, row_a, _ = fused_stage1_inputs(pc.points, pc.mask, nrm, FPFH_TILE)
-    return pa, pb, row_a.to(torch.int32)[None].contiguous()
+    pa, pb, row_a, perm_a = fused_stage1_inputs(pc.points, pc.mask, nrm, FPFH_TILE)
+    return pa, pb, row_a.to(torch.int32)[None].contiguous(), perm_a
 
 
 def stage2_inputs(pa, pb, pos_b, spfh_a, spfh_b):
@@ -527,10 +539,18 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
         "shot_moments_b": (4 * n_f * (5 + 14), n_f * shot_c * 12
                            + pairs["shot_moments_b"] * 30),
     }
-    for kname, rows in (("shot_hist_a", 7 + 9), ("shot_hist_b", 8 + 9)):
-        for tname, dim, per_pair in ((kname, 352, 55), (f"{kname} usc", 128, 45)):
-            work[tname] = (4 * n_f * (rows + dim + 1),
-                           n_f * shot_c * 12 + pairs[tname] * per_pair)
+    # the histograms: rows and frames in, dim + 1 floats out per query;
+    # placed, the int32 row index in too, and where pass A adds, the row
+    # it adds to read as well
+    for kname, rows, mode, extra in (("shot_hist_a", 7 + 9, "", 0),
+                                     ("shot_hist_b", 8 + 9, "", 0),
+                                     ("shot_hist_b", 8 + 9, " placed", 1),
+                                     ("shot_hist_a", 7 + 9, " add", 1)):
+        for sfx, dim, per_pair in (("", 352, 55), (" usc", 128, 45)):
+            read = dim + 1 if mode == " add" else 0
+            work[kname + mode + sfx] = (4 * n_f * (rows + extra + read + dim + 1),
+                                        n_f * shot_c * 12 + pairs[kname + mode + sfx]
+                                        * per_pair)
     return work
 
 
@@ -563,20 +583,43 @@ def only(counts, expected) -> bool:
     return all(counts[k] == expected.get(k, 0) for k in counts)
 
 
-def shot_kernel_checks(pa, pb, pos_b):
+def shot_hist_inputs(pa, pb, pos_b, perm_a, mom_a, mom_b):
+    """The histogram kernels' phase-3 inputs as ``_shot_fused`` builds
+    them from the moment rows ``mom_a``, ``mom_b``: ({kernel: (packed,
+    frames)}, {kernel: the input row of each of its positions, int32})."""
+    from threecrate_tpu_torch.ops.features import lrf_from_moments
+
+    row_a = pos_b[0].long()
+    lrf = lrf_from_moments(mom_a.T + mom_b.T[torch.argsort(row_a)], SHOT_RADIUS, pa[4:7].T)
+    rows_a = perm_a.to(torch.int32)
+    return ({"shot_hist_a": (pa, lrf.T.contiguous()),
+             "shot_hist_b": (torch.cat([pb, pos_b.to(torch.float32)]).contiguous(),
+                             lrf[row_a].T.contiguous())},
+            {"shot_hist_a": rows_a, "shot_hist_b": rows_a[row_a]})
+
+
+def hist_agreement(got, ref, dim):
+    """(count column bit-equal, share of queries with every float
+    bit-equal, max vote error / count) of query-major histogram rows."""
+    vote = ((got[:, :dim] - ref[:, :dim]).abs().amax(1) / ref[:, dim].clamp_min(1)).max()
+    return torch.equal(got[:, dim], ref[:, dim]), share((got == ref).all(1)), vote.item()
+
+
+def shot_kernel_checks(pa, pb, pos_b, perm_a):
     """Phase 3, SHOT/USC kernels on the registration target's sorted rows
     (r = 0.25, band 32, tile 256): each against its plain version, the
     histograms in both variants on one set of frames built from the
-    plain moments. Returns ({timing name: (kernel call, plain call)},
-    max abs error and selected pairs by timing name)."""
+    plain moments, standalone (rows p of a new buffer) and placed as
+    ``_shot_fused`` places them (pass B written at each position's input
+    row, then pass A added at its own), each twice (the same bits).
+    Returns ({timing name: (kernel call, plain call)}, max abs error and
+    selected pairs by timing name)."""
     from threecrate_tpu_torch.kernels import shot
-    from threecrate_tpu_torch.ops.features import lrf_from_moments
 
     r2 = SHOT_RADIUS * SHOT_RADIUS
     radius = float(np.float32(SHOT_RADIUS))
     geom = (r2, SHOT_BAND, FPFH_TILE)
     pos_f = pos_b.to(torch.float32)
-    row_a = pos_b[0].long()
     calls, err, pairs, mom = {}, {}, {}, {}
     power = torch.tensor([0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 0, 3, 3, 3], device=pa.device)
     for kname, args in (("shot_moments_a", (pa[0:4].contiguous(),)),
@@ -596,30 +639,58 @@ def shot_kernel_checks(pa, pb, pos_b):
         calls[kname] = (lambda kern=kern, a=args: kern(*a, *geom),
                         lambda plain=plain, a=args: plain(*a, *geom))
         mom[kname] = ref
-    lrf = lrf_from_moments(mom["shot_moments_a"].T
-                           + mom["shot_moments_b"].T[torch.argsort(row_a)],
-                           SHOT_RADIUS, pa[4:7].T)
+    hist_args, rows = shot_hist_inputs(pa, pb, pos_b, perm_a, mom["shot_moments_a"],
+                                       mom["shot_moments_b"])
     del mom
-    hist_args = {"shot_hist_a": (pa, lrf.T.contiguous()),
-                 "shot_hist_b": (torch.cat([pb, pos_f]).contiguous(),
-                                 lrf[row_a].T.contiguous())}
+    n = pa.shape[1]
+    buf = {}      # the timed placed calls' buffers, by variant
+
+    def agree(tname, got, again, ref, dim):
+        cnt_eq, exact, vote = hist_agreement(got, ref, dim)
+        same = torch.equal(got, again)
+        err[tname] = (got - ref).abs().max().item()
+        log(f"  {tname}: count column bit-equal {cnt_eq} (need True), all {dim + 1} "
+            f"floats bit-equal on {exact:.6f} of queries (USC: need 1), max vote err / "
+            f"count {vote:.3e} (SHOT: tol {SHOT_REL_TOL}), max abs err {err[tname]:.3e}, "
+            f"two calls bit-equal {same} (need True)")
+        check(cnt_eq and same and (exact == 1.0 if dim == 128 else vote <= SHOT_REL_TOL),
+              f"{tname} disagrees")
+
     for variant, dim in (("shot", 352), ("usc", 128)):
+        sfx = "" if variant == "shot" else " usc"
         for kname, args in hist_args.items():
             kern, plain = getattr(shot, kname + "_tiles"), getattr(shot, kname + "_plain")
-            got, ref = kern(*args, *geom, variant), plain(*args, *geom, variant)
+            got, again = kern(*args, *geom, variant), kern(*args, *geom, variant)
+            ref = plain(*args, *geom, variant)
             torch.cuda.synchronize()
-            cnt_eq = torch.equal(got[dim], ref[dim])
-            exact = share((got == ref).all(0))
-            vote = ((got[:dim] - ref[:dim]).abs().amax(0) / ref[dim].clamp_min(1)).max().item()
-            tname = kname if variant == "shot" else f"{kname} usc"
-            err[tname], pairs[tname] = (got - ref).abs().max().item(), ref[dim].sum().item()
-            log(f"  {tname}: count row bit-equal {cnt_eq} (need True), all {dim + 1} rows "
-                f"bit-equal on {exact:.6f} of queries (USC: need 1), max vote err / count "
-                f"{vote:.3e} (SHOT: tol {SHOT_REL_TOL}), max abs err {err[tname]:.3e}")
-            check(cnt_eq and (exact == 1.0 if variant == "usc" else vote <= SHOT_REL_TOL),
-                  f"{tname} disagrees")
-            calls[tname] = (lambda kern=kern, a=args, v=variant: kern(*a, *geom, v),
-                            lambda plain=plain, a=args, v=variant: plain(*a, *geom, v))
+            pairs[kname + sfx] = ref[dim].sum().item()
+            agree(kname + sfx, got.T, again.T, ref.T, dim)
+            calls[kname + sfx] = (lambda kern=kern, a=args, v=variant: kern(*a, *geom, v),
+                                  lambda plain=plain, a=args, v=variant: plain(*a, *geom, v))
+        # placed: pass B written at its input rows, pass A added at its own
+        placed = {}
+        for side in ("tiles", "plain", "tiles again"):
+            out = torch.full((n, dim + 1), float("nan"), device=pa.device)
+            for kname, acc in (("shot_hist_b", False), ("shot_hist_a", True)):
+                fn = getattr(shot, f"{kname}_{side.split()[0]}")
+                fn(*hist_args[kname], *geom, variant, out=out, rows=rows[kname],
+                   accumulate=acc)
+                if kname == "shot_hist_b":
+                    placed[side, "b"] = out.clone()
+            placed[side, "a"] = out
+        torch.cuda.synchronize()
+        buf[variant] = placed["tiles", "a"]
+        for kname, tname, pass_ in (("shot_hist_b", f"shot_hist_b placed{sfx}", "b"),
+                                    ("shot_hist_a", f"shot_hist_a add{sfx}", "a")):
+            agree(tname, placed["tiles", pass_], placed["tiles again", pass_],
+                  placed["plain", pass_], dim)
+            pairs[tname] = pairs[kname + sfx]
+            kern, plain = getattr(shot, kname + "_tiles"), getattr(shot, kname + "_plain")
+            calls[tname] = tuple(
+                lambda fn=fn, k=kname, v=variant, acc=pass_ == "a": fn(
+                    *hist_args[k], *geom, v, out=buf[v], rows=rows[k], accumulate=acc)
+                for fn in (kern, plain))
+        del placed
     return calls, err, pairs
 
 
@@ -805,7 +876,7 @@ def main() -> int:
             icp_args[n_extra] = args
         del args, got, ref, nearest, ties
 
-    pa, pb, pos_b = fpfh_inputs(dev)
+    pa, pb, pos_b, perm_a = fpfh_inputs(dev)
     v_a, v_b = pa[3] > 0.5, pb[3] > 0.5
     fpfh_err = {}
     # selected (in-radius) pairs of each kernel, from its count row
@@ -875,7 +946,7 @@ def main() -> int:
             f"{exact:.6f} (need 1), max abs err {fpfh_err[kname]:.3e}, mean count "
             f"{ref[33][v_a if kname == 'spfh_band_a' else v_b].mean().item():.2f}")
         check(exact == 1.0, f"{kname} disagrees")
-    shot_calls, shot_err, shot_pairs = shot_kernel_checks(pa, pb, pos_b)
+    shot_calls, shot_err, shot_pairs = shot_kernel_checks(pa, pb, pos_b, perm_a)
     pairs.update(shot_pairs)
 
     log("phase 4: kernel and plain times (CUDA-event medians)")
@@ -916,11 +987,11 @@ def main() -> int:
         p2 = median_time(plain, warmup=0, iters=1 if spare else 5)
         ms[kname] = (1e3 * (k1 + k2) / 2, 1e3 * (p1 + p2) / 2)
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
-            f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms")
+            f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms; SM clock {sm_clock()}")
     work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs,
                        {**windows, **knn_open, "icp_match": icp_open})
     del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls
-    del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, v_a, v_b, got, ref, args
+    del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, perm_a, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
 
     log("phase 5: PerceptionStep() on the 1M scan pair")
@@ -1022,12 +1093,16 @@ def main() -> int:
                               "threecrate_tpu/kernels/shot_pallas.py:308"),
               "shot_hist_b": ("threecrate_tpu_torch/csrc/shot.cu",
                               "threecrate_tpu/kernels/shot_pallas.py:335"),
+              "shot_hist_b placed": ("threecrate_tpu_torch/csrc/shot.cu",
+                                     "threecrate_tpu/kernels/shot_pallas.py:335"),
+              "shot_hist_a add": ("threecrate_tpu_torch/csrc/shot.cu",
+                                  "threecrate_tpu/kernels/shot_pallas.py:308"),
               "window_normals": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:505")}
     errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
             **knn_err, "window_normals": normals_err, **fpfh_err, **shot_err}
-    for kname in ("shot_hist_a", "shot_hist_b"):      # both variants
-        errs[kname] = max(errs[kname], errs.pop(f"{kname} usc"))
+    for kname in ("shot_hist_a", "shot_hist_b", "shot_hist_b placed", "shot_hist_a add"):
+        errs[kname] = max(errs[kname], errs.pop(f"{kname} usc"))   # both variants
     # each knn_window entry counts its own shape's launches
     launch_key = {knn_name(cname): f"knn_window {cname}" for cname in KNN_CONFIGS}
     report = {"kernels": []}
@@ -1039,10 +1114,14 @@ def main() -> int:
              "launches": launches.get(launch_key.get(kname, kname.split()[0]), 0),
              "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1],
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    usc_ms = {k: ms[f"{k} usc"] for k in ("shot_hist_a", "shot_hist_b")}
+    usc_ms = {k: ms[f"{k} usc"] for k in ("shot_hist_a", "shot_hist_b", "shot_hist_b placed",
+                                          "shot_hist_a add")}
     usc_bound = {k: bound(*work[f"{k} usc"]) for k in usc_ms}
     log(f"USC histograms (kernel ms, plain ms; bound ms, by): {json.dumps(usc_ms)} "
         f"{json.dumps(usc_bound)}")
+    log("SHOT histogram bounds (ms, by), write and add modes: " + json.dumps(
+        {k: bound(*work[k]) for k in ("shot_hist_a", "shot_hist_b", "shot_hist_b placed",
+                                      "shot_hist_a add")}))
     log(f"registration: {json.dumps(reg_report)}")
     log(f"window paths: {json.dumps(win_report)}")
     log(f"shot paths: {json.dumps(shot_report)}")

@@ -23,7 +23,8 @@ the port's own CPU results (window search ids equal, distances within
 1e-6 relative: the card's sqrt may round the last bit differently);
 SHOT/USC moments' count row bit-equal and sums within 1e-5 of their
 scale Σw·R^k, USC histograms bit-equal, SHOT histograms' count row
-bit-equal and votes within 1e-5 of each query's count; the fused
+bit-equal and votes within 1e-5 of each query's count, also placed at
+random rows (pass B written, pass A added), and two calls bit-equal; the fused
 SHOT/USC entries on the card against the port's own CPU run: valid flags
 equal on >= 99%, descriptor cosine >= 0.999 on >= 97% (an LRF sign vote
 at its tie threshold may flip under the card's last-bit differences).
@@ -579,6 +580,95 @@ def test_shot_kernels_match_plain(cuda, band, tile):
                 else:
                     err = (got[:dim] - ref[:dim]).abs().amax(0)
                     assert (err <= 1e-5 * ref[dim].clamp_min(1)).all()
+
+
+def _placed(hist_a, hist_b, inputs, r2, band, tile, variant, rows_a, rows_b):
+    """Pass B written at ``rows_b`` into a NaN-filled query-major buffer,
+    then pass A added at ``rows_a``: (after B, after A)."""
+    pa, p8, lrf, lrf_b = inputs
+    dim = 352 if variant == "shot" else 128
+    out = torch.full((pa.shape[1], dim + 1), float("nan"), device=pa.device)
+    hist_b(p8, lrf_b, r2, band, tile, variant, out=out, rows=rows_b)
+    after_b = out.clone()
+    hist_a(pa, lrf, r2, band, tile, variant, out=out, rows=rows_a, accumulate=True)
+    return after_b, out
+
+
+def _assert_hist_rows(got, ref, dim):
+    """Query-major rows: the count column bit-equal, USC every row
+    bit-equal, SHOT votes within 1e-5 of each query's count."""
+    assert torch.equal(got[:, dim], ref[:, dim])
+    if dim == 128:
+        assert torch.equal(got, ref)
+    else:
+        err = (got[:, :dim] - ref[:, :dim]).abs().amax(1)
+        assert (err <= 1e-5 * ref[:, dim].clamp_min(1)).all()
+
+
+def _check_placed(inputs, r2, band, tile, seed):
+    """Both placed modes at random permutations against the plain
+    versions, for both variants; two kernel calls give the same bits."""
+    n = inputs[0].shape[1]
+    gen = np.random.default_rng(seed)
+    rows_a, rows_b = (torch.from_numpy(gen.permutation(n).astype(np.int32))
+                      .to(inputs[0].device) for _ in range(2))
+    for variant, dim in (("usc", 128), ("shot", 352)):
+        geom = (r2, band, tile, variant, rows_a, rows_b)
+        got = _placed(shot.shot_hist_a_tiles, shot.shot_hist_b_tiles, inputs, *geom)
+        again = _placed(shot.shot_hist_a_tiles, shot.shot_hist_b_tiles, inputs, *geom)
+        ref = _placed(shot.shot_hist_a_plain, shot.shot_hist_b_plain, inputs, *geom)
+        for g, a, r in zip(got, again, ref):
+            assert torch.equal(g, a)
+            _assert_hist_rows(g, r, dim)
+    return ref
+
+
+@pytest.mark.parametrize("band,tile", [(32, 256), (16, 128), (64, 64)])
+def test_shot_hist_placed_match_plain(cuda, band, tile):
+    """Pass B written at a random permutation of rows, pass A added at
+    another, at r = 0.25 and 1.0: against the plain versions' placed
+    modes; a second call gives the same bits (the SHOT votes sum in a
+    fixed order)."""
+    inputs = _shot_inputs(cuda, 20_000, 10, tile)
+    for r in (0.25, 1.0):
+        ref = _check_placed(inputs, r * r, band, tile, band)
+        assert ref[1][:, -1].max() > 3                 # the SHOT count column
+
+
+@pytest.mark.parametrize("case", ["one tile", "band 0", "isolated", "all invalid",
+                                  "wide band"])
+def test_shot_hist_edge_cases(cuda, case):
+    """A cloud of one tile (a partly filled last block), band 0 (the
+    query alone, never selected), queries with no candidate in radius
+    (every other sorted point moved kilometres from all others),
+    all-invalid rows, and a band too wide to stage for SHOT (candidates
+    read through L1; USC stages above 48 KB), in both modes and
+    variants, against the plain versions."""
+    tile, band, r2 = 256, 32, 0.0625
+    n = {"one tile": 200, "wide band": 8000}.get(case, 20_000)
+    if case == "wide band":
+        tile, band = 4096, 3300
+    pa, p8, lrf, lrf_b = _shot_inputs(cuda, n, 13, tile)
+    if case in ("one tile", "wide band"):
+        r2 = 400.0         # a few thousand scan points are metres apart
+    if case == "band 0":
+        band = 0
+    elif case == "isolated":
+        col = torch.arange(pa.shape[1], device=cuda)
+        shift = torch.where(col % 2 == 1, 1000.0 * col.float(), 0.0)
+        pa[0:3] += shift
+        p8[0:3] += shift[p8[7].long()]
+    elif case == "all invalid":
+        pa[3] = 0.0
+        p8[3] = 0.0
+    ref = _check_placed((pa, p8, lrf, lrf_b), r2, band, tile, 1)
+    counts = ref[1][:, -1]
+    if case in ("band 0", "all invalid"):
+        assert (ref[1] == 0).all()
+    elif case == "isolated":
+        assert (counts == 0).sum() >= pa.shape[1] // 2 and counts.max() > 3
+    else:
+        assert pa.shape[1] == {"one tile": tile}.get(case, 2 * tile) and counts.max() > 3
 
 
 def test_shot_entries_on_card_launch_their_kernels(cuda):

@@ -53,9 +53,9 @@ _SIGNATURES = {
     # packed, out, n, band, r2, radius, stream
     "tc_shot_moments_a": (_P, _P, _I, _I, _F, _F, _P),
     "tc_shot_moments_b": (_P, _P, _I, _I, _F, _F, _P),
-    # packed, lrf, out, n, band, r2, inv_r, usc, stream
-    "tc_shot_hist_a": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
-    "tc_shot_hist_b": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
+    # packed, lrf, out, rows (or null), n, band, r2, inv_r, usc, accumulate, stream
+    "tc_shot_hist_a": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P),
+    "tc_shot_hist_b": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P),
     # pts, valid, ids, neg, ids_out, crd, n, tile, k, with_coords, exclude_self, stream
     "tc_knn_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -25,7 +25,10 @@ query's, so the two passes' sums add up to the union of both windows.
   axis, z axis] → ``(dim + 1, N)``: 8 azimuth sectors (the reproduced
   ``_atan2_approx``) × 2 elevation halves × 2 radial shells × 11 soft
   cos(normal, z) bins (SHOT, dim 352), or × 8 radial shells (USC, dim
-  128), then the count.
+  128), then the count. Or, placed: each query's dim + 1 floats written
+  to (or added to) row ``rows[p]`` of a query-major ``(n_rows, dim + 1)``
+  buffer, so that ``_shot_fused`` sums both passes in input order with
+  no gather.
 
 ``r2`` is rounded once to fp32; R = sqrt(r2) and, for USC, 1/sqrt(r2)
 are rounded from it as the Pallas bodies get them (``jnp.sqrt`` and
@@ -36,8 +39,8 @@ count rows and the bin ids equal each other's: the USC rows bit for bit,
 the SHOT soft votes and the moment sums up to summation order.
 
 On the card all four are bound by the bytes they move, the histograms
-by their output (353 floats per query and pass; see the source note in
-``csrc/shot.cu``).
+by their output (353 floats per query and pass, read too where they add;
+see the source note in ``csrc/shot.cu``).
 """
 
 from __future__ import annotations
@@ -110,46 +113,91 @@ def _moments_plain(packed, r2, band, tile, excl):
     return out
 
 
-def _hist_plain(packed, lrf, r2, band, tile, excl, variant):
+def _check_out(packed, n, dim, out, rows, accumulate):
+    """Refuse a placement the kernels do not take: ``out`` an
+    ``(n_rows, dim + 1)`` contiguous float32 tensor on the inputs' device,
+    ``rows`` int32 of length N on that device with every row in
+    [0, n_rows); ``rows`` and ``accumulate`` only with ``out``."""
+    if out is None:
+        if rows is not None or accumulate:
+            raise ValueError("rows and accumulate need out")
+        return
+    if out.dtype != torch.float32:
+        raise TypeError(f"out must be float32, got {out.dtype}")
+    if out.ndim != 2 or out.shape[1] != dim + 1:
+        raise ValueError(f"out must be (n_rows, {dim + 1}), got {tuple(out.shape)}")
+    if out.device != packed.device:
+        raise ValueError("out must be on the inputs' device")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if rows is None:
+        if out.shape[0] < n:
+            raise ValueError(f"out has {out.shape[0]} rows, fewer than N={n}")
+        return
+    if rows.dtype != torch.int32:
+        raise TypeError(f"rows must be int32, got {rows.dtype}")
+    if rows.shape != (n,):
+        raise ValueError(f"rows must be ({n},), got {tuple(rows.shape)}")
+    if rows.device != out.device:
+        raise ValueError("rows must be on out's device")
+    lo, hi = torch.stack(torch.aminmax(rows)).tolist()
+    if lo < 0 or hi >= out.shape[0]:
+        raise ValueError(f"rows must lie in [0, {out.shape[0]}), got [{lo}, {hi}]")
+
+
+def candidate_votes(packed, lrf, r2, band, c0, c1, excl, variant):
+    """The votes of queries c0 … c1−1 over their C = 2·band + 1 candidates
+    (column p − band + k at k): ``(sel, lo_bin, v_lo, hi_bin, v_hi)``,
+    each ``(Q, C)``. Each selected candidate votes ``v_lo`` to ``lo_bin``
+    (the USC bin, or the lower SHOT cos bin: the whole vote at the top
+    one) and ``v_hi`` to ``hi_bin`` (SHOT's upper cos bin; 0 at the top,
+    and 0 to bin 0 for USC); an unselected one votes 0 to bin 0."""
+    r2 = _r2_f32(r2)
+    cand, _, (dx, dy, dz), d2, sel = band_candidates(packed, c0, c1, band, r2, 1e-18,
+                                                     7 if excl else None)
+    f = lrf[:, c0:c1, None]
+    lx = dx * f[0] + dy * f[1] + dz * f[2]
+    ly = dx * f[3] + dy * f[4] + dz * f[5]
+    lz = dx * f[6] + dy * f[7] + dz * f[8]
+    az_bin = ((atan2_approx(ly, lx) + _PI) * _AZ_SCALE).to(torch.int32).clamp(0, 7)
+    el_bin = (lz >= 0).to(torch.int32)
+    sel_f = sel.to(torch.float32)
+    if variant == "usc":
+        rad = ((torch.sqrt(torch.clamp_min(d2, 0.0)) * _inv_radius_f32(r2)) * 8.0).to(
+            torch.int32).clamp(0, 7)
+        jid = torch.where(sel, (az_bin * 2 + el_bin) * 8 + rad, 0).long()
+        return sel, jid, sel_f, torch.zeros_like(jid), torch.zeros_like(sel_f)
+    rad = (d2 >= 0.25 * r2).to(torch.int32)
+    vol = (az_bin * 2 + el_bin) * 2 + rad
+    cosn = cand[4] * f[6] + cand[5] * f[7] + cand[6] * f[8]
+    pos = torch.clamp((cosn + 1.0) * (0.5 * N_COS) - 0.5, 0.0, float(N_COS - 1))
+    lo = pos.to(torch.int32)
+    frac = pos - lo.to(torch.float32)
+    at_top = lo == N_COS - 1
+    jid = torch.where(sel, vol * N_COS + lo, 0).long()
+    return (sel, jid, torch.where(at_top, sel_f, sel_f * (1.0 - frac)),
+            torch.where(at_top, jid, jid + 1), torch.where(at_top, 0.0, sel_f * frac))
+
+
+def _hist_plain(packed, lrf, r2, band, tile, excl, variant, out=None, rows=None,
+                accumulate=False):
     dim = _dim(variant)
     n = _check(packed, 8 if excl else 7, band, tile, lrf)
-    inv_r = _inv_radius_f32(r2)
-    r2 = _r2_f32(r2)
-    out = torch.empty((dim + 1, n), dtype=torch.float32, device=packed.device)
+    _check_out(packed, n, dim, out, rows, accumulate)
+    dest = torch.empty((n, dim + 1), dtype=torch.float32,
+                       device=packed.device) if out is None else out
     for c0 in range(0, n, _CHUNK_QUERIES):
         c1 = min(c0 + _CHUNK_QUERIES, n)
-        cand, _, (dx, dy, dz), d2, sel = band_candidates(packed, c0, c1, band, r2,
-                                                         1e-18, 7 if excl else None)
-        f = lrf[:, c0:c1, None]
-        lx = dx * f[0] + dy * f[1] + dz * f[2]
-        ly = dx * f[3] + dy * f[4] + dz * f[5]
-        lz = dx * f[6] + dy * f[7] + dz * f[8]
-        az_bin = ((atan2_approx(ly, lx) + _PI) * _AZ_SCALE).to(torch.int32).clamp(0, 7)
-        el_bin = (lz >= 0).to(torch.int32)
-        sel_f = sel.to(torch.float32)
+        sel, lo_bin, v_lo, hi_bin, v_hi = candidate_votes(packed, lrf, r2, band, c0, c1,
+                                                          excl, variant)
         hist = torch.zeros((c1 - c0, dim + 1), dtype=torch.float32, device=packed.device)
-        if variant == "usc":
-            rad = ((torch.sqrt(torch.clamp_min(d2, 0.0)) * inv_r) * 8.0).to(
-                torch.int32).clamp(0, 7)
-            jid = (az_bin * 2 + el_bin) * 8 + rad
-            hist.scatter_add_(1, torch.where(sel, jid, 0).long(), sel_f)
-        else:
-            rad = (d2 >= 0.25 * r2).to(torch.int32)
-            vol = (az_bin * 2 + el_bin) * 2 + rad
-            cosn = cand[4] * f[6] + cand[5] * f[7] + cand[6] * f[8]
-            pos = torch.clamp((cosn + 1.0) * (0.5 * N_COS) - 0.5, 0.0, float(N_COS - 1))
-            lo = pos.to(torch.int32)
-            frac = pos - lo.to(torch.float32)
-            at_top = lo == N_COS - 1
-            # the whole vote to lo at the top bin, else lo and lo + 1
-            jid = torch.where(sel, vol * N_COS + lo, 0)
-            hist.scatter_add_(1, jid.long(), torch.where(at_top, sel_f,
-                                                         sel_f * (1.0 - frac)))
-            hist.scatter_add_(1, torch.where(at_top, jid, jid + 1).long(),
-                              torch.where(at_top, 0.0, sel_f * frac))
-        hist[:, dim] = sel_f.sum(-1)
-        out[:, c0:c1] = hist.T
-    return out
+        hist.scatter_add_(1, lo_bin, v_lo)
+        if variant == "shot":
+            hist.scatter_add_(1, hi_bin, v_hi)
+        hist[:, dim] = sel.to(torch.float32).sum(-1)
+        at = slice(c0, c1) if rows is None else rows[c0:c1].long()
+        dest[at] = dest[at] + hist if accumulate else hist
+    return dest.T if out is None else out
 
 
 def shot_moments_a_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
@@ -163,15 +211,19 @@ def shot_moments_b_plain(packed, r2: float, band: int, tile: int = 256) -> torch
 
 
 def shot_hist_a_plain(packed, lrf, r2: float, band: int, tile: int = 256,
-                      variant: str = "shot") -> torch.Tensor:
-    """Plain PyTorch histogram pass A, chunked over queries."""
-    return _hist_plain(packed, lrf, r2, band, tile, False, variant)
+                      variant: str = "shot", *, out=None, rows=None,
+                      accumulate: bool = False) -> torch.Tensor:
+    """Plain PyTorch histogram pass A, chunked over queries; ``out``,
+    ``rows`` and ``accumulate`` as ``shot_hist_a_tiles`` takes them."""
+    return _hist_plain(packed, lrf, r2, band, tile, False, variant, out, rows, accumulate)
 
 
 def shot_hist_b_plain(packed, lrf, r2: float, band: int, tile: int = 256,
-                      variant: str = "shot") -> torch.Tensor:
-    """Plain PyTorch histogram pass B, chunked over queries."""
-    return _hist_plain(packed, lrf, r2, band, tile, True, variant)
+                      variant: str = "shot", *, out=None, rows=None,
+                      accumulate: bool = False) -> torch.Tensor:
+    """Plain PyTorch histogram pass B, chunked over queries; ``out``,
+    ``rows`` and ``accumulate`` as ``shot_hist_b_tiles`` takes them."""
+    return _hist_plain(packed, lrf, r2, band, tile, True, variant, out, rows, accumulate)
 
 
 def _launch_moments(name, packed, r2, band, tile, rows):
@@ -186,18 +238,23 @@ def _launch_moments(name, packed, r2, band, tile, rows):
     return out
 
 
-def _launch_hist(name, packed, lrf, r2, band, tile, rows, variant):
+def _launch_hist(name, packed, lrf, r2, band, tile, n_rows, variant, out, rows,
+                 accumulate):
     dim = _dim(variant)
-    n = _check(packed, rows, band, tile, lrf)
+    n = _check(packed, n_rows, band, tile, lrf)
+    _check_out(packed, n, dim, out, rows, accumulate)
     packed, lrf = packed.contiguous(), lrf.contiguous()
-    out = torch.empty((dim + 1, n), dtype=torch.float32, device=packed.device)
+    dest = torch.empty((n, dim + 1), dtype=torch.float32,
+                       device=packed.device) if out is None else out
+    rows = None if rows is None else rows.contiguous()
     with torch.cuda.device(packed.device):
         err = getattr(_build.lib(), "tc_" + name)(
-            packed.data_ptr(), lrf.data_ptr(), out.data_ptr(), n, band, _r2_f32(r2),
-            _inv_radius_f32(r2), int(variant == "usc"),
+            packed.data_ptr(), lrf.data_ptr(), dest.data_ptr(),
+            None if rows is None else rows.data_ptr(), n, band, _r2_f32(r2),
+            _inv_radius_f32(r2), int(variant == "usc"), int(accumulate),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    return out
+    return dest.T if out is None else out
 
 
 def shot_moments_a_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
@@ -221,26 +278,38 @@ def shot_moments_b_tiles(packed, r2: float, band: int, tile: int = 256) -> torch
 
 
 def shot_hist_a_tiles(packed, lrf, r2: float, band: int, tile: int = 256,
-                      variant: str = "shot") -> torch.Tensor:
-    """Histogram pass A over ±band sorted positions: ``(dim + 1, N)``,
-    dim 352 (``variant="shot"``) or 128 (``"usc"``)."""
+                      variant: str = "shot", *, out=None, rows=None,
+                      accumulate: bool = False) -> torch.Tensor:
+    """Histogram pass A over ±band sorted positions, dim 352
+    (``variant="shot"``) or 128 (``"usc"``). Without ``out``: ``(dim + 1,
+    N)`` (the transposed view of a query-major buffer). With ``out``
+    (``(n_rows, dim + 1)`` float32, contiguous): query p's dim + 1 floats
+    are written to ``out[rows[p]]`` (``rows`` int32, distinct rows,
+    default p), or added to what that row holds with ``accumulate``, and
+    ``out`` is returned."""
     if not _build.on_card(packed):
-        return shot_hist_a_plain(packed, lrf, r2, band, tile, variant)
-    out = _launch_hist("shot_hist_a", packed, lrf, r2, band, tile, 7, variant)
+        return shot_hist_a_plain(packed, lrf, r2, band, tile, variant, out=out, rows=rows,
+                                 accumulate=accumulate)
+    res = _launch_hist("shot_hist_a", packed, lrf, r2, band, tile, 7, variant, out, rows,
+                       accumulate)
     shot_hist_a_tiles.launches += 1
-    return out
+    return res
 
 
 def shot_hist_b_tiles(packed, lrf, r2: float, band: int, tile: int = 256,
-                      variant: str = "shot") -> torch.Tensor:
+                      variant: str = "shot", *, out=None, rows=None,
+                      accumulate: bool = False) -> torch.Tensor:
     """Histogram pass B over ``(8, N)`` rows (+ the pass-A position as
-    fp32) with the frames in pass-B order: ``(dim + 1, N)`` over
-    candidates more than ``band`` pass-A positions from the query."""
+    fp32) with the frames in pass-B order, over candidates more than
+    ``band`` pass-A positions from the query; output and placement as
+    ``shot_hist_a_tiles``."""
     if not _build.on_card(packed):
-        return shot_hist_b_plain(packed, lrf, r2, band, tile, variant)
-    out = _launch_hist("shot_hist_b", packed, lrf, r2, band, tile, 8, variant)
+        return shot_hist_b_plain(packed, lrf, r2, band, tile, variant, out=out, rows=rows,
+                                 accumulate=accumulate)
+    res = _launch_hist("shot_hist_b", packed, lrf, r2, band, tile, 8, variant, out, rows,
+                       accumulate)
     shot_hist_b_tiles.launches += 1
-    return out
+    return res
 
 
 shot_moments_a_tiles.launches = 0

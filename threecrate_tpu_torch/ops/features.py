@@ -404,7 +404,8 @@ def _shot_fused(points, mask, normals_arr, radius: float, variant: str = "shot",
     covariance and sign votes, the LRF is solved batched, and two
     histogram passes bin the in-LRF displacements straight from the
     Morton-band candidates; a fixed radius makes the two windows' sums add
-    up to their union."""
+    up to their union, which the kernels form in input order (pass B
+    writes each query's row at its input row, pass A adds to it)."""
     from ..kernels.shot import (shot_hist_a_tiles, shot_hist_b_tiles,
                                 shot_moments_a_tiles, shot_moments_b_tiles)
 
@@ -423,15 +424,20 @@ def _shot_fused(points, mask, normals_arr, radius: float, variant: str = "shot",
                            packed_a[4:7].T if variant == "shot" else None)
     del mom_a, mom_b
 
-    h = shot_hist_b_tiles(torch.cat([packed_b, pos_a]).contiguous(),
-                          lrf[row_a].T.contiguous(), r2, band, tile, variant)[:, inv_b]
-    h += shot_hist_a_tiles(packed_a, lrf.T.contiguous(), r2, band, tile, variant)
-    valid_s = (packed_a[3] > 0.5) & (h[-1] >= 5)
-    desc = h[:-1]
-    desc /= torch.clamp_min(torch.linalg.vector_norm(desc, dim=0), 1e-12)
-    desc *= valid_s
-    inv_a = neighbors._inverse(perm_a)
-    return desc.T[inv_a][:n], valid_s[inv_a][:n] & mask
+    # query-major rows in input order: pass B writes each position's row at
+    # its input row, pass A adds to it (the fp32 sum h_b + h_a)
+    dim = SHOT_DIM if variant == "shot" else USC_DIM
+    rows_a = perm_a.to(torch.int32)
+    h = torch.empty((packed_a.shape[1], dim + 1), dtype=torch.float32, device=points.device)
+    shot_hist_b_tiles(torch.cat([packed_b, pos_a]).contiguous(), lrf[row_a].T.contiguous(),
+                      r2, band, tile, variant, out=h, rows=rows_a[row_a])
+    shot_hist_a_tiles(packed_a, lrf.T.contiguous(), r2, band, tile, variant, out=h,
+                      rows=rows_a, accumulate=True)
+    h = h[:n]
+    valid = mask & (h[:, dim] >= 5)
+    norm = torch.clamp_min(torch.linalg.vector_norm(h[:, :dim], dim=1, keepdim=True), 1e-12)
+    # one pass: unit rows where valid, zeros (finite / inf) elsewhere
+    return h[:, :dim] / torch.where(valid[:, None], norm, torch.inf), valid
 
 
 def _shot_descriptor_block(nbr, nbr_nrm, ok, dist, own, own_nrm, radius,

@@ -92,7 +92,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {torch.cuda.get_device_name(0)} | nvidia-smi: {card}", flush=True)
     dev = torch.device("cuda:0")
-    pa, pb, pos_b = chip_smoke.fpfh_inputs(dev)
+    pa, pb, pos_b, _ = chip_smoke.fpfh_inputs(dev)
     r2 = chip_smoke.FPFH_RADIUS ** 2
     p2a, p2b = chip_smoke.stage2_inputs(pa, pb, pos_b, fpfh.spfh_a_tiles(pa, r2, TILE),
                                         fpfh.spfh_b_tiles(pb, pos_b, r2, TILE))

@@ -116,7 +116,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {torch.cuda.get_device_name(0)} | nvidia-smi: {card}", flush=True)
     dev = torch.device("cuda:0")
-    pa, pb, pos_b = chip_smoke.fpfh_inputs(dev)
+    pa, pb, pos_b, _ = chip_smoke.fpfh_inputs(dev)
     n = pa.shape[1]
     out = torch.empty((34, n), device=dev)
     # timing name -> (pass B, radius)
