@@ -18,7 +18,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    sorted points of the registration target (r = 0.5, tile 256, and at
    the default FPFH's stage-2 radius r = 0.25), the
    two banded SPFH kernels on the same points (r = 0.25, band 48, tile
-   256), ``knn_window_tiles`` on the sorted 1M scan (tile 128) at k = 10,
+   256; all 34 rows on every column, padding included, with the pairs
+   each query selects, the drain rounds of a warp's pair queue and the
+   offsets at which some lane of a warp selects), ``knn_window_tiles``
+   on the sorted 1M scan (tile 128) at k = 10,
    k = 10 with coordinates, k = 9, k = 64 with self excluded and k = 128
    with coordinates and self excluded (its plain version timed once), the
    four SHOT/USC kernels on the same sorted target points (r = 0.25,
@@ -355,6 +358,26 @@ def stage2_inputs(pa, pb, pos_b, spfh_a, spfh_b):
     spfh = raw[:, :33] / raw[:, 33:].clamp_min(1.0)
     return (torch.cat([pa[0:4], spfh.T]).contiguous(),
             torch.cat([pb[0:4], spfh[pos_b[0].long()].T]).contiguous())
+
+
+def band_warp_work(packed: torch.Tensor, band: int, r2: float, pos_row=None):
+    """(selected pairs a query, drain rounds a warp, offsets a warp at
+    which some lane selects) of a banded SPFH kernel on ``packed``: a
+    warp serves 32 consecutive queries and drains its queue once per 32
+    selected pairs; a one-query-a-thread sweep runs the pair body at each
+    offset where any of its 32 lanes selects."""
+    from threecrate_tpu_torch.kernels import fpfh
+
+    n, step = packed.shape[1], 1 << 16
+    pairs, rounds, offsets = 0, 0, 0
+    for c0 in range(0, n, step):
+        sel = fpfh.band_candidates(packed, c0, min(c0 + step, n), band,
+                                   float(np.float32(r2)), 1e-12, pos_row)[4]
+        warp = sel.view(-1, 32, sel.shape[1])
+        pairs += int(sel.sum().item())
+        rounds += int(((warp.sum((1, 2)) + 31) // 32).sum().item())
+        offsets += int(warp.any(1).sum().item())
+    return pairs / n, rounds / (n // 32), offsets / (n // 32)
 
 
 def pose_error(t: np.ndarray, rot: np.ndarray):
@@ -942,9 +965,13 @@ def main() -> int:
         exact = share((got == ref).all(0))
         fpfh_err[kname] = (got - ref).abs().max().item()
         pairs[kname] = ref[33].sum().item()
+        per_query, rounds, offsets = band_warp_work(band_args[kname][0], BAND, rb2,
+                                                    7 if kname == "spfh_band_b" else None)
         log(f"  {kname}: N={pa.shape[1]} r={BAND_RADIUS} band={BAND} all 34 rows bit-equal "
             f"{exact:.6f} (need 1), max abs err {fpfh_err[kname]:.3e}, mean count "
-            f"{ref[33][v_a if kname == 'spfh_band_a' else v_b].mean().item():.2f}")
+            f"{ref[33][v_a if kname == 'spfh_band_a' else v_b].mean().item():.2f}; selected "
+            f"pairs a query {per_query:.2f}, drain rounds a warp {rounds:.2f}, offsets a warp "
+            f"with a selecting lane {offsets:.2f} of {2 * BAND + 1}")
         check(exact == 1.0, f"{kname} disagrees")
     shot_calls, shot_err, shot_pairs = shot_kernel_checks(pa, pb, pos_b, perm_a)
     pairs.update(shot_pairs)

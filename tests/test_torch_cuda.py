@@ -380,18 +380,44 @@ def test_spfh_kernel_special_inputs(cuda, tile, case):
             assert ref[33].sum() > 0
 
 
-@pytest.mark.parametrize("band,tile", [(16, 64), (64, 64), (48, 256), (256, 256)])
+def _band_pair(kname, packed, r2, band, tile):
+    """(kernel rows, plain rows) of a banded SPFH kernel; a second call
+    must give the kernel's rows bit for bit."""
+    got = getattr(fpfh, kname + "_tiles")(packed, r2, band, tile)
+    assert torch.equal(getattr(fpfh, kname + "_tiles")(packed, r2, band, tile), got)
+    return got, getattr(fpfh, kname + "_plain")(packed, r2, band, tile)
+
+
+@pytest.mark.parametrize("band,tile", [(16, 64), (64, 64), (48, 256), (256, 256), (0, 64),
+                                       (1024, 1024), (1, 8), (8, 8), (16, 16), (32, 32)])
 def test_band_kernels_edges(cuda, band, tile):
-    """The banded SPFH kernels, which share the pair arithmetic of the
-    full-window ones, on the edge-case clouds: all 34 rows bit-equal."""
+    """The banded SPFH kernels, which share the pair arithmetic and the
+    pair queue of the full-window ones, on the edge-case clouds: all 34
+    rows bit-equal and two calls bit-equal, as drawn (10% of the columns
+    invalid at random), with one tile holding no valid column, and with
+    every third column invalid among valid neighbours (invalid queries
+    are served as any other). Tiles 8 and 16 leave lanes idle; band =
+    tile = 1024 stages the widest span; band 0 selects nothing."""
     pa, _ = spfh_inputs(tile, 1.0, False, device=cuda)
     pb, pos = spfh_inputs(tile, 1.0, True, device=cuda)
     p8 = torch.cat([pb, pos.to(torch.float32)]).contiguous()
-    for r2 in (0.16, 1e4):
-        assert torch.equal(fpfh.spfh_band_a_tiles(pa, r2, band, tile),
-                           fpfh.spfh_band_a_plain(pa, r2, band, tile))
-        assert torch.equal(fpfh.spfh_band_b_tiles(p8, r2, band, tile),
-                           fpfh.spfh_band_b_plain(p8, r2, band, tile))
+    for case in ("as drawn", "invalid tile", "invalid queries"):
+        rows = {"spfh_band_a": pa.clone(), "spfh_band_b": p8.clone()}
+        for packed in rows.values():
+            if case == "invalid tile":
+                packed[3, tile:2 * tile] = 0.0
+            elif case == "invalid queries":
+                packed[3] = 1.0
+                packed[3, ::3] = 0.0
+        for r2 in (0.16, 1e4):
+            for kname, packed in rows.items():
+                got, ref = _band_pair(kname, packed, r2, band, tile)
+                assert torch.equal(got, ref), (case, r2, kname)
+                valid = packed[3] > 0.5
+                if band == 0:
+                    assert ref[33].sum() == 0
+                elif case == "invalid queries" and band >= 8 and r2 > 1 and "_a" in kname:
+                    assert ref[33][~valid].min() > 0      # served, with valid neighbours
 
 
 def test_registration_model_on_card(cuda, monkeypatch):
@@ -424,18 +450,24 @@ def test_registration_model_on_card(cuda, monkeypatch):
             assert not any(counts.values())
 
 
-@pytest.mark.parametrize("band,tile", [(16, 128), (48, 256), (64, 512)])
+@pytest.mark.parametrize("band,tile", [(16, 128), (48, 256), (64, 512), (0, 256), (8, 8),
+                                       (16, 16), (32, 32), (1024, 1024)])
 def test_band_kernels_match_plain(cuda, band, tile):
+    """The banded SPFH kernels on a 20,000-point scan with its normals at
+    the FPFH rungs, band 0, tiles narrower than a warp and the widest
+    span: all 34 rows bit-equal, two calls bit-equal."""
     pc = tt.PointCloud.from_numpy(_scan(20_000, 7), pad_multiple=tile, device=cuda)
     nrm = tn.estimate_normals_detailed(pc).normals
     pa, pb, row_a, _ = tf.fused_stage1_inputs(pc.points, pc.mask, nrm, tile)
     p8 = torch.cat([pb, row_a.to(torch.float32)[None]]).contiguous()
     for r2 in (0.0625, 1.0):
-        a = fpfh.spfh_band_a_tiles(pa, r2, band, tile)
-        b = fpfh.spfh_band_b_tiles(p8, r2, band, tile)
-        assert torch.equal(a, fpfh.spfh_band_a_plain(pa, r2, band, tile))
-        assert torch.equal(b, fpfh.spfh_band_b_plain(p8, r2, band, tile))
-        assert a[33].max() > 3 and b[33].max() > 0       # real neighbourhoods
+        a, ref_a = _band_pair("spfh_band_a", pa, r2, band, tile)
+        b, ref_b = _band_pair("spfh_band_b", p8, r2, band, tile)
+        assert torch.equal(a, ref_a) and torch.equal(b, ref_b)
+        if band >= 16:
+            assert a[33].max() > 3 and b[33].max() > 0       # real neighbourhoods
+        elif band == 0:
+            assert a[33].max() == 0 and b[33].max() == 0
 
 
 def _window_case(cuda, n, seed, tile, n_valid=None):

@@ -4,14 +4,15 @@
 // fpfh_weight_a_tiles, fpfh_weight_b_tiles, spfh_band_a_tiles and
 // spfh_band_b_tiles of threecrate_tpu/kernels/fpfh_pallas.py (bodies
 // _pair_hist with _atan2_approx, _weight_body and _spfh_band_body; the
-// banded kernels see the same prev/self/next segments but scan only the
-// +-band sorted positions around each query). The caller (ops/features.py,
+// banded kernels scan only the +-band sorted positions around each
+// query, see "Banded stage 1" below). The caller (ops/features.py,
 // _fpfh_fused) Morton-sorts the cloud twice and pads it to a multiple of
 // the tile; each block then serves one tile of queries against the
 // prev/self/next tiles of the sorted order.
 //
 // Layout: packed rows (R, n) row-major, R = 7 for stage 1 ([x, y, z,
-// valid, nx, ny, nz]) and 37 for stage 2 ([x, y, z, valid, spfh(33)]);
+// valid, nx, ny, nz]; the banded pass B 8, with each column's pass-A
+// position as fp32) and 37 for stage 2 ([x, y, z, valid, spfh(33)]);
 // pass-A positions (n) int32; outputs (34, n) row-major, all in sorted
 // order.
 //
@@ -62,6 +63,45 @@
 // 16-bit counters (int counters, 64 KB a block: 2-9% slower); 256
 // threads (128: 7-17% slower); a cap of 64 registers, 4 blocks an SM
 // (uncapped, 72 registers: 6-11% slower); the earlier sweep: 1.7-2.4x.
+//
+// Banded stage 1 (spfh_band_a/b, replacing spfh_band_a_tiles and
+// spfh_band_b_tiles, _spfh_band_body) takes stage 1's ring and counters
+// to the +-band sorted positions of each query. A block stages only its
+// span, the tile and band columns on each side (352 at tile 256 and
+// band 48, against a 3-tile window's 768), once, as 16-byte (x, y, z, w)
+// records and a float4 normal plane; w folds the candidate's validity
+// into the value its test reads (pass B: its pass-A position, compared
+// in fp32 as the Pallas body does). A warp serves 32 consecutive queries
+// (256 threads a block, looping over larger tiles) and sweeps their
+// 2 * band + 1 offsets kBandSteps (8) a step: a lane tests its query's
+// neighbour at each offset (the warp reads 32 consecutive records, one
+// LDS.128 each), then the warp appends the step's selections to its ring
+// offset by offset (a __ballot_sync and a __popc prefix each) and drains
+// it a warp of pairs at a time. The full steps carry no bound checks; the
+// last, partial one does. A count is at most 2 * band + 1 <= 2049, so
+// 16-bit counters hold it; it is written as the sum of the query's theta
+// votes (each pair casts one). Shared memory: 32 bytes a span column
+// plus 4.3 KB a warp (46 KB at tile 256 and band 48, 133 KB at tile and
+// band 1024).
+//
+// What bounds it: instruction issue. At r = 0.25 and band 48 on a 1M
+// LiDAR scan a warp drains 16.1 (A) and 8.4 (B) rounds; the earlier kernel
+// (one query a thread over three staged 7-8-row segments) ran the pair
+// body at every offset where a lane of the warp selected, 59.6 (A) and
+// 41.1 (B) of 97. The sweep, some 23 instructions a query and offset by
+// count (a distance, three tests, a ballot and the ring append), takes half
+// of pass A's time and two thirds of pass B's with the staging and the
+// rows (a probe without votes: 0.140 / 0.133 ms of 0.277 / 0.208), the
+// pair features a third of A's (0.098 ms), the shared atomics nothing.
+// Timed on the H100 at tile 256, 1M points, r = 0.25 and band 48
+// (tools/spfh_band_variants.py, see PERF.md): 8 offsets a step (1: 26-36%
+// slower, 2: 9-11%, 16: 11-12%, 4 and per-lane masks of 32 offsets
+// appended lane after lane: within the spread); steps without bound
+// checks (checked: 5-7% slower); 256 threads (128: 4-6% slower); a cap
+// of 64 registers, 4 blocks an SM (uncapped, 92 registers: 21-24% slower;
+// 5 or 6 blocks: within the spread); 16-bit counters (8-bit: within the
+// spread); no culling (boxes over the warp's 32 + 2 * band columns swept
+// column by column: 29-36% slower); the earlier kernel: 2.2x (A), 2.4x (B).
 //
 // Stage 2 stages the window once as 16-byte (x, y, z, tag) records and
 // the bounding boxes of its 16-column chunks (window.cuh; pass B's tag is
@@ -119,16 +159,6 @@ __device__ __forceinline__ int bin_of(float scaled) {
   return min(max(static_cast<int>(scaled), 0), kBins - 1);
 }
 
-// Stage rows [0, rows) of the sorted columns of candidate tile ct into
-// seg (rows x tile). Columns of a tile outside [0, n_t) are never read
-// (the caller skips the segment).
-__device__ __forceinline__ void load_segment(const float* __restrict__ packed, int n, int rows,
-                                             int ct, float* seg) {
-  const int tile = blockDim.x;
-  const long col = static_cast<long>(ct) * tile + threadIdx.x;
-  for (int r = 0; r < rows; ++r) seg[r * tile + threadIdx.x] = packed[r * static_cast<long>(n) + col];
-}
-
 // The query's normal and the bin scales of stage 1.
 struct QueryFrame {
   float n0, n1, n2;
@@ -137,12 +167,6 @@ struct QueryFrame {
 
 __device__ __forceinline__ float theta_scale() {
   return __fdiv_rn(static_cast<float>(kBins), kTwoPi);
-}
-
-__device__ __forceinline__ QueryFrame load_frame(const float* __restrict__ packed,
-                                                 int n, long col) {
-  return QueryFrame{packed[4L * n + col], packed[5L * n + col], packed[6L * n + col],
-                    theta_scale(), 0.5f * kBins};
 }
 
 // The vote rows (theta, cos phi, cos alpha) of one selected pair: the PCL
@@ -185,27 +209,6 @@ __device__ __forceinline__ int3 pair_bins(float dx, float dy, float dz, float d2
   return make_int3(bin_of(__fmul_rn(__fadd_rn(f1, kPi), f.theta_scale)),
                    kBins + bin_of(__fmul_rn(__fadd_rn(f2, 1.f), f.cos_scale)),
                    2 * kBins + bin_of(__fmul_rn(__fadd_rn(f3, 1.f), f.cos_scale)));
-}
-
-// One selected pair's three votes into the query's column i of hist
-// (33, tile).
-__device__ __forceinline__ void vote_pair(int* hist, int i, float dx, float dy,
-                                          float dz, float d2, const QueryFrame& f,
-                                          float cn0, float cn1, float cn2) {
-  const int tile = blockDim.x;
-  const int3 b = pair_bins(dx, dy, dz, d2, f, cn0, cn1, cn2);
-  ++hist[b.x * tile + i];
-  ++hist[b.y * tile + i];
-  ++hist[b.z * tile + i];
-}
-
-__device__ __forceinline__ void store_votes(const int* hist, int cnt,
-                                            float* __restrict__ out, int n, long col) {
-  const int tile = blockDim.x;
-  for (int b = 0; b < kHist; ++b) {
-    out[b * static_cast<long>(n) + col] = static_cast<float>(hist[b * tile + threadIdx.x]);
-  }
-  out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
 }
 
 // ---------------------------------------------------------------------------
@@ -267,17 +270,18 @@ __device__ __forceinline__ unsigned read_vote(const unsigned* votes, int bin, in
                             : (w >> (kVoteBits * (bin % kVotesPerWord))) & ((1u << kVoteBits) - 1u);
 }
 
-// Vote the ring's next k <= kWarp entries, one a lane: the pair's offsets
-// and d2 again from the staged records, with the sweep's operations, its
-// bins, and three shared atomic adds into its query's counters. self0 is
-// the window column of the warp's lane-0 query.
+// Vote the next k <= kWarp entries of a ring of kRing, one a lane: the
+// pair's offsets and d2 again from the staged records, with the sweep's
+// operations, its bins, and three shared atomic adds into its query's
+// counters. self0 is the window column of the warp's lane-0 query.
+template <int kRing = kQueue>
 __device__ __forceinline__ void drain(PairQueue& pq, int k, const float4* __restrict__ win,
                                       const float4* __restrict__ nrm, int self0,
                                       float th_scale) {
   __syncwarp();  // the entries are written
   const int lane = threadIdx.x % kWarp;
   if (lane < k) {
-    const int e = pq.ring[(pq.head + lane) % kQueue];
+    const int e = pq.ring[(pq.head + lane) % kRing];
     const int ql = e % kWarp;
     const int c = e / kWarp;
     const float4 q = win[self0 + ql];
@@ -397,53 +401,157 @@ cudaError_t launch_spfh(const float* packed, const int* pos_a, float* out, int n
   return cudaGetLastError();
 }
 
-// Banded stage 1 (_spfh_band_body): the candidates are the sorted
-// positions p - band ... p + band of query p (band <= tile, so they lie
-// in the prev/self/next tiles; the segments outside [0, n) are skipped).
-// Pass B reads each column's pass-A position from packed row 7 (fp32,
-// exact below 2^24 rows) and drops |posA_c - posA_q| <= band, compared
-// in fp32 as the Pallas body does. Rows as spfh_kernel.
-template <bool kPassB>
-__global__ void spfh_band_kernel(const float* __restrict__ packed,
-                                 float* __restrict__ out, int n, int band, float r2) {
-  constexpr int kRows = kPassB ? 8 : 7;
-  extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  const int i = threadIdx.x;
-  const int n_t = n / tile;
-  float* seg = smem;                                        // (kRows, tile)
-  int* hist = reinterpret_cast<int*>(smem + 8 * tile);      // (33, tile)
-  const long col = static_cast<long>(blockIdx.x) * tile + i;
-  const float qx = packed[col], qy = packed[n + col], qz = packed[2L * n + col];
-  const float q_pa = kPassB ? packed[7L * n + col] : 0.f;
-  const float band_f = static_cast<float>(band);
-  const QueryFrame f = load_frame(packed, n, col);
-  for (int b = 0; b < kHist; ++b) hist[b * tile + i] = 0;
-  int cnt = 0;
+// ---------------------------------------------------------------------------
+// Banded stage 1 (spfh_band_a/b, _spfh_band_body): the candidates of
+// query p are the sorted positions p - band ... p + band inside [0, n)
+// (band <= tile); pass B also drops |posA_c - posA_q| <= band, on the
+// fp32 pass-A positions of packed row 7. Rows as stage 1.
 
-  for (int s = 0; s < 3; ++s) {
-    const int ct = static_cast<int>(blockIdx.x) - 1 + s;
-    if (ct < 0 || ct >= n_t) continue;  // block-uniform
-    __syncthreads();
-    load_segment(packed, n, kRows, ct, seg);
-    __syncthreads();
-    // window column s*tile + c holds offset s*tile + c - (tile + i)
-    const int lo = max(0, i - band + (1 - s) * tile);
-    const int hi = min(tile - 1, i + band + (1 - s) * tile);
-    for (int c = lo; c <= hi; ++c) {
-      if (!(seg[3 * tile + c] > 0.5f)) continue;
-      if (kPassB && !(fabsf(__fsub_rn(seg[7 * tile + c], q_pa)) > band_f)) continue;
-      const float dx = __fsub_rn(seg[c], qx);
-      const float dy = __fsub_rn(seg[tile + c], qy);
-      const float dz = __fsub_rn(seg[2 * tile + c], qz);
-      const float d2 = dot3(dx, dy, dz, dx, dy, dz);
-      if (!(d2 <= r2 && d2 > 1e-12f)) continue;
-      vote_pair(hist, i, dx, dy, dz, d2, f, seg[4 * tile + c], seg[5 * tile + c],
-                seg[6 * tile + c]);
-      ++cnt;
+// Threads of a block (at least a warp: lanes past a narrower tile select
+// nothing), blocks an SM (which caps a thread's registers), offsets a lane
+// tests before the warp appends their selections, and entries of a warp's
+// ring (a step appends at most kBandSteps * kWarp pairs to fewer than a
+// warp's).
+constexpr int kBandThreads = 256;
+constexpr int kBandBlocks = 4;
+constexpr int kBandSteps = 8;
+constexpr int kBandQueue = 512;
+static_assert(kBandQueue >= (kBandSteps + 1) * kWarp && (kBandQueue & (kBandQueue - 1)) == 0,
+              "a step appends at most kBandSteps warps of pairs to a ring holding fewer");
+
+// Stage the block's span, the sorted columns tile * b - band ... tile *
+// b + tile + band - 1, as (x, y, z, w) records with their (nx, ny, nz, 0)
+// normals beside them. w carries the candidate side of the selection:
+// pass A 0 where the column is valid, pass B the column's pass-A position
+// (row 7) there; NaN where it is not valid, so that pass A's w == 0 and
+// pass B's |w - posA_q| > band are false exactly where valid_c && (the
+// same test on row 7) is. A column outside [0, n) is staged with w = NaN
+// and never read from device memory. The query side of the test never
+// reads w: a query is served whether it is valid or not.
+template <bool kPassB>
+__device__ __forceinline__ void stage_span(const float* __restrict__ packed, int n, int tile,
+                                           int band, float4* win, float4* nrm) {
+  const long c0 = static_cast<long>(blockIdx.x) * tile - band;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int j = threadIdx.x; j < tile + 2 * band; j += blockDim.x) {
+    const long col = c0 + j;
+    float4 r = make_float4(0.f, 0.f, 0.f, nan);
+    float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col >= 0 && col < n) {
+      const float w = kPassB ? packed[7L * n + col] : 0.f;
+      r = make_float4(packed[col], packed[n + col], packed[2L * n + col],
+                      packed[3L * n + col] > 0.5f ? w : nan);
+      m = make_float4(packed[4L * n + col], packed[5L * n + col], packed[6L * n + col], 0.f);
+    }
+    win[j] = r;
+    nrm[j] = m;
+  }
+}
+
+// One step of the banded sweep: lane l tests span columns c0 ... c0 +
+// kBandSteps - 1 of its query (kFull: all at most last, its last column;
+// else those that are), the warp's 32 lanes 32 consecutive records a
+// column; then the warp appends the selections column by column, each in
+// lane order, and drains while its ring holds a warp of pairs.
+template <bool kPassB, bool kFull>
+__device__ __forceinline__ void band_step(PairQueue& pq, int c0, int last,
+                                          const float4* __restrict__ win,
+                                          const float4* __restrict__ nrm, float4 q, float q_pa,
+                                          float band_f, float r2, bool active, int self0,
+                                          float th_scale) {
+  const int lane = threadIdx.x % kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  bool sel[kBandSteps];
+  unsigned ballot[kBandSteps];
+  unsigned any = 0u;
+#pragma unroll
+  for (int k = 0; k < kBandSteps; ++k) {
+    const float4 b = win[kFull ? c0 + k : min(c0 + k, last)];
+    const float d2 = tc::sq_dist(q.x, q.y, q.z, b.x, b.y, b.z);
+    const bool cand = kPassB ? fabsf(__fsub_rn(b.w, q_pa)) > band_f : b.w == 0.f;
+    sel[k] = active && (kFull || c0 + k <= last) && cand && d2 <= r2 && d2 > 1e-12f;
+    ballot[k] = __ballot_sync(~0u, sel[k]);
+    any |= ballot[k];
+  }
+  if (any == 0u) return;
+  const int e0 = c0 * kWarp + lane;
+#pragma unroll
+  for (int k = 0; k < kBandSteps; ++k) {
+    if (sel[k]) pq.ring[(pq.tail + __popc(ballot[k] & below)) % kBandQueue] = e0 + k * kWarp;
+    pq.tail += __popc(ballot[k]);
+  }
+  while (pq.tail - pq.head >= kWarp) drain<kBandQueue>(pq, kWarp, win, nrm, self0, th_scale);
+}
+
+template <bool kPassB>
+__global__ void __launch_bounds__(kBandThreads, kBandBlocks)
+spfh_band_kernel(const float* __restrict__ packed, float* __restrict__ out, int n, int tile,
+                 int band, float r2) {
+  extern __shared__ float4 win[];
+  const int span = tile + 2 * band;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  float4* nrm = win + span;
+  unsigned* votes = reinterpret_cast<unsigned*>(nrm + span);
+  int* rings = reinterpret_cast<int*>(votes + (blockDim.x / kWarp) * kVoteWords * kVoteStride);
+  PairQueue pq{rings + warp * kBandQueue, votes + warp * kVoteWords * kVoteStride, 0u, 0u};
+  stage_span<kPassB>(packed, n, tile, band, win, nrm);
+  __syncthreads();
+  const float th_scale = theta_scale();
+  const float band_f = static_cast<float>(band);
+
+  for (int base = 0; base < tile; base += blockDim.x) {  // block-uniform
+    const int i = base + static_cast<int>(threadIdx.x);
+    const bool active = i < tile;
+    const int qi = min(i, tile - 1);
+    const long col = static_cast<long>(blockIdx.x) * tile + qi;
+    const float4 q = win[band + qi];  // its x, y, z; w is not the query's
+    const float q_pa = kPassB ? packed[7L * n + col] : 0.f;
+    const int self0 = band + base + warp * kWarp;
+    for (int w = 0; w < kVoteWords; ++w) pq.votes[w * kVoteStride + lane] = 0u;
+    pq.head = pq.tail = 0u;
+    // the query's span columns qi ... qi + 2 * band, kBandSteps a step
+    const int last = qi + 2 * band;
+    int c0 = qi;
+    for (; c0 + kBandSteps - 1 <= last; c0 += kBandSteps) {
+      band_step<kPassB, true>(pq, c0, last, win, nrm, q, q_pa, band_f, r2, active, self0,
+                              th_scale);
+    }
+    if (c0 <= last) {
+      band_step<kPassB, false>(pq, c0, last, win, nrm, q, q_pa, band_f, r2, active, self0,
+                               th_scale);
+    }
+    drain<kBandQueue>(pq, static_cast<int>(pq.tail - pq.head), win, nrm, self0, th_scale);
+    if (active) {
+      // every pair votes once in theta: the count is the sum of its bins
+      int cnt = 0;
+      for (int b = 0; b < kHist; ++b) {
+        const unsigned v = read_vote(pq.votes, b, lane);
+        if (b < kBins) cnt += static_cast<int>(v);
+        out[b * static_cast<long>(n) + col] = static_cast<float>(v);
+      }
+      out[kHist * static_cast<long>(n) + col] = static_cast<float>(cnt);
     }
   }
-  store_votes(hist, cnt, out, n, col);
+}
+
+template <bool kPassB>
+cudaError_t launch_band(const float* packed, float* out, int n, int tile, int band, float r2,
+                        void* stream) {
+  const int threads = tile < kWarp ? kWarp : (tile > kBandThreads ? kBandThreads : tile);
+  const size_t smem =
+      2 * static_cast<size_t>(tile + 2 * band) * sizeof(float4) +
+      static_cast<size_t>(threads / kWarp) * (kVoteWords * kVoteStride + kBandQueue) *
+          sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spfh_band_kernel<kPassB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  spfh_band_kernel<kPassB><<<n / tile, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      packed, out, n, tile, band, r2);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -617,23 +725,6 @@ cudaError_t launch_weight(const float* packed, const int* pos_a, float* out, int
   return cudaGetLastError();
 }
 
-// One block of tile threads per query tile, with smem_rows * tile floats
-// of dynamic shared memory.
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int smem_rows, int n, int tile, void* stream,
-                   Args... args) {
-  const size_t smem = static_cast<size_t>(smem_rows) * tile * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<n / tile, tile, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return cudaGetLastError();
-}
-
-constexpr int kBandSmemRows = 8 + kHist;  // segment (7 or 8) + votes
-
 }  // namespace
 
 // The wrappers (kernels/fpfh.py) check shapes, dtypes and devices, that
@@ -661,12 +752,10 @@ extern "C" int tc_fpfh_weight_b(const float* packed, const int* pos_a, float* ou
 
 extern "C" int tc_spfh_band_a(const float* packed, float* out, int n, int tile, int band,
                               float r2, void* stream) {
-  return launch(spfh_band_kernel<false>, kBandSmemRows, n, tile, stream, packed, out, n,
-                band, r2);
+  return launch_band<false>(packed, out, n, tile, band, r2, stream);
 }
 
 extern "C" int tc_spfh_band_b(const float* packed, float* out, int n, int tile, int band,
                               float r2, void* stream) {
-  return launch(spfh_band_kernel<true>, kBandSmemRows, n, tile, stream, packed, out, n,
-                band, r2);
+  return launch_band<true>(packed, out, n, tile, band, r2, stream);
 }

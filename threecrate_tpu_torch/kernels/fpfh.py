@@ -38,7 +38,9 @@ On the card these are scans of the 3·tile window candidates of each
 query from shared memory, past the 16-column chunks whose bounding box
 lies beyond r2; stage 1 only selects in its scan and votes the selected
 pairs a warp at a time from a per-warp queue (see the source note in
-``csrc/fpfh.cu``).
+``csrc/fpfh.cu``). The banded stage 1 stages only each tile's ±band
+span and votes through the same queue: a warp tests its queries'
+neighbours eight offsets a step and only selects.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ the source or, where the text is not in the source, to the one
 ``nvcc`` per variant, all started together, with ``-Xptxas -v``) beside
 its copy of every header; registers and spills come from ptxas. Times are
 CUDA-event medians of 10 launches, taken in two rounds over all
-variants within the one call. Needs ``nvcc`` and one CUDA card.
+variants within the one call. A variant whose name starts with
+``probe: `` leaves out part of the work to time the rest; its output is
+compared but need not equal. Needs ``nvcc`` and one CUDA card.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "threecrate_tpu_torch" / "csrc"
 sys.path.insert(0, str(ROOT))
+# a variant named so is a timing probe: it leaves out part of the work, so
+# its output is not held to the committed source's
+PROBE = "probe: "
 
 
 def build(tmp: Path, source: str, variants, functions, label):
@@ -127,10 +132,11 @@ def compare_and_time(libs, runs, launch, out, same=None):
 
 def print_report(card: str, report, **meta) -> int:
     """One line per variant, then the JSON object as the last line; 0
-    where every variant's output equals the committed source's."""
+    where every variant's output equals the committed source's (a probe's
+    need not)."""
     ok = True
     for name, r in report.items():
-        ok &= all(r["rows_equal_committed"])
+        ok &= name.startswith(PROBE) or all(r["rows_equal_committed"])
         times = ", ".join(f"{run} {ms[0]:.4f} / {ms[1]:.4f}" for run, ms in r["ms"].items())
         print(f"{name}: {times} ms; rows equal to committed {r['rows_equal_committed']}; "
               f"{'; '.join(r['ptxas'])}", flush=True)
