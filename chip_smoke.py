@@ -25,11 +25,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    k = 10 with coordinates, k = 9, k = 64 with self excluded and k = 128
    with coordinates and self excluded (its plain version timed once), the
    four SHOT/USC kernels on the same sorted target points (r = 0.25,
-   band 32, tile 256; the histograms in both variants, on one set of
-   frames built from the plain moments, standalone and placed as
-   ``_shot_fused`` places them: pass B written at each position's input
-   row of a query-major buffer, then pass A added at its own; each twice,
-   the two calls bit-equal), and ``window_normals_tiles`` on
+   band 32, tile 256; the moments standalone and placed as
+   ``_shot_fused`` merges them: pass B written at each position's pass-A
+   row of a NaN-filled query-major buffer, then pass A adding it, held
+   to the plain placed merge and to ``mom_a.T + mom_b.T[argsort(row_a)]``;
+   the histograms in both variants, on one set of frames built from the
+   plain merged moments, standalone and placed as ``_shot_fused`` places
+   them: pass B written at each position's input row of a query-major
+   buffer, then pass A added at its own; each twice, the two calls
+   bit-equal), and ``window_normals_tiles`` on
    the sorted 1M scan (k = 10, tile 256) at band 16 (``window_fast``'s
    shape) and band 0 (the exact body);
 4. time each kernel and its plain version (CUDA-event medians), with the
@@ -81,8 +85,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
     the points whose whole neighbourhood lies in the two ±band windows
     (elsewhere the band sees a Morton-dependent part of it, as
     ``ShotConfig``'s note says); time and peak memory; a device profile
-    of one call (``torch.profiler``: wall, busy time, idle share and the
-    largest device entries);
+    of one call (``torch.profiler``: wall, busy time, idle share, the
+    largest device entries, the SHOT kernels' device times and the index
+    kernels' launches) and its host syncs (``torch.cuda.set_sync_debug_mode``);
 16. ``extract_usc_features(target)``: the SHOT moments and histogram
     kernels once each, the union kernels never; descriptors normalised;
     the same comparison, time, peak memory and profile as phase 15;
@@ -135,6 +140,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -561,6 +567,12 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
                            + pairs["shot_moments_a"] * 30),
         "shot_moments_b": (4 * n_f * (5 + 14), n_f * shot_c * 12
                            + pairs["shot_moments_b"] * 30),
+        # placed: pass B reads the int32 row and writes a 64-byte row a
+        # query; pass A reads a 64-byte row besides its own rows
+        "shot_moments_b placed": (4 * n_f * (5 + 1) + 64 * n_f, n_f * shot_c * 12
+                                  + pairs["shot_moments_b placed"] * 30),
+        "shot_moments_a plus": (4 * n_f * (4 + 14) + 64 * n_f, n_f * shot_c * 12
+                                + pairs["shot_moments_a plus"] * 30),
     }
     # the histograms: rows and frames in, dim + 1 floats out per query;
     # placed, the int32 row index in too, and where pass A adds, the row
@@ -586,6 +598,22 @@ def busy_time(fn) -> float:
     return device_profile(fn)[1]
 
 
+def host_syncs(fn) -> int:
+    """Host syncs in one call of ``fn`` after a warm-up: the warnings that
+    ``torch.cuda.set_sync_debug_mode("warn")`` raises in it."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def run_counted(kernels, total, fn):
     """fn() with the launch counters reset just before and read just
     after; the counts are added to ``total``, ``knn_window``'s also by
@@ -606,14 +634,37 @@ def only(counts, expected) -> bool:
     return all(counts[k] == expected.get(k, 0) for k in counts)
 
 
-def shot_hist_inputs(pa, pb, pos_b, perm_a, mom_a, mom_b):
+def shot_moment_inputs(pa, pb, pos_b):
+    """The moment kernels' phase-3 inputs as ``_shot_fused`` builds them:
+    ({kernel: packed rows}, the pass-A row of each pass-B position, int32)."""
+    return ({"shot_moments_a": pa[0:4].contiguous(),
+             "shot_moments_b": torch.cat([pb[0:4], pos_b.to(torch.float32)]).contiguous()},
+            pos_b[0].contiguous())
+
+
+def merged_moments(kind, packed, rows):
+    """Pass B of the moments written at ``rows`` into a NaN-filled
+    query-major buffer, then pass A adding it, through the ``kind``
+    functions ("tiles" or "plain"): (pass B's buffer, the merged (14, N)
+    rows in pass-A order), as ``_shot_fused`` merges them."""
+    from threecrate_tpu_torch.kernels import shot
+
+    geom = (SHOT_RADIUS * SHOT_RADIUS, SHOT_BAND, FPFH_TILE)
+    buf = torch.full((rows.shape[0], shot.MOMENT_ROW), float("nan"), device=rows.device)
+    getattr(shot, f"shot_moments_b_{kind}")(packed["shot_moments_b"], *geom, out=buf,
+                                            rows=rows)
+    return buf, getattr(shot, f"shot_moments_a_{kind}")(packed["shot_moments_a"], *geom,
+                                                        plus=buf)
+
+
+def shot_hist_inputs(pa, pb, pos_b, perm_a, mom):
     """The histogram kernels' phase-3 inputs as ``_shot_fused`` builds
-    them from the moment rows ``mom_a``, ``mom_b``: ({kernel: (packed,
+    them from the merged moment rows ``mom`` (14, N): ({kernel: (packed,
     frames)}, {kernel: the input row of each of its positions, int32})."""
     from threecrate_tpu_torch.ops.features import lrf_from_moments
 
     row_a = pos_b[0].long()
-    lrf = lrf_from_moments(mom_a.T + mom_b.T[torch.argsort(row_a)], SHOT_RADIUS, pa[4:7].T)
+    lrf = lrf_from_moments(mom.T, SHOT_RADIUS, pa[4:7].T)
     rows_a = perm_a.to(torch.int32)
     return ({"shot_hist_a": (pa, lrf.T.contiguous()),
              "shot_hist_b": (torch.cat([pb, pos_b.to(torch.float32)]).contiguous(),
@@ -628,43 +679,89 @@ def hist_agreement(got, ref, dim):
     return torch.equal(got[:, dim], ref[:, dim]), share((got == ref).all(1)), vote.item()
 
 
+def moment_agreement(got, ref):
+    """(count row bit-equal, max sum error / Σw·R^k) of (14, N) moment rows."""
+    radius = float(np.float32(SHOT_RADIUS))
+    power = torch.tensor([0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 0, 3, 3, 3], device=ref.device)
+    scale = ref[0].clamp_min(1e-30)[None] * radius ** power[:, None]
+    return torch.equal(got[10], ref[10]), ((got - ref).abs() / scale).max().item()
+
+
 def shot_kernel_checks(pa, pb, pos_b, perm_a):
     """Phase 3, SHOT/USC kernels on the registration target's sorted rows
     (r = 0.25, band 32, tile 256): each against its plain version, the
+    moments standalone and placed as ``_shot_fused`` merges them (pass B
+    written at each position's pass-A row, pass A adding it), the
     histograms in both variants on one set of frames built from the
-    plain moments, standalone (rows p of a new buffer) and placed as
-    ``_shot_fused`` places them (pass B written at each position's input
-    row, then pass A added at its own), each twice (the same bits).
+    plain merged moments, standalone (rows p of a new buffer) and placed
+    as ``_shot_fused`` places them (pass B written at each position's
+    input row, then pass A added at its own); each twice (the same bits).
     Returns ({timing name: (kernel call, plain call)}, max abs error and
     selected pairs by timing name)."""
     from threecrate_tpu_torch.kernels import shot
 
     r2 = SHOT_RADIUS * SHOT_RADIUS
-    radius = float(np.float32(SHOT_RADIUS))
     geom = (r2, SHOT_BAND, FPFH_TILE)
-    pos_f = pos_b.to(torch.float32)
     calls, err, pairs, mom = {}, {}, {}, {}
-    power = torch.tensor([0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 0, 3, 3, 3], device=pa.device)
-    for kname, args in (("shot_moments_a", (pa[0:4].contiguous(),)),
-                        ("shot_moments_b", (torch.cat([pb[0:4], pos_f]).contiguous(),))):
+    packed, rows_m = shot_moment_inputs(pa, pb, pos_b)
+    for kname, args in packed.items():
         kern, plain = getattr(shot, kname + "_tiles"), getattr(shot, kname + "_plain")
-        got, ref = kern(*args, *geom), plain(*args, *geom)
+        got, again, ref = kern(args, *geom), kern(args, *geom), plain(args, *geom)
         torch.cuda.synchronize()
-        cnt_eq = torch.equal(got[10], ref[10])
-        scale = ref[0].clamp_min(1e-30)[None] * radius ** power[:, None]
-        rel = ((got - ref).abs() / scale).max().item()
+        cnt_eq, rel = moment_agreement(got, ref)
+        same = torch.equal(got, again)
         err[kname], pairs[kname] = (got - ref).abs().max().item(), ref[10].sum().item()
         log(f"  {kname}: N={pa.shape[1]} r={SHOT_RADIUS} band={SHOT_BAND} count row "
             f"bit-equal {cnt_eq} (need True), sums max err / Σw·R^k {rel:.3e} (tol "
-            f"{SHOT_REL_TOL}), max abs err {err[kname]:.3e}, mean count "
-            f"{pairs[kname] / pa.shape[1]:.2f}")
-        check(cnt_eq and rel <= SHOT_REL_TOL, f"{kname} disagrees")
-        calls[kname] = (lambda kern=kern, a=args: kern(*a, *geom),
-                        lambda plain=plain, a=args: plain(*a, *geom))
+            f"{SHOT_REL_TOL}), max abs err {err[kname]:.3e}, two calls bit-equal {same} "
+            f"(need True), mean count {pairs[kname] / pa.shape[1]:.2f}")
+        check(cnt_eq and rel <= SHOT_REL_TOL and same, f"{kname} disagrees")
+        calls[kname] = (lambda kern=kern, a=args: kern(a, *geom),
+                        lambda plain=plain, a=args: plain(a, *geom))
         mom[kname] = ref
-    hist_args, rows = shot_hist_inputs(pa, pb, pos_b, perm_a, mom["shot_moments_a"],
-                                       mom["shot_moments_b"])
+    # placed: pass B at each position's pass-A row, pass A adding it; the
+    # plain merge against the gathered sum it replaces
+    merged = {side: merged_moments(side.split()[0], packed, rows_m)
+              for side in ("tiles", "plain", "tiles again")}
+    torch.cuda.synchronize()
+    gathered = (mom["shot_moments_a"].T
+                + mom["shot_moments_b"].T[torch.argsort(rows_m.long())]).T
     del mom
+    for tname, i in (("shot_moments_b placed", 0), ("shot_moments_a plus", 1)):
+        got, again, ref = (merged[side][i] for side in ("tiles", "tiles again", "plain"))
+        if i == 0:      # every row written, the two pads zero, sums as (14, N) rows
+            written = bool(torch.isfinite(got).all()) and bool((got[:, 14:] == 0).all())
+            got, again, ref = (t[:, :14].T for t in (got, again, ref))
+        else:
+            written = torch.equal(ref, gathered)
+        cnt_eq, rel = moment_agreement(got, ref)
+        cnt_g, rel_g = moment_agreement(got, gathered)
+        same = torch.equal(got, again)
+        err[tname] = (got - ref).abs().max().item()
+        pairs[tname] = pairs[tname.split()[0]]
+        log(f"  {tname}: count row bit-equal {cnt_eq} (need True), sums max err / Σw·R^k "
+            f"{rel:.3e} (tol {SHOT_REL_TOL}), max abs err {err[tname]:.3e}, two calls "
+            f"bit-equal {same} (need True); "
+            + (f"every row written with zero pads {written} (need True)" if i == 0 else
+               f"plain placed merge bit-equal to mom_a.T + mom_b.T[argsort(row_a)] "
+               f"{written} (need True), kernel against that sum: count row bit-equal "
+               f"{cnt_g} (need True), sums max err / Σw·R^k {rel_g:.3e}"))
+        check(cnt_eq and rel <= SHOT_REL_TOL and same and written
+              and (i == 0 or (cnt_g and rel_g <= SHOT_REL_TOL)), f"{tname} disagrees")
+
+    def placed_call(tname, side):
+        """The timed call of a placed mode, on the buffer its side placed."""
+        buf = merged[side][0]
+        if tname == "shot_moments_b placed":
+            fn = getattr(shot, f"shot_moments_b_{side}")
+            return lambda: fn(packed["shot_moments_b"], *geom, out=buf, rows=rows_m)
+        fn = getattr(shot, f"shot_moments_a_{side}")
+        return lambda: fn(packed["shot_moments_a"], *geom, plus=buf)
+
+    for tname in ("shot_moments_b placed", "shot_moments_a plus"):
+        calls[tname] = (placed_call(tname, "tiles"), placed_call(tname, "plain"))
+    hist_args, rows = shot_hist_inputs(pa, pb, pos_b, perm_a, merged["plain"][1])
+    del merged, gathered
     n = pa.shape[1]
     buf = {}      # the timed placed calls' buffers, by variant
 
@@ -1116,6 +1213,10 @@ def main() -> int:
                                  "threecrate_tpu/kernels/shot_pallas.py:262"),
               "shot_moments_b": ("threecrate_tpu_torch/csrc/shot.cu",
                                  "threecrate_tpu/kernels/shot_pallas.py:285"),
+              "shot_moments_b placed": ("threecrate_tpu_torch/csrc/shot.cu",
+                                        "threecrate_tpu/kernels/shot_pallas.py:285"),
+              "shot_moments_a plus": ("threecrate_tpu_torch/csrc/shot.cu",
+                                      "threecrate_tpu/kernels/shot_pallas.py:262"),
               "shot_hist_a": ("threecrate_tpu_torch/csrc/shot.cu",
                               "threecrate_tpu/kernels/shot_pallas.py:308"),
               "shot_hist_b": ("threecrate_tpu_torch/csrc/shot.cu",
@@ -1478,15 +1579,29 @@ def shot_phases(dev, kernels):
         peak = torch.cuda.max_memory_allocated()
         log(f"  {fn.__name__} {1e3 * t:.2f} ms median of 3, peak allocated "
             f"{peak / 2**30:.3f} GiB")
-        wall, busy, entries = device_profile(lambda fn=fn: fn(tgt))
+        wall, busy, entries = device_profile(lambda fn=fn: fn(tgt), top=1000)
         log(f"  profiled call: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
             f"{1 - busy / wall:.3f}; largest device entries:")
-        for ename, ems, count in entries:
+        for ename, ems, count in entries[:10]:
             log(f"    {ems:9.3f} ms x{count:<4d} {ename[:100]}")
+        # the moment merge: pass B written at its pass-A rows, pass A adding
+        # them; no inverse-permutation scatter, moment-row gather or add
+        index = [(ems, count) for ename, ems, count in entries if "index" in ename.lower()]
+        kernel_ms = {ename.split("::")[-1].split("(")[0]: ems
+                     for ename, ems, _ in entries if "shot_" in ename}
+        log(f"  SHOT kernels' device ms in the profiled call: {json.dumps(kernel_ms)}")
+        syncs = host_syncs(lambda fn=fn: fn(tgt))
+        log(f"  index kernels (gathers and scatters) of the call: "
+            f"{sum(c for _, c in index)} launches, {sum(e for e, _ in index):.3f} ms; "
+            f"the moments merge in the kernels (pass B placed at its pass-A rows, pass A "
+            f"adding them), with no _inverse scatter, moment-row gather or add; host "
+            f"syncs of one call {syncs}")
         report[variant] = {"ms": 1e3 * t, "peak_gib": peak / 2**30, "valid_share": share_v,
                            "median_cos": med, "share_above_0.97": above,
                            "fits": n_fit, "median_cos_fits": med_fit,
-                           "profiled_wall_ms": wall, "busy_ms": busy}
+                           "profiled_wall_ms": wall, "busy_ms": busy, "host_syncs": syncs,
+                           "kernel_ms": kernel_ms,
+                           "index_launches": sum(c for _, c in index)}
 
     log("phase 17: SHOT and USC on 2,048 points (the staged exact path)")
     rng = np.random.default_rng(5)

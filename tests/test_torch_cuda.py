@@ -614,6 +614,135 @@ def test_shot_kernels_match_plain(cuda, band, tile):
                     assert (err <= 1e-5 * ref[dim].clamp_min(1)).all()
 
 
+def _assert_moments(got, ref, r2):
+    """(14, N) moment rows: the count row bit-equal, sums within 1e-5 of
+    Σw·R^k."""
+    radius = float(np.float32(np.sqrt(np.float32(r2))))
+    power = torch.tensor([0, 1, 1, 1, 2, 2, 2, 2, 2, 2, 0, 3, 3, 3], device=ref.device)
+    scale = ref[0].clamp_min(1e-30)[None] * radius ** power[:, None]
+    assert torch.equal(got[10], ref[10])
+    assert ((got - ref).abs() / scale).max().item() <= 1e-5
+
+
+def _merged_moments(mom_a, mom_b, pa4, pb5, r2, band, tile, rows):
+    """Pass B written at ``rows`` into a NaN-filled (N, 16) buffer, then
+    pass A adding it: (the buffer, the merged (14, N) rows)."""
+    buf = torch.full((pa4.shape[1], shot.MOMENT_ROW), float("nan"), device=pa4.device)
+    assert mom_b(pb5, r2, band, tile, out=buf, rows=rows) is buf
+    return buf, mom_a(pa4, r2, band, tile, plus=buf)
+
+
+@pytest.mark.parametrize("case", ["default", "one tile band 0", "one tile band = tile",
+                                  "band 64 tile 64", "band = tile = 1024", "wide band"])
+def test_shot_moments_placed_match_plain(cuda, case):
+    """Pass B placed at a random permutation of rows, then pass A adding
+    them, at r = 0.25 and 1.0 (20 on the sparse one-tile and wide-band
+    clouds), against the plain versions' placed modes and against the
+    standalone passes gathered and summed; every row written with two
+    zero pads; two calls give the same bits. "wide band" stages more than
+    the kernels' shared memory allows, so the candidates are read through
+    L1."""
+    band, tile, n = {"default": (32, 256, 20_000), "one tile band 0": (0, 256, 200),
+                     "one tile band = tile": (256, 256, 200),
+                     "band 64 tile 64": (64, 64, 20_000),
+                     "band = tile = 1024": (1024, 1024, 20_000),
+                     "wide band": (7000, 8192, 16_000)}[case]
+    pa, p8, _, _ = _shot_inputs(cuda, n, 14, tile)
+    pa4, pb5 = pa[0:4].contiguous(), p8[[0, 1, 2, 3, 7]].contiguous()
+    m = pa.shape[1]
+    rows = torch.from_numpy(np.random.default_rng(band).permutation(m).astype(np.int32)).to(cuda)
+    for r in ((0.25, 1.0) if n == 20_000 else (20.0,)):
+        r2 = r * r
+        got_b, got = _merged_moments(shot.shot_moments_a_tiles, shot.shot_moments_b_tiles,
+                                     pa4, pb5, r2, band, tile, rows)
+        again_b, again = _merged_moments(shot.shot_moments_a_tiles,
+                                         shot.shot_moments_b_tiles, pa4, pb5, r2, band, tile,
+                                         rows)
+        ref_b, ref = _merged_moments(shot.shot_moments_a_plain, shot.shot_moments_b_plain,
+                                     pa4, pb5, r2, band, tile, rows)
+        assert torch.equal(got_b, again_b) and torch.equal(got, again)
+        assert torch.isfinite(got_b).all() and (got_b[:, 14:] == 0).all()
+        _assert_moments(got_b[:, :14].T, ref_b[:, :14].T, r2)
+        _assert_moments(got, ref, r2)
+        alone_a = shot.shot_moments_a_tiles(pa4, r2, band, tile)
+        alone_b = shot.shot_moments_b_tiles(pb5, r2, band, tile)
+        _assert_moments(got, (alone_a.T + alone_b.T[torch.argsort(rows.long())]).T, r2)
+        if band == 0:
+            assert (got == 0).all()
+        else:
+            assert ref[10].max() > 3
+
+
+def _bad_moment_placements(cuda, n):
+    """{case: (error, pass, keywords)} of placements the wrappers refuse on
+    the card."""
+    ok = torch.zeros((n, shot.MOMENT_ROW), device=cuda)
+    rows = torch.arange(n, dtype=torch.int32, device=cuda)
+    return {
+        "out width": (ValueError, "b", dict(out=torch.zeros((n, 14), device=cuda), rows=rows)),
+        "out dtype": (TypeError, "b", dict(out=ok.double(), rows=rows)),
+        "out device": (ValueError, "b", dict(out=ok.cpu(), rows=rows)),
+        "rows dtype": (TypeError, "b", dict(out=ok, rows=rows.long())),
+        "rows length": (ValueError, "b", dict(out=ok, rows=rows[:-1])),
+        "rows device": (ValueError, "b", dict(out=ok, rows=rows.cpu())),
+        "rows range": (ValueError, "b", dict(out=ok, rows=rows + 1)),
+        "rows negative": (ValueError, "b", dict(out=ok, rows=rows - 1)),
+        "out alone": (ValueError, "b", dict(out=ok)),
+        "plus width": (ValueError, "a", dict(plus=torch.zeros((n, 14), device=cuda))),
+        "plus dtype": (TypeError, "a", dict(plus=ok.double())),
+        "plus length": (ValueError, "a", dict(plus=ok[:-1])),
+        "plus device": (ValueError, "a", dict(plus=ok.cpu())),
+    }
+
+
+@pytest.mark.parametrize("case", ["out width", "out dtype", "out device", "rows dtype",
+                                  "rows length", "rows device", "rows range",
+                                  "rows negative", "out alone", "plus width", "plus dtype",
+                                  "plus length", "plus device"])
+def test_shot_moments_refuse_bad_placement(cuda, case):
+    n, tile = 512, 256
+    err, pass_, kwargs = _bad_moment_placements(cuda, n)[case]
+    fn = shot.shot_moments_a_tiles if pass_ == "a" else shot.shot_moments_b_tiles
+    kernels.reset_launch_counts()
+    with pytest.raises(err):
+        fn(torch.zeros(4 if pass_ == "a" else 5, n, device=cuda), 0.01, 16, tile, **kwargs)
+    assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("band,tile,n", [(32, 256, 20_000), (3300, 4096, 8000)])
+def test_pass_b_odd_positions_match_plain(cuda, band, tile, n):
+    """Valid pass-B candidates whose pass-A position (the moments' row 4,
+    the histograms' row 7) is −1, fractional, negated or NaN, queries
+    included: the kernels apply the Pallas test |posA_c − posA_q| > band
+    to every fp32 value, as the plain versions do (USC rows and moment and
+    histogram count rows bit-equal, SHOT votes within 1e-5 of each
+    query's count, moment sums within 1e-5 of Σw·R^k); at tile 4096 and
+    band 3300 the SHOT histograms read through L1."""
+    _, p8, _, lrf_b = _shot_inputs(cuda, n, 15, tile)
+    kind = torch.from_numpy(np.random.default_rng(16).integers(0, 8, p8.shape[1])).to(cuda)
+    pos = p8[7].clone()
+    pos = torch.where(kind == 0, -1.0, pos)
+    pos = torch.where(kind == 1, float("nan"), pos)
+    pos = torch.where(kind == 2, pos + 0.5, pos)
+    p8[7] = torch.where(kind == 3, -pos, pos)
+    r2 = 400.0 if tile > 1024 else 0.0625
+    pb5 = p8[[0, 1, 2, 3, 7]].contiguous()
+    mom = shot.shot_moments_b_tiles(pb5, r2, band, tile)
+    ref = shot.shot_moments_b_plain(pb5, r2, band, tile)
+    _assert_moments(mom, ref, r2)
+    # the repaired selection takes candidates of posA -1 that the earlier
+    # test (a tag of -1 meant invalid) dropped
+    p_ok = p8.clone()
+    p_ok[7] = torch.where(kind == 0, float("nan"), p8[7])
+    assert (ref[10] > shot.shot_moments_b_plain(
+        p_ok[[0, 1, 2, 3, 7]].contiguous(), r2, band, tile)[10]).any()
+    for variant, dim in (("usc", 128), ("shot", 352)):
+        got = shot.shot_hist_b_tiles(p8, lrf_b, r2, band, tile, variant)
+        ref = shot.shot_hist_b_plain(p8, lrf_b, r2, band, tile, variant)
+        _assert_hist_rows(got.T, ref.T, dim)
+        assert ref[dim].max() > 3
+
+
 def _placed(hist_a, hist_b, inputs, r2, band, tile, variant, rows_a, rows_b):
     """Pass B written at ``rows_b`` into a NaN-filled query-major buffer,
     then pass A added at ``rows_a``: (after B, after A)."""

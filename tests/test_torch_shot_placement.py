@@ -143,8 +143,9 @@ def test_placement_keeps_other_rows(variant):
 
 def _old_composition(points, mask, nrm, radius, variant, band, tile):
     """``_shot_fused`` as it was composed before the placed kernels:
-    pass B gathered into pass-A order, + pass A, a column norm, then a row
-    gather of the transposed descriptors into input order."""
+    pass B of the moments and of the histograms gathered into pass-A
+    order, + pass A, a column norm, then a row gather of the transposed
+    descriptors into input order."""
     n = points.shape[0]
     r2 = radius * radius
     packed_a, packed_b, row_a, perm_a = tf.fused_stage1_inputs(points, mask, nrm, tile)
@@ -168,10 +169,19 @@ def _old_composition(points, mask, nrm, radius, variant, band, tile):
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("band,tile", GEOMETRY)
-def test_shot_fused_equals_old_composition(variant, band, tile):
+def test_shot_fused_equals_old_composition(variant, band, tile, monkeypatch):
+    """The placed merges (moments: pass B at its pass-A rows, pass A adding
+    them; histograms: pass B at its input rows, pass A adding) give the
+    old gathered composition's descriptors, with no inverse permutation
+    formed."""
     pts, nrm, mask = _cloud(seed=7)
     nrm_in = nrm if variant == "shot" else torch.zeros_like(nrm)
+    inverses = []
+    inverse = tn._inverse
+    monkeypatch.setattr(tn, "_inverse", lambda perm: inverses.append(perm) or inverse(perm))
     desc, valid = tf._shot_fused(pts, mask, nrm_in, RADIUS, variant, band, tile)
+    assert not inverses
+    monkeypatch.undo()
     ref, ref_valid = _old_composition(pts, mask, nrm_in, RADIUS, variant, band, tile)
     assert desc.shape == ref.shape == (N, VARIANTS[variant])
     assert torch.equal(valid, ref_valid) and valid.float().mean() > 0.5

@@ -50,9 +50,10 @@ _SIGNATURES = {
     # packed, out, n, tile, band, r2, stream
     "tc_spfh_band_a": (_P, _P, _I, _I, _I, _F, _P),
     "tc_spfh_band_b": (_P, _P, _I, _I, _I, _F, _P),
-    # packed, out, n, band, r2, radius, stream
-    "tc_shot_moments_a": (_P, _P, _I, _I, _F, _F, _P),
-    "tc_shot_moments_b": (_P, _P, _I, _I, _F, _F, _P),
+    # packed, plus (or null), out, n, band, r2, radius, stream
+    "tc_shot_moments_a": (_P, _P, _P, _I, _I, _F, _F, _P),
+    # packed, out, rows (or null), n, band, r2, radius, stream
+    "tc_shot_moments_b": (_P, _P, _P, _I, _I, _F, _F, _P),
     # packed, lrf, out, rows (or null), n, band, r2, inv_r, usc, accumulate, stream
     "tc_shot_hist_a": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P),
     "tc_shot_hist_b": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P),

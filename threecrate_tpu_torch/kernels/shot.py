@@ -19,7 +19,11 @@ query's, so the two passes' sums add up to the union of both windows.
 
 * moments: ``(4, N)`` rows [x, y, z, valid] (pass B: ``(5, N)``, + posA)
   → ``(14, N)`` [Σw, Σw·d (3), Σw·dᵢ·dⱼ (xx, yy, zz, xy, xz, yz), count,
-  Σw·|d|²·d (3)] with w = max(R − |d|, 0);
+  Σw·|d|²·d (3)] with w = max(R − |d|, 0). Or, placed: pass B writes
+  each query's 14 sums and two zeros as row ``rows[p]`` of a query-major
+  ``(n_rows, 16)`` buffer, and pass A adds row p of such a buffer
+  (``plus``) to its own sums, so that ``_shot_fused`` merges the passes
+  in pass-A order with no gather;
 * histograms: ``(7, N)`` rows [x, y, z, valid, nx, ny, nz] (pass B:
   ``(8, N)``, + posA) and the query frames ``lrf (9, N)`` [x axis, y
   axis, z axis] → ``(dim + 1, N)``: 8 azimuth sectors (the reproduced
@@ -55,6 +59,7 @@ SHOT_DIM = 352
 USC_DIM = 128
 N_COS = 11
 N_MOMENTS = 14
+MOMENT_ROW = 16           # floats of a placed moments row: 14 sums, 2 zeros
 _AZ_SCALE = float(np.float32(8.0 / (2.0 * np.pi)))
 _CHUNK_QUERIES = 8192     # queries per step of the plain versions
 
@@ -94,11 +99,12 @@ def _check(packed, rows, band, tile, lrf=None):
     return n
 
 
-def _moments_plain(packed, r2, band, tile, excl):
+def _moments_plain(packed, r2, band, tile, excl, out=None, rows=None, plus=None):
     n = _check(packed, 5 if excl else 4, band, tile)
+    _check_moment_placement(packed, n, out, rows, plus)
     radius = _radius_f32(r2)
     r2 = _r2_f32(r2)
-    out = torch.empty((N_MOMENTS, n), dtype=torch.float32, device=packed.device)
+    mom = torch.empty((N_MOMENTS, n), dtype=torch.float32, device=packed.device)
     for c0 in range(0, n, _CHUNK_QUERIES):
         c1 = min(c0 + _CHUNK_QUERIES, n)
         _, _, (dx, dy, dz), d2, sel = band_candidates(packed, c0, c1, band, r2, 1e-18,
@@ -106,16 +112,23 @@ def _moments_plain(packed, r2, band, tile, excl):
         sel_f = sel.to(torch.float32)
         w = torch.clamp_min(radius - torch.sqrt(torch.clamp_min(d2, 0.0)), 0.0) * sel_f
         wd2 = w * d2
-        rows = (w, w * dx, w * dy, w * dz, w * dx * dx, w * dy * dy, w * dz * dz,
-                w * dx * dy, w * dx * dz, w * dy * dz, sel_f, wd2 * dx, wd2 * dy,
-                wd2 * dz)
-        out[:, c0:c1] = torch.stack([r.sum(-1) for r in rows])
+        terms = (w, w * dx, w * dy, w * dz, w * dx * dx, w * dy * dy, w * dz * dz,
+                 w * dx * dy, w * dx * dz, w * dy * dz, sel_f, wd2 * dx, wd2 * dy,
+                 wd2 * dz)
+        mom[:, c0:c1] = torch.stack([t.sum(-1) for t in terms])
+    if plus is not None:
+        mom += plus[:n, :N_MOMENTS].T
+    if out is None:
+        return mom
+    at = rows.long()
+    out[at, :N_MOMENTS] = mom.T
+    out[at, N_MOMENTS:] = 0.0
     return out
 
 
-def _check_out(packed, n, dim, out, rows, accumulate):
+def _check_out(packed, n, width, out, rows, accumulate=False):
     """Refuse a placement the kernels do not take: ``out`` an
-    ``(n_rows, dim + 1)`` contiguous float32 tensor on the inputs' device,
+    ``(n_rows, width)`` contiguous float32 tensor on the inputs' device,
     ``rows`` int32 of length N on that device with every row in
     [0, n_rows); ``rows`` and ``accumulate`` only with ``out``."""
     if out is None:
@@ -124,8 +137,8 @@ def _check_out(packed, n, dim, out, rows, accumulate):
         return
     if out.dtype != torch.float32:
         raise TypeError(f"out must be float32, got {out.dtype}")
-    if out.ndim != 2 or out.shape[1] != dim + 1:
-        raise ValueError(f"out must be (n_rows, {dim + 1}), got {tuple(out.shape)}")
+    if out.ndim != 2 or out.shape[1] != width:
+        raise ValueError(f"out must be (n_rows, {width}), got {tuple(out.shape)}")
     if out.device != packed.device:
         raise ValueError("out must be on the inputs' device")
     if not out.is_contiguous():
@@ -143,6 +156,27 @@ def _check_out(packed, n, dim, out, rows, accumulate):
     lo, hi = torch.stack(torch.aminmax(rows)).tolist()
     if lo < 0 or hi >= out.shape[0]:
         raise ValueError(f"rows must lie in [0, {out.shape[0]}), got [{lo}, {hi}]")
+
+
+def _check_moment_placement(packed, n, out, rows, plus):
+    """Refuse a moments placement the kernels do not take: pass B's
+    ``out`` and ``rows`` together, as ``_check_out`` checks them at width
+    ``MOMENT_ROW``; pass A's ``plus`` an ``(n_rows >= N, MOMENT_ROW)``
+    contiguous float32 tensor on the inputs' device."""
+    if (out is None) != (rows is None):
+        raise ValueError("out and rows go together")
+    _check_out(packed, n, MOMENT_ROW, out, rows)
+    if plus is None:
+        return
+    if plus.dtype != torch.float32:
+        raise TypeError(f"plus must be float32, got {plus.dtype}")
+    if plus.ndim != 2 or plus.shape[1] != MOMENT_ROW or plus.shape[0] < n:
+        raise ValueError(f"plus must be (n_rows >= {n}, {MOMENT_ROW}), got "
+                         f"{tuple(plus.shape)}")
+    if plus.device != packed.device:
+        raise ValueError("plus must be on the inputs' device")
+    if not plus.is_contiguous():
+        raise ValueError("plus must be contiguous")
 
 
 def candidate_votes(packed, lrf, r2, band, c0, c1, excl, variant):
@@ -183,7 +217,7 @@ def _hist_plain(packed, lrf, r2, band, tile, excl, variant, out=None, rows=None,
                 accumulate=False):
     dim = _dim(variant)
     n = _check(packed, 8 if excl else 7, band, tile, lrf)
-    _check_out(packed, n, dim, out, rows, accumulate)
+    _check_out(packed, n, dim + 1, out, rows, accumulate)
     dest = torch.empty((n, dim + 1), dtype=torch.float32,
                        device=packed.device) if out is None else out
     for c0 in range(0, n, _CHUNK_QUERIES):
@@ -200,14 +234,18 @@ def _hist_plain(packed, lrf, r2, band, tile, excl, variant, out=None, rows=None,
     return dest.T if out is None else out
 
 
-def shot_moments_a_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
-    """Plain PyTorch moments pass A, chunked over queries."""
-    return _moments_plain(packed, r2, band, tile, False)
+def shot_moments_a_plain(packed, r2: float, band: int, tile: int = 256, *,
+                         plus=None) -> torch.Tensor:
+    """Plain PyTorch moments pass A, chunked over queries; ``plus`` as
+    ``shot_moments_a_tiles`` takes it."""
+    return _moments_plain(packed, r2, band, tile, False, plus=plus)
 
 
-def shot_moments_b_plain(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
-    """Plain PyTorch moments pass B, chunked over queries."""
-    return _moments_plain(packed, r2, band, tile, True)
+def shot_moments_b_plain(packed, r2: float, band: int, tile: int = 256, *, out=None,
+                         rows=None) -> torch.Tensor:
+    """Plain PyTorch moments pass B, chunked over queries; ``out`` and
+    ``rows`` as ``shot_moments_b_tiles`` takes them."""
+    return _moments_plain(packed, r2, band, tile, True, out, rows)
 
 
 def shot_hist_a_plain(packed, lrf, r2: float, band: int, tile: int = 256,
@@ -226,23 +264,29 @@ def shot_hist_b_plain(packed, lrf, r2: float, band: int, tile: int = 256,
     return _hist_plain(packed, lrf, r2, band, tile, True, variant, out, rows, accumulate)
 
 
-def _launch_moments(name, packed, r2, band, tile, rows):
-    n = _check(packed, rows, band, tile)
+def _launch_moments(name, packed, r2, band, tile, n_rows, out, rows, plus):
+    n = _check(packed, n_rows, band, tile)
+    _check_moment_placement(packed, n, out, rows, plus)
     packed = packed.contiguous()
-    out = torch.empty((N_MOMENTS, n), dtype=torch.float32, device=packed.device)
+    rows = None if rows is None else rows.contiguous()
+    dest = torch.empty((N_MOMENTS, n), dtype=torch.float32,
+                       device=packed.device) if out is None else out
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = ((ptr(plus), dest.data_ptr()) if name == "shot_moments_a"
+            else (dest.data_ptr(), ptr(rows)))
     with torch.cuda.device(packed.device):
         err = getattr(_build.lib(), "tc_" + name)(
-            packed.data_ptr(), out.data_ptr(), n, band, _r2_f32(r2), _radius_f32(r2),
+            packed.data_ptr(), *args, n, band, _r2_f32(r2), _radius_f32(r2),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    return out
+    return dest
 
 
 def _launch_hist(name, packed, lrf, r2, band, tile, n_rows, variant, out, rows,
                  accumulate):
     dim = _dim(variant)
     n = _check(packed, n_rows, band, tile, lrf)
-    _check_out(packed, n, dim, out, rows, accumulate)
+    _check_out(packed, n, dim + 1, out, rows, accumulate)
     packed, lrf = packed.contiguous(), lrf.contiguous()
     dest = torch.empty((n, dim + 1), dtype=torch.float32,
                        device=packed.device) if out is None else out
@@ -257,24 +301,31 @@ def _launch_hist(name, packed, lrf, r2, band, tile, n_rows, variant, out, rows,
     return dest.T if out is None else out
 
 
-def shot_moments_a_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
-    """Moments pass A over ±band sorted positions: ``(14, N)``."""
+def shot_moments_a_tiles(packed, r2: float, band: int, tile: int = 256, *,
+                         plus=None) -> torch.Tensor:
+    """Moments pass A over ±band sorted positions: ``(14, N)``. With
+    ``plus`` (``(n_rows >= N, 16)`` float32, contiguous, as pass B places
+    its rows): row p's first 14 floats are added to query p's sums (the
+    fp32 sum a + b)."""
     if not _build.on_card(packed):
-        return shot_moments_a_plain(packed, r2, band, tile)
-    out = _launch_moments("shot_moments_a", packed, r2, band, tile, 4)
+        return shot_moments_a_plain(packed, r2, band, tile, plus=plus)
+    out = _launch_moments("shot_moments_a", packed, r2, band, tile, 4, None, None, plus)
     shot_moments_a_tiles.launches += 1
     return out
 
 
-def shot_moments_b_tiles(packed, r2: float, band: int, tile: int = 256) -> torch.Tensor:
+def shot_moments_b_tiles(packed, r2: float, band: int, tile: int = 256, *, out=None,
+                         rows=None) -> torch.Tensor:
     """Moments pass B over ``(5, N)`` rows (+ the pass-A position as
     fp32): ``(14, N)`` over candidates more than ``band`` pass-A positions
-    from the query."""
+    from the query. With ``out`` (``(n_rows, 16)`` float32, contiguous)
+    and ``rows`` (int32, distinct rows): query p's 14 sums and two zeros
+    are written to ``out[rows[p]]``, and ``out`` is returned."""
     if not _build.on_card(packed):
-        return shot_moments_b_plain(packed, r2, band, tile)
-    out = _launch_moments("shot_moments_b", packed, r2, band, tile, 5)
+        return shot_moments_b_plain(packed, r2, band, tile, out=out, rows=rows)
+    res = _launch_moments("shot_moments_b", packed, r2, band, tile, 5, out, rows, None)
     shot_moments_b_tiles.launches += 1
-    return out
+    return res
 
 
 def shot_hist_a_tiles(packed, lrf, r2: float, band: int, tile: int = 256,

@@ -404,9 +404,11 @@ def _shot_fused(points, mask, normals_arr, radius: float, variant: str = "shot",
     covariance and sign votes, the LRF is solved batched, and two
     histogram passes bin the in-LRF displacements straight from the
     Morton-band candidates; a fixed radius makes the two windows' sums add
-    up to their union, which the kernels form in input order (pass B
-    writes each query's row at its input row, pass A adds to it)."""
-    from ..kernels.shot import (shot_hist_a_tiles, shot_hist_b_tiles,
+    up to their union, which the kernels form without a gather: pass B of
+    the moments writes each query's row at its pass-A position and pass A
+    adds it; pass B of the histograms writes each query's row at its input
+    row and pass A adds to it."""
+    from ..kernels.shot import (MOMENT_ROW, shot_hist_a_tiles, shot_hist_b_tiles,
                                 shot_moments_a_tiles, shot_moments_b_tiles)
 
     n = points.shape[0]
@@ -415,14 +417,14 @@ def _shot_fused(points, mask, normals_arr, radius: float, variant: str = "shot",
                                                             tile)
     # the pass-A position rides as an fp32 row (exact below 2^24 rows)
     pos_a = row_a.to(torch.float32)[None]
-    mom_a = shot_moments_a_tiles(packed_a[0:4].contiguous(), r2, band, tile)
-    mom_b = shot_moments_b_tiles(torch.cat([packed_b[0:4], pos_a]).contiguous(), r2,
-                                 band, tile)
-    inv_b = neighbors._inverse(row_a)
+    mom_b = torch.empty((packed_a.shape[1], MOMENT_ROW), dtype=torch.float32,
+                        device=points.device)
+    shot_moments_b_tiles(torch.cat([packed_b[0:4], pos_a]).contiguous(), r2, band, tile,
+                         out=mom_b, rows=row_a.to(torch.int32))
+    mom = shot_moments_a_tiles(packed_a[0:4].contiguous(), r2, band, tile, plus=mom_b)
     # USC carries zero normals: its z tie-break is the far-amplified vote
-    lrf = lrf_from_moments(mom_a.T + mom_b.T[inv_b], radius,
-                           packed_a[4:7].T if variant == "shot" else None)
-    del mom_a, mom_b
+    lrf = lrf_from_moments(mom.T, radius, packed_a[4:7].T if variant == "shot" else None)
+    del mom, mom_b
 
     # query-major rows in input order: pass B writes each position's row at
     # its input row, pass A adds to it (the fp32 sum h_b + h_a)

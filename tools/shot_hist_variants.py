@@ -91,11 +91,9 @@ def main() -> int:
     dev = torch.device("cuda:0")
     r2, band, tile = chip_smoke.SHOT_RADIUS ** 2, chip_smoke.SHOT_BAND, chip_smoke.FPFH_TILE
     pa, pb, pos_b, perm_a = chip_smoke.fpfh_inputs(dev)
-    mom_a = shot.shot_moments_a_tiles(pa[0:4].contiguous(), r2, band, tile)
-    mom_b = shot.shot_moments_b_tiles(
-        torch.cat([pb[0:4], pos_b.to(torch.float32)]).contiguous(), r2, band, tile)
-    args, rows = chip_smoke.shot_hist_inputs(pa, pb, pos_b, perm_a, mom_a, mom_b)
-    del mom_a, mom_b
+    _, mom = chip_smoke.merged_moments("tiles", *chip_smoke.shot_moment_inputs(pa, pb, pos_b))
+    args, rows = chip_smoke.shot_hist_inputs(pa, pb, pos_b, perm_a, mom)
+    del mom
     n = pa.shape[1]
     out = torch.empty((n, DIM["shot"] + 1), device=dev)
     inv_r = shot._inv_radius_f32(r2)
