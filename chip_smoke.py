@@ -11,7 +11,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. build the CUDA kernels from ``threecrate_tpu_torch/csrc``;
 3. compare each kernel with its plain PyTorch version on the same inputs
    at the slices' real shapes: the two union-window passes on a
-   1,000,192-point Morton-sorted scan, ``icp_match`` on 1M x 1M with
+   1,000,192-point Morton-sorted scan (at k = 10, band 16, and at GICP's
+   k = 20, the band widened to 20), ``icp_match`` on 1M x 1M with
    w_tiles=3 at E=0, 3 and 6 (the match row bit-equal, every row
    bit-equal on the points whose nearest target is unique and within
    ``ICP_ABS_TOL`` where ties average), the four FPFH kernels on the 1,000,192
@@ -114,13 +115,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
 21. ``multiscale_icp_point_to_point`` with the default config on the
     same pair: the same pose checks, ``icp_match`` only; time;
 22. ``window_fast`` (two launches), brute-force point-to-plane and the
-    voxel grid (no launch) on 2,048 points.
+    voxel grid (no launch) on 2,048 points;
+23. ``gicp(source, target, GicpConfig(max_iterations=10))`` on the
+    PerceptionStep pair (the window paths, auto subsample 8): the shift
+    within 1e-3 m and the rotation within 1e-3 rad, each union kernel
+    launched twice (at k = 20), ``icp_match`` once an iteration (six
+    payload rows) and no other kernel, one host sync an iteration (the
+    syncs of 10 iterations less those of 6); time, peak memory, busy time;
+24. ``patchwork_plus_plus`` on ``scan(1M, 0)`` lowered by the sensor
+    height: no kernel; the ground mask equal to the port's own CPU run on
+    >= 99.9% of points; recall and precision against the unlifted points
+    within 0.005 of the JAX package's on the CPU
+    (``tools/family_references.py``); time, peak memory, busy time;
+25. ``ndt_registration`` on ``scan(250k, 7)`` and its shifted copy (2 m
+    cells, 20 iterations, auto subsample 4): no kernel; the transform
+    within 1e-4 of the port's CPU run and the translation within 1e-3 m
+    of what the JAX package reaches on the CPU; build and loop times;
+26. ``OdometryModel()`` over 5 frames of ``scan(1M, 0)`` seen from a
+    sensor moving 0.3 m and 0.01 rad of yaw a frame: each pose within
+    ``ODOMETRY_TOL`` of the truth, ``icp_match`` the only kernel; ms a
+    frame, launches a frame, the map's size.
 
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20 and 21; the FPFH kernels' r = 0.25 entries repeat the
-kernel's count, each ``knn_window`` entry counts its own shape's
-launches), error, times and bound, then ``{"ok": true, "device":
+8, 11-16, 18, 20, 21 and 23-26; the FPFH kernels' r = 0.25 entries and
+the union kernels' k = 20 entries repeat the kernel's count, each
+``knn_window`` entry counts its own shape's launches), error, times and
+bound, then ``{"ok": true, "device":
 {...}}``. A kernel's bound is the larger of the bytes it must move
 (each input read once, each output written once) over the H100's
 3.35 TB/s and the fp32 operations of its algorithm on this run's inputs
@@ -218,6 +239,30 @@ VOXEL_TOL = 1e-4          # metres: fp32 centroid sums vs the float64 oracle
 BOX_TEST_OPS = 20
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+# Patchwork++ (phase 24): the default sensor height, and the recall and
+# precision of the JAX package's patchwork_plus_plus on the CPU against
+# ground_scan()'s labels (python3 tools/ground_reference.py); the port
+# on the card must come within GROUND_GATE of each
+SENSOR_HEIGHT = 1.723
+JAX_GROUND_RECALL, JAX_GROUND_PRECISION = 0.9855278973146717, 0.9864019534496496
+GROUND_GATE = 0.005
+# NDT (phase 25), as bench.py's ndt_250k_build20iter_ms line runs it
+NDT_POINTS = 250_000
+NDT_CONFIG = dict(resolution=2.0, max_iterations=20, epsilon=0.0)
+# what the JAX package's ndt_registration reaches on phase 25's pair on
+# the CPU (tools/family_references.py ndt); the applied shift is SHIFT
+JAX_NDT_TRANSLATION = (0.00285716587677598, -0.003976220730692148, 0.10302392393350601)
+# OdometryModel (phase 26): frames of scan(1M, 0) from a sensor moving
+# ODOMETRY_STEP (m, rad of yaw) a frame
+ODOMETRY_FRAMES = 5
+ODOMETRY_STEP = (0.3, 0.01)
+# each pose against the truth (m, rad): the scan is a ring of uniform
+# angle on flat ground, so yaw, and x and y through it, are held only by
+# the density's noise; the JAX package's own worst frame on the CPU is
+# 0.0898 m and 4.27e-3 rad (tools/family_references.py odometry), rounded
+# up here
+ODOMETRY_TOL = (0.1, 5e-3)
+GICP_K = 20              # GicpConfig's k_correspondences: the union passes at k = 20
 REG_ANGLE = 0.35
 REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
 REG_CONFIG = dict(ransac_iterations=16384, fpfh_radius=FPFH_RADIUS,
@@ -247,17 +292,37 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def scan(n: int, seed: int) -> np.ndarray:
+def scan_labels(n: int, seed: int):
     """Synthetic outdoor LiDAR-like scan: a ground ring of radius ~2-100 m,
     5 cm thick, with 30% of its points lifted up to 4 m (the JAX package's
-    benchmark cloud: the same generator, seeds and arrays)."""
+    benchmark cloud: the same generator, seeds and arrays). Returns
+    (points (n, 3) float32, ground labels (n,): the points not lifted)."""
     rng = np.random.default_rng(seed)
     ang = rng.uniform(0, 2 * np.pi, n)
     r = np.abs(rng.normal(0, 25, n)) + 2.0
     ground = np.stack([r * np.cos(ang), r * np.sin(ang), rng.normal(0, 0.05, n)], -1)
     lift = rng.uniform(0, 1, n) < 0.3
     ground[lift, 2] = rng.uniform(0, 4, lift.sum())
-    return ground.astype(np.float32)
+    return ground.astype(np.float32), ~lift
+
+
+def scan(n: int, seed: int) -> np.ndarray:
+    """The points of ``scan_labels``."""
+    return scan_labels(n, seed)[0]
+
+
+def ground_scan():
+    """Patchwork++'s 1M input: ``scan(1M, 0)`` lowered by the sensor height
+    (Patchwork++ looks for ground near z = −1.723 m), with its labels."""
+    pts, labels = scan_labels(N_SCAN, 0)
+    pts[:, 2] -= SENSOR_HEIGHT
+    return pts, labels
+
+
+def recall_precision(got: np.ndarray, labels: np.ndarray):
+    """(share of labelled ground found, share of found points that are
+    labelled ground)."""
+    return float(got[labels].mean()), float(labels[got].mean()) if got.any() else 0.0
 
 
 def sorted_scan(dev):
@@ -501,6 +566,22 @@ def bound(nbytes: float, ops: float):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def union_window_ops(n_u, tile, band):
+    """fp32 operations of a union pass's selection on ``n_u`` queries (see
+    ``kernel_work``): each of the 3·tile window candidates' d² (~9), a
+    compare with the current k-th (1) and the selection test (1), ~2 per
+    ±band candidate, 12 per query for the six halvings."""
+    return n_u * (3 * tile * (9 + 1 + 1) + (2 * band + 1) * 2 + 6 * 2)
+
+
+def union_work(n_u, tile, band, pairs_a, pairs_b):
+    """(bytes, fp32 operations) of union passes A and B at the band they
+    run (max(band, k)) with ``pairs_a`` / ``pairs_b`` selected pairs."""
+    ops = union_window_ops(n_u, tile, band)
+    return ((4 * n_u * (4 + 11), ops + pairs_a * 19),
+            (4 * n_u * (6 + 11), ops + n_u * 3 * tile * 3 + pairs_b * 19))
+
+
 def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
     """(bytes, fp32 operations) of each timed kernel call on this run's
     inputs: the union passes and ``knn_window`` (each of ``KNN_SHAPES``)
@@ -526,7 +607,9 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
     10 additions). Kernel 4's band body computes the same radius."""
     src, tgt, starts = icp_args
     shot_c = 2 * SHOT_BAND + 1
-    union_ops = n_u * (3 * tile * (9 + 1 + 1) + (2 * band + 1) * 2 + 6 * 2)
+    union_ops = union_window_ops(n_u, tile, band)
+    work_a, work_b = union_work(n_u, tile, band, pairs["union_window_a"],
+                                pairs["union_window_b"])
     k = 10     # window_normals' k
     work = {
         # the band body: union A's selection, ~19 per selected pair for the
@@ -539,9 +622,8 @@ def kernel_work(n_u, tile, band, icp_args, n_f, pairs, windows):
         "window_normals band=0": (4 * n_u * (4 + 6), n_u * (3 * tile * 10 + k * k
                                                             + NORMALS_EIG_OPS)
                                   + pairs["window_normals band=0"] * 19),
-        "union_window_a": (4 * n_u * (4 + 11), union_ops + pairs["union_window_a"] * 19),
-        "union_window_b": (4 * n_u * (6 + 11), union_ops + n_u * 3 * tile * 3
-                           + pairs["union_window_b"] * 19),
+        "union_window_a": work_a,
+        "union_window_b": work_b,
         # each examined target's d^2 and a compare with the running minimum
         "icp_match": (4 * (src.numel() + tgt.numel() + starts.numel() + src.numel()),
                       windows["icp_match"][0] * 9 + windows["icp_match"][1] * BOX_TEST_OPS),
@@ -814,6 +896,47 @@ def shot_kernel_checks(pa, pb, pos_b, perm_a):
     return calls, err, pairs
 
 
+def union_k20_checks(pts_a, valid_a, row_a, tile: int, band: int):
+    """Phase 3 at GICP's shape: both union passes at k = GICP_K (the band
+    widened from ``band`` to k, the KMAX = 32 instantiation) on the sorted
+    1M scan against their plain versions, count and radius (use_b)
+    bit-equal, sums within SUM_REL_TOL. Returns ({timing name: (kernel
+    call, plain ms of the one checked call)}, {name: max abs error},
+    (selected pairs of A, of B))."""
+    from threecrate_tpu_torch.kernels.knn import (window_union_a_plain, window_union_a_tiles,
+                                                  window_union_b_plain, window_union_b_tiles)
+
+    def plain_once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    va = valid_a[0] > 0.5
+    a_in = (pts_a, valid_a, GICP_K, tile, band)
+    out_a = window_union_a_tiles(*a_in)
+    ref_a, plain_a = plain_once(lambda: window_union_a_plain(*a_in))
+    ea = union_error(out_a, ref_a, va)
+    b_in = (pts_a[:, row_a].contiguous(), valid_a[:, row_a].contiguous(),
+            row_a.to(torch.int32)[None].contiguous(), out_a[10][row_a][None].contiguous(),
+            GICP_K, tile, band)
+    out_b = window_union_b_tiles(*b_in)
+    ref_b, plain_b = plain_once(lambda: window_union_b_plain(*b_in))
+    eb = union_error(out_b, ref_b, b_in[1][0] > 0.5)
+    for kname, e in (("union_window_a", ea), ("union_window_b", eb)):
+        row = "radius" if kname.endswith("a") else "use_b"
+        log(f"  {kname} k={GICP_K} band {band}->{max(band, GICP_K)}: cnt+{row} bit-equal "
+            f"{e[0]:.6f} (need 1), sums max rel err {e[1]:.3e} (tol {SUM_REL_TOL}), max abs "
+            f"err {e[2]:.3e}")
+        check(e[0] == 1.0 and e[1] <= SUM_REL_TOL, f"{kname} k={GICP_K} disagrees")
+    calls = {f"union_window_a k={GICP_K}": (lambda: window_union_a_tiles(*a_in), plain_a),
+             f"union_window_b k={GICP_K}": (lambda: window_union_b_tiles(*b_in), plain_b)}
+    errs = {f"union_window_a k={GICP_K}": ea[2], f"union_window_b k={GICP_K}": eb[2]}
+    return calls, errs, (ref_a[0].sum().item(), ref_b[0].sum().item())
+
+
 def normals_kernel_checks(pts, valid, k, tile):
     """Phase 3, ``window_normals_tiles`` at each of ``NORMALS_BANDS`` on the
     sorted 1M scan against its plain version. Returns (max abs error of
@@ -947,6 +1070,7 @@ def main() -> int:
         f"err {eb[1]:.3e} (tol {SUM_REL_TOL}), max abs err {eb[2]:.3e}, "
         f"use_b share {use_b_share:.4f}")
     check(eb[0] == 1.0 and eb[1] <= SUM_REL_TOL, "union_window_b disagrees")
+    k20_calls, k20_err, k20_pairs = union_k20_checks(pts_a, valid_a, row_a, tile, band)
     normals_err, normals_pairs = normals_kernel_checks(pts_a, valid_a, k, tile)
 
     ids_a = perm_a.to(torch.int32)[None].contiguous()
@@ -1112,9 +1236,17 @@ def main() -> int:
         ms[kname] = (1e3 * (k1 + k2) / 2, 1e3 * (p1 + p2) / 2)
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms; SM clock {sm_clock()}")
+    for kname, (kern, plain_ms) in k20_calls.items():
+        k1 = median_time(kern, warmup=1, iters=10)
+        k2 = median_time(kern, warmup=0, iters=10)
+        ms[kname] = (1e3 * (k1 + k2) / 2, plain_ms)
+        log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain {plain_ms:.4f} ms "
+            f"(phase 3's one call); SM clock {sm_clock()}")
     work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs,
                        {**windows, **knn_open, "icp_match": icp_open})
-    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls
+    work["union_window_a k=20"], work["union_window_b k=20"] = union_work(
+        pts_a.shape[1], tile, max(band, GICP_K), *k20_pairs)
+    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls, k20_calls
     del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, perm_a, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
 
@@ -1176,7 +1308,8 @@ def main() -> int:
     win_launches, win_report = window_phases(dev, kernels)
     shot_launches, shot_report = shot_phases(dev, kernels)
     fast_launches, fast_report = window_fast_phases(dev, kernels)
-    for part in (reg_launches, win_launches, shot_launches, fast_launches):
+    fam_launches, fam_report = registration_family_phases(dev, kernels)
+    for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1184,6 +1317,10 @@ def main() -> int:
                                  "threecrate_tpu/kernels/knn_pallas.py:564"),
               "union_window_b": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:600"),
+              "union_window_a k=20": ("threecrate_tpu_torch/csrc/union_window.cu",
+                                      "threecrate_tpu/kernels/knn_pallas.py:564"),
+              "union_window_b k=20": ("threecrate_tpu_torch/csrc/union_window.cu",
+                                      "threecrate_tpu/kernels/knn_pallas.py:600"),
               "icp_match": ("threecrate_tpu_torch/csrc/icp_match.cu",
                             "threecrate_tpu/kernels/icp_pallas.py:113"),
               "spfh_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
@@ -1228,7 +1365,7 @@ def main() -> int:
               "window_normals": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:505")}
     errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
-            **knn_err, "window_normals": normals_err, **fpfh_err, **shot_err}
+            **knn_err, "window_normals": normals_err, **fpfh_err, **shot_err, **k20_err}
     for kname in ("shot_hist_a", "shot_hist_b", "shot_hist_b placed", "shot_hist_a add"):
         errs[kname] = max(errs[kname], errs.pop(f"{kname} usc"))   # both variants
     # each knn_window entry counts its own shape's launches
@@ -1260,6 +1397,7 @@ def main() -> int:
     log(f"{k128} (kernel ms, plain ms; bound ms, by; max abs err): {json.dumps(ms[k128])} "
         f"{json.dumps(bound(*work[k128]))} {errs[k128]}")
     log(f"window_fast, voxel grid and ICP variants: {json.dumps(fast_report)}")
+    log(f"GICP, Patchwork++, NDT and odometry: {json.dumps(fam_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1826,6 +1964,195 @@ def window_fast_phases(dev, kernels):
     check(not any(counts.values()), "the 2,048-point exact paths launched a kernel")
     check(np.abs(t[:3, 3] - shift).max() <= 5e-3, "2,048-point point-to-plane failed")
     check(int(vsm.mask.sum().item()) == n_small, "2,048-point voxel count wrong")
+    return total, report
+
+
+def yaw_pose(yaw: float, t) -> np.ndarray:
+    """(4, 4) pose: a rotation ``yaw`` about z, then the translation ``t``."""
+    c, s_ = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4)
+    m[:3, :3] = [[c, -s_, 0], [s_, c, 0], [0, 0, 1]]
+    m[:3, 3] = t
+    return m
+
+
+def odometry_frames():
+    """Phase 26's frames: (points in the sensor's frame, the sensor's true
+    world pose (4, 4)) of ``scan(1M, 0)`` seen from a sensor that starts
+    at the origin and moves ODOMETRY_STEP a frame."""
+    pts = scan(N_SCAN, 0)
+    step = yaw_pose(ODOMETRY_STEP[1], [ODOMETRY_STEP[0], 0.0, 0.0])
+    truth = np.eye(4)
+    for _ in range(ODOMETRY_FRAMES):
+        inv = np.linalg.inv(truth)
+        yield (pts @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32), truth
+        truth = truth @ step
+
+
+def pose_errors(pose: np.ndarray, truth: np.ndarray):
+    """(max translation error in m, rotation error in rad) of a pose;
+    the angle from ‖R − I‖_F = 2√2·sin(θ/2), exact at small angles."""
+    r = pose[:3, :3].astype(np.float64).T @ truth[:3, :3]
+    theta = 2.0 * np.arcsin(min(np.linalg.norm(r - np.eye(3)) / (2.0 * np.sqrt(2.0)), 1.0))
+    return float(np.abs(pose[:3, 3] - truth[:3, 3]).max()), float(theta)
+
+
+def registration_family_phases(dev, kernels):
+    """Phases 23-26: GICP, Patchwork++, NDT and ``OdometryModel`` through
+    their public entries at full size, each run checked with its launch
+    counts (a reset just before, a read just after), then timed. Returns
+    (launches summed over the checked runs, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.ops import gicp as gicp_mod
+    from threecrate_tpu_torch.ops import ndt as ndt_mod
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {}
+
+    def run(fn):
+        return run_counted(kernels, total, fn)
+
+    def timed(fn):
+        """(median ms of 3 after one warm-up, peak allocated GiB, busy ms)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = median_time(fn, warmup=1, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        return 1e3 * t, peak, busy_time(fn)
+
+    log("phase 23: gicp(source, target, GicpConfig(max_iterations=10)) on the 1M scan pair")
+    pts = scan(N_SCAN, 0)
+    src = tt.PointCloud.from_numpy(pts, device=dev)
+    tgt = tt.PointCloud.from_numpy(pts + SHIFT, device=dev)
+    cfg = tt.GicpConfig(max_iterations=10)
+    rows = []       # payload rows each static-sort setup packs for icp_match
+    real = gicp_mod._static_corr_setup
+
+    def spy(*args, **kwargs):
+        rows.append(kwargs["tgt_extra"].shape[1])
+        return real(*args, **kwargs)
+
+    gicp_mod._static_corr_setup = spy
+    try:
+        res, counts = run(lambda: tt.gicp(src, tgt, cfg))
+    finally:
+        gicp_mod._static_corr_setup = real
+    t = res.transformation.cpu().numpy()
+    t_err, r_err = pose_errors(t, yaw_pose(0.0, SHIFT))
+    log(f"  launches {counts} with payload rows {rows}; translation {t[:3, 3].tolist()} (error "
+        f"{t_err:.3e} m, tol 1e-3), rotation {r_err:.3e} rad (tol 1e-3); iterations "
+        f"{res.iterations}, converged {res.converged}, mse {res.mse.item():.3e}, "
+        f"correspondences {res.correspondences}")
+    check(np.isfinite(t).all() and t_err <= 1e-3 and r_err <= 1e-3,
+          "GICP did not recover the shift")
+    check(only(counts, {"union_window_a": 2, "union_window_b": 2,
+                        "icp_match": res.iterations}) and set(rows) == {6},
+          "GICP did not launch each union kernel twice and icp_match once an iteration "
+          "with six payload rows")
+    # the convergence test off, so each run takes exactly n iterations; the
+    # first counted call also counts a one-time initialisation, so 6 twice
+    syncs = {n: host_syncs(lambda n=n: tt.gicp(
+        src, tgt, tt.GicpConfig(max_iterations=n, convergence_threshold=0.0)))
+        for n in (6, 6, 10)}
+    per_it = (syncs[10] - syncs[6]) / 4
+    tg, peak, busy = timed(lambda: tt.gicp(src, tgt, cfg))
+    log(f"  gicp {tg:.2f} ms median of 3, peak {peak:.3f} GiB, device busy {busy:.2f} ms; host "
+        f"syncs {syncs[10]} at 10 iterations, {syncs[6]} at 6: {per_it:.2f} an iteration")
+    check(per_it == 1.0, "GICP syncs the host other than once an iteration")
+    report["gicp"] = {"ms": tg, "peak_gib": peak, "busy_ms": busy, "iterations": res.iterations,
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "syncs_per_iteration": per_it, "translation_err_m": t_err,
+                      "rotation_err_rad": r_err}
+    del src, tgt, res
+
+    log("phase 24: patchwork_plus_plus on the 1M scan lowered by the sensor height")
+    gpts, labels = ground_scan()
+    cloud = tt.PointCloud.from_numpy(gpts, device=dev)
+    gres, counts = run(lambda: tt.patchwork_plus_plus(cloud))
+    got = gres.ground_mask[:N_SCAN].cpu().numpy()
+    cpu = tt.patchwork_plus_plus(tt.PointCloud.from_numpy(gpts, device="cpu"))
+    agree = float((got == cpu.ground_mask[:N_SCAN].numpy()).mean())
+    rec, prec = recall_precision(got, labels)
+    n_ok = int(gres.patch_valid.sum().item())
+    log(f"  launches {counts}; ground share {got.mean():.4f}, valid patches {n_ok} of "
+        f"{gres.patch_valid.numel()}; agreement with the port's CPU run {agree:.6f} (need >= "
+        f"0.999); recall {rec:.4f} / precision {prec:.4f} against the labels, the JAX package "
+        f"on the CPU {JAX_GROUND_RECALL:.4f} / {JAX_GROUND_PRECISION:.4f} (need within "
+        f"{GROUND_GATE})")
+    check(not any(counts.values()), "Patchwork++ launched a kernel")
+    check(n_ok > 0 and agree >= 0.999, "Patchwork++ on the card disagrees with the CPU")
+    check(abs(rec - JAX_GROUND_RECALL) <= GROUND_GATE
+          and abs(prec - JAX_GROUND_PRECISION) <= GROUND_GATE,
+          "Patchwork++ recall or precision off the JAX package's")
+    tgr, peak, busy = timed(lambda: tt.patchwork_plus_plus(cloud))
+    log(f"  patchwork_plus_plus {tgr:.2f} ms median of 3, peak {peak:.3f} GiB, device busy "
+        f"{busy:.2f} ms")
+    report["ground"] = {"ms": tgr, "peak_gib": peak, "busy_ms": busy, "recall": rec,
+                        "precision": prec, "cpu_agreement": agree, "valid_patches": n_ok}
+    del cloud, gres, cpu
+
+    log(f"phase 25: ndt_registration on a {NDT_POINTS:,}-point scan pair (2 m cells, 20 "
+        f"iterations)")
+    npts = scan(NDT_POINTS, 7)
+    ncfg = tt.NdtConfig(**NDT_CONFIG)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        s_pc = tt.PointCloud.from_numpy(npts, device=d)
+        t_pc = tt.PointCloud.from_numpy(npts + SHIFT, device=d)
+        out[d.type] = (s_pc, t_pc) + run(lambda: tt.ndt_registration(s_pc, t_pc, ncfg))
+    s_pc, t_pc, nres, counts = out[dev.type]
+    t = nres.transformation.cpu().numpy()
+    d_cpu = float(np.abs(t - out["cpu"][2].transformation.numpy()).max())
+    t_err = float(np.abs(t[:3, 3] - SHIFT).max())
+    d_jax = float(np.abs(t[:3, 3] - JAX_NDT_TRANSLATION).max())
+    log(f"  launches {counts}; translation {t[:3, 3].tolist()}: {t_err:.3e} m off the applied "
+        f"shift, {d_jax:.3e} m off the JAX package's on the CPU {JAX_NDT_TRANSLATION} (tol "
+        f"1e-3); iterations {nres.iterations}, score {nres.score.item():.2f}; against the "
+        f"port's CPU run {d_cpu:.3e} (tol 1e-4)")
+    check(not any(counts.values()), "NDT launched a kernel")
+    check(np.isfinite(t).all() and d_jax <= 1e-3 and d_cpu <= 1e-4,
+          "NDT disagrees with the JAX package's result or the port's CPU run")
+    sub = tt.ops.registration.auto_subsample(s_pc.capacity)
+    tn, peak, busy = timed(lambda: tt.ndt_registration(s_pc, t_pc, ncfg))
+    gauss = ndt_mod.build_gaussians(t_pc.points, t_pc.mask, ncfg.resolution,
+                                    ncfg.min_points_per_voxel)
+    t_build = 1e3 * median_time(lambda: ndt_mod.build_gaussians(
+        t_pc.points, t_pc.mask, ncfg.resolution, ncfg.min_points_per_voxel), warmup=1, iters=3)
+    t_loop = 1e3 * median_time(lambda: ndt_mod._ndt_loop(
+        s_pc.points, s_pc.mask, gauss, torch.eye(4), ncfg.max_iterations, ncfg.step_size,
+        ncfg.epsilon, subsample=sub, full_iters=ncfg.full_iters), warmup=1, iters=3)
+    log(f"  ndt_registration {tn:.2f} ms median of 3 (build {t_build:.2f} ms, loop {t_loop:.2f} "
+        f"ms, subsample {sub}), peak {peak:.3f} GiB, device busy {busy:.2f} ms")
+    report["ndt"] = {"ms": tn, "build_ms": t_build, "loop_ms": t_loop, "peak_gib": peak,
+                     "busy_ms": busy, "translation_err_m": t_err, "jax_diff_m": d_jax,
+                     "cpu_diff": d_cpu}
+    del out, s_pc, t_pc, gauss
+
+    log(f"phase 26: OdometryModel() over {ODOMETRY_FRAMES} frames of the 1M scan, the sensor "
+        f"moving {ODOMETRY_STEP[0]} m and {ODOMETRY_STEP[1]} rad of yaw a frame")
+    model = tt.OdometryModel()
+    frame_ms, icp_launches, errs = [], [], []
+    for pts_f, truth in odometry_frames():
+        frame = tt.PointCloud.from_numpy(pts_f, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pose, counts = run(lambda: model.step(frame))
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        icp_launches.append(counts["icp_match"])
+        errs.append(pose_errors(pose.matrix.cpu().numpy(), truth))
+        check(only(counts, {"icp_match": counts["icp_match"]}),
+              "odometry launched another kernel than icp_match")
+    map_valid = int(model.local_map.mask.sum().item())
+    log(f"  pose errors (m, rad) {errs} (tol {ODOMETRY_TOL}); icp_match launches a frame "
+        f"{icp_launches}; ms a frame {[round(x, 2) for x in frame_ms]}; map {map_valid} valid "
+        f"of {model.local_map.capacity}")
+    check(all(e[0] <= ODOMETRY_TOL[0] and e[1] <= ODOMETRY_TOL[1] for e in errs),
+          "odometry poses off the truth")
+    check(all(n >= 1 for n in icp_launches[1:]), "odometry frames did not launch icp_match")
+    report["odometry"] = {"ms_per_frame_after_first": float(np.mean(frame_ms[1:])),
+                          "icp_match_launches": icp_launches, "pose_errors": errs,
+                          "map_valid": map_valid, "map_capacity": model.local_map.capacity}
     return total, report
 
 

@@ -4,8 +4,10 @@ linear algebra, exact kNN, interop, and the port's import boundary.
 Inputs come from numpy seeds and go to both packages as numpy arrays.
 """
 
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -231,6 +233,46 @@ def test_import_leaves_jax_out():
             "assert not any(m.startswith('threecrate_tpu.') or m == "
             "'threecrate_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_identity_and_cloud_transform_match_jax(rng):
+    """``Transform.identity`` and ``PointCloud.transform``: points within
+    1e-6 of JAX's, normals rotated with them, mask and other attributes
+    kept."""
+    np.testing.assert_array_equal(ttf.Transform.identity().matrix.numpy(),
+                                  np.asarray(jtf.Transform.identity().matrix))
+    m = np.asarray(jtf.se3_exp(jnp.asarray(rng.normal(0, 0.3, 6), jnp.float32)))
+    pts = rng.normal(0, 5, (300, 3)).astype(np.float32)
+    nrm = rng.normal(0, 1, (300, 3)).astype(np.float32)
+    inten = rng.uniform(0, 1, 300).astype(np.float32)
+    jc = tc.PointCloud.from_numpy(pts, normals=nrm, intensity=inten)
+    jc = jc.with_mask(jc.mask & (jnp.arange(jc.capacity) % 3 != 0))
+    pc = interop.cloud_from_numpy(np.asarray(jc.points), np.asarray(jc.mask),
+                                  {k: np.asarray(v) for k, v in jc.attrs.items()}, device="cpu")
+    jout = jc.transform(jtf.Transform(jnp.asarray(m)))
+    tout = pc.transform(interop.transform_from_numpy(m, device="cpu"))
+    np.testing.assert_allclose(tout.points.numpy(), np.asarray(jout.points), atol=1e-5)
+    np.testing.assert_array_equal(tout.mask.numpy(), np.asarray(jout.mask))
+    assert set(tout.attrs) == set(jout.attrs)
+    for k in tout.attrs:
+        np.testing.assert_allclose(tout.attrs[k].numpy(), np.asarray(jout.attrs[k]), atol=1e-6)
+
+
+def test_no_module_of_the_port_imports_jax():
+    """Every module under threecrate_tpu_torch/, imported one by one in a
+    fresh interpreter, leaves jax and the JAX package out of
+    sys.modules; no source line there or in chip_smoke.py imports them."""
+    root = Path(__file__).resolve().parent.parent
+    code = ("import pkgutil, sys, importlib, threecrate_tpu_torch as t\n"
+            "for m in pkgutil.walk_packages(t.__path__, 'threecrate_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'threecrate_tpu' or m.startswith('threecrate_tpu.')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|threecrate_tpu)(\s|\.|$)", re.M)
+    for path in [*sorted((root / "threecrate_tpu_torch").rglob("*.py")), root / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_median_time_needs_the_card():

@@ -27,7 +27,9 @@ bit-equal and votes within 1e-5 of each query's count, also placed at
 random rows (pass B written, pass A added), and two calls bit-equal; the fused
 SHOT/USC entries on the card against the port's own CPU run: valid flags
 equal on >= 99%, descriptor cosine >= 0.999 on >= 97% (an LRF sign vote
-at its tie threshold may flip under the card's last-bit differences).
+at its tie threshold may flip under the card's last-bit differences);
+GICP, NDT and an odometry frame on the card within 1e-4 of the port's
+own CPU run, Patchwork++'s ground mask equal on >= 99.9% of points.
 """
 
 import numpy as np
@@ -953,3 +955,89 @@ def test_point_to_plane_on_card_matches_cpu(cuda):
     assert 1 <= counts["icp_match"] <= 15
     torch.testing.assert_close(g, c, atol=1e-4, rtol=0)
     assert np.abs(g[:3, 3].numpy() - [0.05, -0.03, 0.02]).max() <= 1e-3
+
+
+def test_union_kernels_k20_match_plain(cuda):
+    """GICP's shape: both union passes at k = 20 (band 16 widened to 20,
+    the KMAX = 32 instantiation) on 65,536 sorted scan points."""
+    n = 65_536
+    pts = torch.from_numpy(_scan(n, 21)).to(cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    mask[-300:] = False
+    perm = torch.sort(morton.morton_keys(pts, mask, 0), stable=True).indices
+    pa, va = pts[perm], mask[perm].float()
+    a_in = (pa.T.contiguous(), va[None].contiguous(), 20, TILE, BAND)
+    a, ra = window_union_a_tiles(*a_in), window_union_a_plain(*a_in)
+    assert torch.equal(a[0], ra[0]) and torch.equal(a[10], ra[10])
+    _assert_sums(a, ra, va > 0.5)
+    ob = torch.sort(morton.morton_keys(pa, va > 0.5, 1), stable=True).indices
+    b_in = (pa[ob].T.contiguous(), va[ob][None].contiguous(),
+            ob.to(torch.int32)[None].contiguous(), a[10][ob][None].contiguous(), 20, TILE, BAND)
+    b, rb = window_union_b_tiles(*b_in), window_union_b_plain(*b_in)
+    assert torch.equal(b[0], rb[0]) and torch.equal(b[10], rb[10])
+    _assert_sums(b, rb, va[ob] > 0.5)
+
+
+def _pair_on(dev, n, seed):
+    src = _scan(n, seed)
+    return (tt.PointCloud.from_numpy(src, device=dev),
+            tt.PointCloud.from_numpy(src + np.array([0.05, -0.03, 0.02], np.float32), device=dev))
+
+
+def test_gicp_on_card_matches_cpu(cuda):
+    """GICP on a 20,000-point scan pair, the window paths forced: the union
+    kernels at k = 20 twice, icp_match with six payload rows once an
+    iteration; the card's pose within 1e-4 of the CPU run's."""
+    cfg = tt.GicpConfig(max_iterations=10, method="window", subsample=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        res = tt.gicp(*_pair_on(dev, 20_000, 22), cfg)
+        out[dev.type] = (res, kernels.launch_counts())
+    (g, counts), (c, _) = out["cuda"], out["cpu"]
+    assert counts["union_window_a"] == counts["union_window_b"] == 2
+    assert counts["icp_match"] == g.iterations
+    torch.testing.assert_close(g.transformation.cpu(), c.transformation, atol=1e-4, rtol=0)
+    assert np.abs(g.transformation[:3, 3].cpu().numpy() - [0.05, -0.03, 0.02]).max() <= 1e-3
+
+
+def test_ndt_on_card_matches_cpu(cuda):
+    """NDT (2 m cells) on a 20,000-point scan pair: no kernel; the card's
+    pose within 1e-4 of the CPU run's, the same iteration count."""
+    cfg = tt.NdtConfig(resolution=2.0, max_iterations=20)
+    g = tt.ndt_registration(*_pair_on(cuda, 20_000, 23), cfg)
+    c = tt.ndt_registration(*_pair_on(torch.device("cpu"), 20_000, 23), cfg)
+    torch.testing.assert_close(g.transformation.cpu(), c.transformation, atol=1e-4, rtol=0)
+    assert g.iterations == c.iterations
+    assert abs(g.score.item() - c.score.item()) <= 1e-4 * abs(c.score.item())
+
+
+def test_ground_on_card_matches_cpu(cuda):
+    """Patchwork++ on a 100,000-point scan lowered by the sensor height:
+    ground masks equal on >= 99.9% of points, patch_valid on >= 99%."""
+    pts = _scan(100_000, 24)
+    pts[:, 2] -= 1.723
+    g = tt.patchwork_plus_plus(tt.PointCloud.from_numpy(pts, device=cuda))
+    c = tt.patchwork_plus_plus(tt.PointCloud.from_numpy(pts, device="cpu"))
+    assert (g.ground_mask.cpu() == c.ground_mask).float().mean().item() >= 0.999
+    assert (g.patch_valid.cpu() == c.patch_valid).float().mean().item() >= 0.99
+    assert c.patch_valid.sum().item() > 100
+
+
+def test_odometry_frame_on_card_matches_cpu(cuda):
+    """Two OdometryModel frames of a 100,000-point scan, the sensor moved
+    0.3 m: the static-sort path (1e10 pairs), icp_match on the card; the
+    second pose within 1e-4 of the CPU run's."""
+    pts = _scan(100_000, 25)
+    poses, launches = {}, 0
+    for dev in (cuda, torch.device("cpu")):
+        model = tt.OdometryModel()
+        for f in range(2):
+            kernels.reset_launch_counts()
+            pose = model.step(tt.PointCloud.from_numpy(pts - np.float32([0.3 * f, 0, 0]),
+                                                       device=dev))
+            if dev.type == "cuda":
+                launches += kernels.launch_counts()["icp_match"]
+        poses[dev.type] = pose.matrix.cpu()
+    assert launches >= 1
+    torch.testing.assert_close(poses["cuda"], poses["cpu"], atol=1e-4, rtol=0)

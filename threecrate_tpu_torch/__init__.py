@@ -2,7 +2,7 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Five slices are ported:
+for NVIDIA Hopper (``csrc/``). Six slices are ported:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
 ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
 batched RANSAC, then ICP), the Morton-window neighbourhood ops (FPFH
@@ -10,8 +10,12 @@ at its default band rungs, the window kNN family, ``method="window"``
 normals, the staged window FPFH and statistical outlier removal), the
 SHOT/USC descriptors (the fused band path and the staged path), and
 ``method="window_fast"`` normals with the voxel grid, the crops and
-point-to-plane, batched and multiscale ICP, with the data model, Morton
-keys, small linear algebra and exact neighbour search they need. Clouds built with ``PointCloud.from_numpy``
+point-to-plane, batched and multiscale ICP; then the registration
+family beyond point-to-point ICP: GICP (the union kernels at k = 20 and
+``icp_match`` with six payload rows), NDT on the sorted voxel hash,
+Patchwork++ ground segmentation, and KISS-ICP with ``OdometryModel``;
+with the data model, Morton keys, small linear algebra and exact
+neighbour search they need. Clouds built with ``PointCloud.from_numpy``
 live on the card unless the caller asks for the CPU. Modules mirror the
 JAX package's layout and public names.
 """
@@ -31,7 +35,7 @@ from .core import (
     UnsupportedFormatError,
     VisualizationError,
 )
-from .models import PerceptionResult, PerceptionStep, RegistrationModel
+from .models import OdometryModel, PerceptionResult, PerceptionStep, RegistrationModel
 from .ops.features import (SHOT_DIM, USC_DIM, FpfhConfig, FpfhResult, ShotConfig,
                            ShotResult, extract_fpfh_features,
                            extract_fpfh_features_with_normals, extract_shot_features,
@@ -41,8 +45,13 @@ from .ops.filtering import (OutlierResult, VoxelGridResult, passthrough_filter,
                             statistical_outlier_removal,
                             statistical_outlier_removal_with_threshold,
                             voxel_grid_filter, voxel_grid_filter_detailed)
+from .ops.gicp import GicpConfig, gicp
 from .ops.global_registration import (GlobalRegistrationConfig,
                                       GlobalRegistrationResult, global_registration)
+from .ops.ground import (GroundSegmentationResult, PatchworkConfig,
+                         patchwork_plus_plus, segment_ground)
+from .ops.kiss_icp import KissIcpConfig, KissIcpOdometry, kiss_icp
+from .ops.ndt import NdtConfig, NdtResult, ndt_registration
 from .ops.normals import (NormalEstimationConfig, estimate_normals,
                           estimate_normals_detailed,
                           estimate_normals_with_config)
@@ -53,7 +62,7 @@ from .ops.registration import (ICPConfig, ICPResult, MultiscaleConfig, icp,
 __all__ = [
     "core", "interop", "kernels", "models", "ops", "utils",
     "PointCloud", "Transform", "PerceptionStep", "PerceptionResult",
-    "RegistrationModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
+    "RegistrationModel", "OdometryModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
     "extract_fpfh_features_with_normals", "match_descriptors", "ShotConfig",
     "ShotResult", "SHOT_DIM", "USC_DIM", "extract_shot_features",
     "extract_usc_features",
@@ -61,7 +70,10 @@ __all__ = [
     "NormalEstimationConfig", "estimate_normals", "estimate_normals_detailed",
     "estimate_normals_with_config", "ICPConfig", "ICPResult", "MultiscaleConfig",
     "icp", "icp_point_to_point", "icp_point_to_plane",
-    "multiscale_icp_point_to_point", "OutlierResult", "VoxelGridResult",
+    "multiscale_icp_point_to_point", "gicp", "GicpConfig", "ndt_registration",
+    "NdtConfig", "NdtResult", "patchwork_plus_plus", "segment_ground",
+    "PatchworkConfig", "GroundSegmentationResult", "kiss_icp", "KissIcpConfig",
+    "KissIcpOdometry", "OutlierResult", "VoxelGridResult",
     "voxel_grid_filter", "voxel_grid_filter_detailed", "passthrough_filter",
     "range_filter", "statistical_outlier_removal",
     "statistical_outlier_removal_with_threshold", "radius_outlier_removal",

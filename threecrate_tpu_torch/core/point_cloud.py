@@ -14,8 +14,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.linalg import fp32_matmul
 from ..utils import padding
 from .errors import InvalidDataError
+from .transform import Transform
 
 NORMALS = "normals"
 
@@ -109,6 +111,16 @@ class PointCloud:
     def select(self, keep: torch.Tensor) -> "PointCloud":
         """Mask-and intersection: keep points where ``keep`` & valid."""
         return self.with_mask(self.mask & keep)
+
+    def transform(self, t: Transform) -> "PointCloud":
+        """Apply a rigid transform (its matrix moved to the cloud's
+        device); normals, where present, rotate with it. Mask and other
+        attributes are kept."""
+        t = Transform(t.matrix.to(self.device))
+        attrs = dict(self.attrs)
+        if NORMALS in attrs:
+            attrs[NORMALS] = fp32_matmul(attrs[NORMALS], t.rotation.T)
+        return PointCloud(t.apply(self.points), self.mask, attrs)
 
     def bounding_box(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(min_xyz, max_xyz) over valid points."""

@@ -29,6 +29,11 @@ class Transform:
     matrix: torch.Tensor
 
     @classmethod
+    def identity(cls, device=None) -> "Transform":
+        """The identity, on ``device`` (default the CPU)."""
+        return cls(torch.eye(4, dtype=torch.float32, device=device))
+
+    @classmethod
     def from_matrix(cls, m) -> "Transform":
         return cls(_as_matrix(m))
 

@@ -6,8 +6,10 @@ included, so both packages see the same capacity) and build the port's
 types; ``cloud_to_numpy`` and ``transform_to_numpy`` go back. The
 system has no learned weights: besides the clouds, the state both
 packages share is their configs, which ``fpfh_config_from``,
-``shot_config_from``, ``global_registration_config_from`` and
-``multiscale_config_from`` carry over field by field.
+``shot_config_from``, ``global_registration_config_from``,
+``multiscale_config_from``, ``gicp_config_from``, ``ndt_config_from``,
+``patchwork_config_from`` and ``kiss_icp_config_from`` carry over field
+by field.
 """
 
 from __future__ import annotations
@@ -21,7 +23,11 @@ import torch
 from .core.point_cloud import PointCloud
 from .core.transform import Transform
 from .ops.features import FpfhConfig, FpfhResult, ShotConfig, ShotResult
+from .ops.gicp import GicpConfig
 from .ops.global_registration import GlobalRegistrationConfig
+from .ops.ground import PatchworkConfig
+from .ops.kiss_icp import KissIcpConfig
+from .ops.ndt import NdtConfig
 from .ops.registration import MultiscaleConfig
 
 
@@ -74,6 +80,26 @@ def global_registration_config_from(config) -> GlobalRegistrationConfig:
 def multiscale_config_from(config) -> MultiscaleConfig:
     """The port's ``MultiscaleConfig`` with the fields of a JAX one."""
     return _config_from(MultiscaleConfig, config)
+
+
+def gicp_config_from(config) -> GicpConfig:
+    """The port's ``GicpConfig`` with the fields of a JAX ``GicpConfig``."""
+    return _config_from(GicpConfig, config)
+
+
+def ndt_config_from(config) -> NdtConfig:
+    """The port's ``NdtConfig`` with the fields of a JAX ``NdtConfig``."""
+    return _config_from(NdtConfig, config)
+
+
+def patchwork_config_from(config) -> PatchworkConfig:
+    """The port's ``PatchworkConfig`` with the fields of a JAX one."""
+    return _config_from(PatchworkConfig, config)
+
+
+def kiss_icp_config_from(config) -> KissIcpConfig:
+    """The port's ``KissIcpConfig`` with the fields of a JAX one."""
+    return _config_from(KissIcpConfig, config)
 
 
 def fpfh_result_to_numpy(res: FpfhResult) -> Tuple[np.ndarray, np.ndarray]:

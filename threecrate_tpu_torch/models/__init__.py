@@ -1,5 +1,5 @@
 """Pipeline models."""
 
-from .perception import PerceptionResult, PerceptionStep, RegistrationModel
+from .perception import OdometryModel, PerceptionResult, PerceptionStep, RegistrationModel
 
-__all__ = ["PerceptionResult", "PerceptionStep", "RegistrationModel"]
+__all__ = ["OdometryModel", "PerceptionResult", "PerceptionStep", "RegistrationModel"]

@@ -1,5 +1,6 @@
-"""PerceptionStep (normals + ICP scan-pair alignment) and
-RegistrationModel (global FPFH + RANSAC initialisation, then ICP).
+"""PerceptionStep (normals + ICP scan-pair alignment), OdometryModel
+(KISS-ICP scan-to-map odometry) and RegistrationModel (global FPFH +
+RANSAC initialisation, then ICP).
 
 Counterpart of ``threecrate_tpu.models.perception.PerceptionStep``:
 the target's normals (the two-window union at 65,536 points and above,
@@ -16,7 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import global_registration
+from ..core.point_cloud import PointCloud
+from ..core.transform import Transform
+from ..ops import global_registration, kiss_icp
 from ..ops import normals as normals_mod
 from ..ops import registration
 
@@ -63,6 +66,31 @@ class PerceptionStep:
             src, src_mask, tgt, tgt_mask, torch.eye(4), self.max_iterations,
             self.conv_thresh, torch.inf, window=use_window)
         return PerceptionResult(t, mse, nrm, curv)
+
+
+class OdometryModel:
+    """Scan-to-map LiDAR odometry (KISS-ICP): feed scans, read poses.
+    Counterpart of the JAX ``OdometryModel``, a thin wrapper over
+    :class:`ops.kiss_icp.KissIcpOdometry`; the keyword arguments build a
+    ``KissIcpConfig``.
+
+    >>> model = OdometryModel(voxel_size=1.0)
+    >>> pose = model.step(scan_cloud)   # (4, 4) world pose, a Transform
+    """
+
+    def __init__(self, **config):
+        self._odom = kiss_icp.KissIcpOdometry(kiss_icp.KissIcpConfig(**config))
+        self.poses = []
+
+    def step(self, scan: PointCloud) -> Transform:
+        """Register one scan; returns its world pose."""
+        pose = self._odom.register_frame(scan)
+        self.poses.append(pose)
+        return pose
+
+    @property
+    def local_map(self):
+        return self._odom.local_map
 
 
 class RegistrationModel:

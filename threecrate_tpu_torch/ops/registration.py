@@ -256,6 +256,15 @@ def _icp_loop(step, t_host, max_iterations, conv_thresh, match=None,
     return run_loop(t_host, 0, match, max_iterations)
 
 
+def _pose_to(t_host: torch.Tensor, device) -> torch.Tensor:
+    """The host pose on ``device``. On the card the copy leaves from pinned
+    memory without blocking, so an iteration's one device→host copy stays
+    its only host sync."""
+    if torch.device(device).type != "cuda":
+        return t_host.to(device)
+    return t_host.pin_memory().to(device, non_blocking=True)
+
+
 def _limits(max_corr_dist):
     """(max distance, max d²) as Python floats holding fp32 values (the
     square an fp32 product, as the JAX package takes it): compared with
@@ -278,7 +287,7 @@ def _icp_p2p(src, src_mask, tgt, tgt_mask, init, max_iterations,
     def step(t_mat, match_fn):
         """One iteration on the device; the Kabsch moments, mse and count
         come back in one device→host copy."""
-        t_dev = t_mat.to(device)
+        t_dev = _pose_to(t_mat, device)
         if window:
             moved, matched, ok, d2, _ = match_fn(t_dev)
             d2 = torch.where(ok, d2, 0.0)
@@ -357,7 +366,7 @@ def _icp_p2plane(src, src_mask, tgt, tgt_mask, tgt_normals, init,
                                  subsample, tgt_extra=tgt_normals) if window else (None, None))
 
     def step(t_mat, match_fn):
-        t_dev = t_mat.to(device)
+        t_dev = _pose_to(t_mat, device)
         if window:
             moved, q, ok, _, extra = match_fn(t_dev)
             nrm = extra.T
