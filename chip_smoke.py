@@ -134,11 +134,43 @@ Phases, in order; any failed check raises and the script exits non-zero:
 26. ``OdometryModel()`` over 5 frames of ``scan(1M, 0)`` seen from a
     sensor moving 0.3 m and 0.01 rad of yaw a frame: each pose within
     ``ODOMETRY_TOL`` of the truth, ``icp_match`` the only kernel; ms a
-    frame, launches a frame, the map's size.
+    frame, launches a frame, the map's size;
+27-31. the depth-camera slice (no kernel may launch), on bench.py's
+    480x640 wavy depth image through [525, 525, 320, 240] from the
+    identity; each entry timed (median of 3 after a warm-up, CUDA
+    events) with its peak memory, device busy time and host syncs:
+27. ``tsdf_integrate`` into a 256^3 volume of 4/256 m voxels: the pixel
+    each voxel picks equal to the port's CPU run's on >= PIXEL_SHARE of
+    the voxels and the tsdf within 1e-6 where both pick the same pixel;
+    then ``tsdf_extract_surface_banded``: every surface point inside the
+    image within one voxel of the input depth at its pixel;
+28. ``sparse_tsdf_integrate`` into 32^3 blocks of 8 (4,096 blocks),
+    without and with colour: ``n_blocks`` and ``block_keys`` equal to
+    the CPU run's, weights equal on >= PIXEL_SHARE, tsdf (and colour)
+    within 1e-6 where equal; the allocated interiors within 1e-5 of
+    phase 27's volume where both have weight; the blocks attempted
+    against those allocated;
+29. ``sparse_tsdf_raycast`` at 480x640 (near 0.6, far 4.0): both
+    ``materialize`` paths with equal masks, depth within 1e-6 and
+    normals within 1e-5; confident depth against the input (gated at
+    what the JAX package reaches, ``JAX_CONFIDENT_DEPTH_ERR`` and
+    ``JAX_CONFIDENT_OVER_HALF``); the hit
+    share, the march's steps and exit tests, the time at four exit-test
+    spacings; ``tsdf_raycast`` of phase 27's volume;
+30. ``track_frame_to_model`` (10 iterations) of the frame raycast from
+    the identity moved 0.01 m in x against the model raycast from the
+    identity: within 2e-3 rad and half a voxel of the truth and within
+    1e-4 m of the JAX package's CPU result; iterations and host syncs an
+    iteration;
+31. ``FrameToModelOdometry()`` with its defaults over 8 frames of an
+    analytic wavy wall rendered in float64, the sensor moving ~0.01 m
+    and 0.005 rad a frame: each pose within ``F2M_TOL`` of the truth
+    (the JAX package's worst frame, rounded up); ms a frame, busy time
+    and host syncs of a frame.
 
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21 and 23-26; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21 and 23-31; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -155,6 +187,7 @@ r2, the nearest d² or the k-th d²), counted on this run's inputs; phase
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -262,6 +295,43 @@ ODOMETRY_STEP = (0.3, 0.01)
 # 0.0898 m and 4.27e-3 rad (tools/family_references.py odometry), rounded
 # up here
 ODOMETRY_TOL = (0.1, 5e-3)
+# The depth-camera slice (phases 27-31): bench.py's 480x640 wavy depth
+# image (2.0 + 0.3·sin(x/60)·cos(y/45) m) seen through intrinsics
+# [525, 525, 320, 240] from the identity, fused into a 256^3 grid of
+# 4/256 m voxels at origin (-2, -2, 0.5): dense, or 32^3 blocks of 8 with
+# 4,096 blocks (bench.py:402-430, :536-612)
+DEPTH_HW = (480, 640)
+DEPTH_INTR = np.array([525.0, 525.0, 320.0, 240.0], np.float32)
+TSDF_RES, TSDF_VOXEL, TSDF_ORIGIN = 256, 4.0 / 256, (-2.0, -2.0, 0.5)
+TSDF_GRID, TSDF_MAX_BLOCKS = (32, 32, 32), 4096
+RAY_NEAR, RAY_FAR = 0.6, 4.0
+# phase 27: the share of voxels whose pixel the card and the CPU both
+# pick (phase 28: whose weight they agree on)
+PIXEL_SHARE = 0.9999
+# phase 29: the raycast depth against the input on confident pixels. The
+# JAX package on the CPU misses half a voxel there near the image borders
+# (tools/family_references.py f2m: at most 0.01854 m sparse and 0.01901 m
+# dense; 411 of 287,364 and 553 of 282,751 confident pixels beyond half a
+# voxel), so the gate is what it reaches, rounded up: the largest error
+# and the share of confident pixels beyond half a voxel
+JAX_CONFIDENT_DEPTH_ERR, JAX_CONFIDENT_OVER_HALF = 0.02, 0.0025
+# phase 30: a frame raycast from the pose moved TRACK_SHIFT m in x,
+# tracked against the model raycast from the identity (bench.py:555-584);
+# the pose the JAX package reaches on the CPU from its own maps
+# (tools/family_references.py f2m), and the gate against it (m)
+TRACK_SHIFT = 0.01
+JAX_TRACK_TRANSLATION = (0.010052465833723545, 1.2806761333195027e-05, 1.2924405382364057e-05)
+TRACK_JAX_TOL = 1e-4
+# phase 31: FrameToModelOdometry with its defaults over F2M_FRAMES frames
+# of an analytic wavy wall, z = 2 + 0.2·sin(x/0.3)·cos(y/0.25) m in the
+# world, the sensor moving F2M_STEP a frame (rotations about x and y of
+# 0.003 and -0.004 rad, a 0.0101 m translation); each pose against the
+# truth (m, rad), gated at the JAX package's worst frame on the same
+# frames on the CPU (tools/family_references.py f2m: 2.686e-4 m,
+# 1.444e-4 rad), rounded up
+F2M_FRAMES = 8
+F2M_STEP = ((0.003, -0.004, 0.0), (0.006, -0.004, 0.007))
+F2M_TOL = (3e-4, 2e-4)
 GICP_K = 20              # GicpConfig's k_correspondences: the union passes at k = 20
 REG_ANGLE = 0.35
 REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
@@ -1309,7 +1379,9 @@ def main() -> int:
     shot_launches, shot_report = shot_phases(dev, kernels)
     fast_launches, fast_report = window_fast_phases(dev, kernels)
     fam_launches, fam_report = registration_family_phases(dev, kernels)
-    for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches):
+    depth_launches, depth_report = depth_camera_phases(dev, kernels)
+    for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
+                 depth_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1398,6 +1470,7 @@ def main() -> int:
         f"{json.dumps(bound(*work[k128]))} {errs[k128]}")
     log(f"window_fast, voxel grid and ICP variants: {json.dumps(fast_report)}")
     log(f"GICP, Patchwork++, NDT and odometry: {json.dumps(fam_report)}")
+    log(f"depth-camera slice: {json.dumps(depth_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1997,6 +2070,79 @@ def pose_errors(pose: np.ndarray, truth: np.ndarray):
     return float(np.abs(pose[:3, 3] - truth[:3, 3]).max()), float(theta)
 
 
+def wavy_depth() -> np.ndarray:
+    """bench.py's 480x640 depth image (m)."""
+    yy, xx = np.mgrid[0:DEPTH_HW[0], 0:DEPTH_HW[1]]
+    return (2.0 + 0.3 * np.sin(xx / 60.0) * np.cos(yy / 45.0)).astype(np.float32)
+
+
+def shifted_pose(dx: float) -> np.ndarray:
+    """The identity moved ``dx`` m along x (float32)."""
+    m = np.eye(4, dtype=np.float32)
+    m[0, 3] = dx
+    return m
+
+
+def rot_xyz(rx: float, ry: float, rz: float) -> np.ndarray:
+    """float64 rotation Rz·Ry·Rx."""
+    cx, sx, cy, sy, cz, sz = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry), np.cos(rz), np.sin(rz)
+    rot_x = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    rot_y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    rot_z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return rot_z @ rot_y @ rot_x
+
+
+def wall_z(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    return 2.0 + 0.2 * np.sin(x / 0.3) * np.cos(y / 0.25)
+
+
+def wall_depth(pose: np.ndarray) -> np.ndarray:
+    """The wavy wall's depth image seen from ``pose`` (float64 (4, 4)),
+    each pixel ray intersected by 48 bisection steps in float64. The
+    wall's slopes (at most 0.67 and 0.8) keep every ray of this camera
+    crossing it once, so [0.5, 4] m brackets that one crossing. The ray's
+    camera-frame direction has z = 1, so its parameter is the depth."""
+    h, w = DEPTH_HW
+    fx, fy, cx, cy = DEPTH_INTR.astype(np.float64)
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1) @ pose[:3, :3].T
+    o = pose[:3, 3]
+    lo, hi = np.full((h, w), 0.5), np.full((h, w), 4.0)
+    for _ in range(48):
+        mid = 0.5 * (lo + hi)
+        p = o + mid[..., None] * d
+        front = p[..., 2] < wall_z(p[..., 0], p[..., 1])
+        lo, hi = np.where(front, mid, lo), np.where(front, hi, mid)
+    return (0.5 * (lo + hi)).astype(np.float32)
+
+
+def wall_frames():
+    """Phase 31's frames: (depth image, the sensor's true pose (4, 4))
+    from a sensor that starts at the identity and moves F2M_STEP a frame."""
+    step = np.eye(4)
+    step[:3, :3] = rot_xyz(*F2M_STEP[0])
+    step[:3, 3] = F2M_STEP[1]
+    truth = np.eye(4)
+    for _ in range(F2M_FRAMES):
+        yield wall_depth(truth), truth
+        truth = truth @ step
+
+
+def track_scene(tt, dev):
+    """Phase 30's inputs with the port on ``dev``: bench.py's frame fused
+    into the sparse 256^3 volume, the model raycast from the identity and
+    the frame's depth raycast from the pose moved TRACK_SHIFT m in x."""
+    eye = np.eye(4, dtype=np.float32)
+    vol = tt.sparse_tsdf_integrate(
+        tt.create_sparse_tsdf_volume(TSDF_VOXEL, origin=TSDF_ORIGIN, grid_blocks=TSDF_GRID,
+                                     max_blocks=TSDF_MAX_BLOCKS, device=dev),
+        wavy_depth(), DEPTH_INTR, eye, grid_blocks=TSDF_GRID)
+    ray = dict(grid_blocks=TSDF_GRID, near=RAY_NEAR, far=RAY_FAR)
+    model = tt.sparse_tsdf_raycast(vol, DEPTH_INTR, eye, *DEPTH_HW, **ray)
+    frame = tt.sparse_tsdf_raycast(vol, DEPTH_INTR, shifted_pose(TRACK_SHIFT), *DEPTH_HW, **ray)
+    return vol, model, frame.depth
+
+
 def registration_family_phases(dev, kernels):
     """Phases 23-26: GICP, Patchwork++, NDT and ``OdometryModel`` through
     their public entries at full size, each run checked with its launch
@@ -2153,6 +2299,263 @@ def registration_family_phases(dev, kernels):
     report["odometry"] = {"ms_per_frame_after_first": float(np.mean(frame_ms[1:])),
                           "icp_match_launches": icp_launches, "pose_errors": errs,
                           "map_valid": map_valid, "map_capacity": model.local_map.capacity}
+    return total, report
+
+
+def depth_camera_phases(dev, kernels):
+    """Phases 27-31: the depth-camera slice (no kernel of its own) through
+    its public entries at bench.py's sizes, each run with the launch
+    counters reset just before and read just after, checked, then timed:
+    median of 3 after a warm-up (CUDA events), peak memory, device busy
+    time and host syncs. Returns (launches, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.ops import frame_to_model as f2m_mod
+    from threecrate_tpu_torch.ops import tsdf as tsdf_mod
+    from threecrate_tpu_torch.ops import tsdf_raycast as ray_mod
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line()}
+    cpu = torch.device("cpu")
+    h, w = DEPTH_HW
+
+    def run(fn):
+        out, counts = run_counted(kernels, total, fn)
+        check(not any(counts.values()), "the depth-camera slice launched a kernel")
+        return out
+
+    def measure(fn):
+        """ms (median of 3 after one warm-up), peak GiB, busy ms, host syncs."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = 1e3 * median_time(fn, warmup=1, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        return {"ms": ms, "peak_gib": peak, "busy_ms": busy_time(fn),
+                "host_syncs": host_syncs(fn)}
+
+    def cpu_run(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def fmt(m):
+        return (f"{m['ms']:.2f} ms median of 3, peak {m['peak_gib']:.3f} GiB, device busy "
+                f"{m['busy_ms']:.2f} ms, {m['host_syncs']} host syncs ({report['card']})")
+
+    depth_np, eye_np = wavy_depth(), np.eye(4, dtype=np.float32)
+    depth, intr, eye = (torch.from_numpy(x).to(dev) for x in (depth_np, DEPTH_INTR, eye_np))
+
+    log(f"phase 27: tsdf_integrate of the {h}x{w} frame into a {TSDF_RES}^3 volume "
+        f"({TSDF_VOXEL} m voxels), then tsdf_extract_surface_banded")
+    res3 = (TSDF_RES,) * 3
+    vol0 = tt.create_tsdf_volume(res3, TSDF_VOXEL, origin=TSDF_ORIGIN, device=dev)
+    dense = run(lambda: tt.tsdf_integrate(vol0, depth, intr, eye))
+    dense_cpu, cpu_ms = cpu_run(lambda: tt.tsdf_integrate(
+        tt.create_tsdf_volume(res3, TSDF_VOXEL, origin=TSDF_ORIGIN, device=cpu), depth_np,
+        DEPTH_INTR, eye_np))
+    pix = [tsdf_mod._project(tsdf_mod._voxel_centers(v), i, p, h, w)[:2]
+           for v, i, p in ((dense, intr, eye), (dense_cpu, intr.cpu(), eye.cpu()))]
+    same_pix = (pix[0][0].cpu() == pix[1][0]) & (pix[0][1].cpu() == pix[1][1])
+    del pix
+    pix_share = same_pix.float().mean().item()
+    w_share = (dense.weight.cpu() == dense_cpu.weight).float().mean().item()
+    tsdf_err = (dense.tsdf.cpu() - dense_cpu.tsdf)[same_pix].abs().max().item()
+    observed = int((dense.weight > 0).sum().item())
+    m27 = measure(lambda: tt.tsdf_integrate(vol0, depth, intr, eye))
+    surf = run(lambda: tt.tsdf_extract_surface_banded(dense))
+    pts = surf.cloud.points[surf.cloud.mask]
+    ui, vi, in_img, _ = tsdf_mod._project(pts, intr, eye, h, w)
+    surf_err = (pts[:, 2] - depth[vi, ui])[in_img].abs().max().item()
+    in_share = in_img.float().mean().item()
+    m27s = measure(lambda: tt.tsdf_extract_surface_banded(dense))
+    log(f"  {observed} voxels observed; same pixel on card and CPU {pix_share:.7f} (need >= "
+        f"{PIXEL_SHARE}), weight equal {w_share:.7f}, tsdf max |diff| {tsdf_err:.3e} where both "
+        f"pick the same pixel (tol 1e-6); CPU run {cpu_ms:.1f} ms; {int(surf.count)} surface "
+        f"points, {in_share:.5f} inside the image, max |z - depth| {surf_err:.3e} m (tol one "
+        f"voxel, {TSDF_VOXEL})")
+    log(f"  integrate {fmt(m27)}")
+    log(f"  extract_surface_banded {fmt(m27s)}")
+    check(observed > 0.02 * TSDF_RES ** 3 and pix_share >= PIXEL_SHARE and tsdf_err <= 1e-6,
+          "dense fusion on the card disagrees with the CPU run")
+    check(int(surf.count) > 0.1 * TSDF_RES ** 2 and in_share >= 0.99 and surf_err <= TSDF_VOXEL,
+          "surface points off the input depth")
+    report["tsdf_integrate"] = {**m27, "pixel_share": pix_share, "weight_share": w_share,
+                                "tsdf_err": tsdf_err, "cpu_ms": cpu_ms}
+    report["tsdf_extract_surface_banded"] = {**m27s, "points": int(surf.count),
+                                             "depth_err_m": surf_err}
+    del vol0, dense_cpu, same_pix, surf, pts, ui, vi, in_img
+
+    log(f"phase 28: sparse_tsdf_integrate, {TSDF_GRID} blocks of 8, max_blocks "
+        f"{TSDF_MAX_BLOCKS}, without and with colour")
+    rgb_np = np.tile(np.linspace(0, 1, w, dtype=np.float32)[None, :, None], (h, 1, 3))
+    rgb = torch.from_numpy(rgb_np).to(dev)
+    sparse = {}
+    for color in (False, True):
+        def empty(d, cap=TSDF_MAX_BLOCKS):
+            return tt.create_sparse_tsdf_volume(TSDF_VOXEL, origin=TSDF_ORIGIN,
+                                                grid_blocks=TSDF_GRID, max_blocks=cap,
+                                                with_color=color, device=d)
+        kw = dict(grid_blocks=TSDF_GRID, rgb=rgb if color else None)
+        svol = run(lambda: tt.sparse_tsdf_integrate(empty(dev), depth, intr, eye, **kw))
+        scpu, cpu_ms = cpu_run(lambda: tt.sparse_tsdf_integrate(
+            empty(cpu), depth_np, DEPTH_INTR, eye_np, grid_blocks=TSDF_GRID,
+            rgb=rgb_np if color else None))
+        attempted = int(tt.sparse_tsdf_integrate(empty(dev, TSDF_GRID[0] ** 3), depth, intr,
+                                                 eye, **kw).n_blocks)
+        n = int(svol.n_blocks)
+        keys_equal = n == int(scpu.n_blocks) and torch.equal(svol.block_keys.cpu(),
+                                                             scpu.block_keys)
+        same = svol.weight.cpu() == scpu.weight
+        share = same.float().mean().item()
+        err = (svol.tsdf.cpu() - scpu.tsdf)[same].abs().max().item()
+        if color:
+            err = max(err, (svol.color.cpu() - scpu.color)[same].abs().max().item())
+        # allocated interiors against phase 27's dense volume
+        sd = tt.sparse_tsdf_to_dense(svol, TSDF_GRID)
+        both = (sd.weight > 0) & (dense.weight > 0)
+        dense_err = (sd.tsdf - dense.tsdf)[both].abs().max().item()
+        dense_w = torch.equal(sd.weight[both], dense.weight[both])
+        m28 = measure(lambda: tt.sparse_tsdf_integrate(svol, depth, intr, eye, **kw))
+        name = "sparse_integrate" + (" color" if color else "")
+        log(f"  {name}: {n} blocks allocated of {attempted} attempted (capacity "
+            f"{TSDF_MAX_BLOCKS}, overflow {max(attempted - n, 0)}); keys equal to the CPU run "
+            f"{keys_equal}; weight equal {share:.7f}, max |diff| {err:.3e} where equal (tol "
+            f"1e-6); against phase 27's dense volume on {int(both.sum().item())} voxels: tsdf "
+            f"{dense_err:.3e} (tol 1e-5), weights equal {dense_w}; CPU run {cpu_ms:.1f} ms")
+        log(f"  {name} (second frame into the fused volume) {fmt(m28)}")
+        check(keys_equal and n > 0.002 * TSDF_GRID[0] ** 3 and share >= PIXEL_SHARE
+              and err <= 1e-6,
+              f"{name} on the card disagrees with the CPU run")
+        check(int(both.sum().item()) > 0.005 * TSDF_RES ** 3 and dense_err <= 1e-5 and dense_w,
+              f"{name} disagrees with the dense volume")
+        report[name] = {**m28, "blocks": n, "attempted": attempted, "weight_share": share,
+                        "cpu_ms": cpu_ms, "dense_err": dense_err}
+        sparse[color] = svol
+        del scpu, sd, both
+    svol = sparse[False]
+    del sparse
+
+    log(f"phase 29: sparse_tsdf_raycast {h}x{w} from the identity, near {RAY_NEAR}, far "
+        f"{RAY_FAR}; tsdf_raycast of phase 27's volume")
+    ray = dict(grid_blocks=TSDF_GRID, near=RAY_NEAR, far=RAY_FAR)
+    ray_mod.reset_counts()
+    rc = run(lambda: tt.sparse_tsdf_raycast(svol, intr, eye, h, w, **ray))
+    rounds = dict(ray_mod.counts)
+    rc_rows = run(lambda: tt.sparse_tsdf_raycast(svol, intr, eye, h, w, materialize=False, **ray))
+    mask_eq = torch.equal(rc.mask, rc_rows.mask)
+    d_err = (rc.depth - rc_rows.depth).abs().max().item()
+    n_err = (rc.normals - rc_rows.normals).abs().max().item()
+    hit, conf_share = rc.mask.float().mean().item(), rc.confident.float().mean().item()
+
+    def confident_err(res):
+        """(max |depth − input| on confident pixels, share beyond half a voxel)."""
+        err = (res.depth - depth)[res.confident].abs()
+        return err.max().item(), (err > TSDF_VOXEL / 2).float().mean().item()
+
+    depth_err, over_half = confident_err(rc)
+    spacing, chosen = {}, ray_mod.EXIT_TEST_EVERY
+    for every in (1, 4, 8, 16):
+        ray_mod.EXIT_TEST_EVERY = every
+        ray_mod.reset_counts()
+        tt.sparse_tsdf_raycast(svol, intr, eye, h, w, **ray)
+        steps = ray_mod.counts["steps"]
+        spacing[every] = {"steps": steps, "ms": 1e3 * median_time(
+            lambda: tt.sparse_tsdf_raycast(svol, intr, eye, h, w, **ray), warmup=1, iters=3)}
+    ray_mod.EXIT_TEST_EVERY = chosen
+    m29 = measure(lambda: tt.sparse_tsdf_raycast(svol, intr, eye, h, w, **ray))
+    m29r = measure(lambda: tt.sparse_tsdf_raycast(svol, intr, eye, h, w, materialize=False,
+                                                  **ray))
+    rd = run(lambda: tt.tsdf_raycast(dense, intr, eye, h, w, near=RAY_NEAR, far=RAY_FAR))
+    dense_depth_err, dense_over_half = confident_err(rd)
+    m29d = measure(lambda: tt.tsdf_raycast(dense, intr, eye, h, w, near=RAY_NEAR, far=RAY_FAR))
+    log(f"  hits {hit:.5f}, confident {conf_share:.5f}; confident depth max |diff| to the input "
+        f"{depth_err:.3e} m, {over_half:.5f} of them beyond half a voxel (tol "
+        f"{JAX_CONFIDENT_DEPTH_ERR} m and {JAX_CONFIDENT_OVER_HALF}: the JAX package's, rounded "
+        f"up); march steps and exit tests "
+        f"{rounds} (coarse and full level, a test every {ray_mod.EXIT_TEST_EVERY} steps); the "
+        f"row-map path: mask equal {mask_eq}, depth {d_err:.3e} (tol 1e-6), normals {n_err:.3e} "
+        f"(tol 1e-5)")
+    log(f"  exit test spacing (steps, ms): {json.dumps(spacing)}")
+    log(f"  sparse_raycast {fmt(m29)}")
+    log(f"  sparse_raycast materialize=False {fmt(m29r)}")
+    log(f"  dense raycast: hits {rd.mask.float().mean().item():.5f}, confident depth max |diff| "
+        f"{dense_depth_err:.3e} m, {dense_over_half:.5f} beyond half a voxel; {fmt(m29d)}")
+    check(mask_eq and d_err <= 1e-6 and n_err <= 1e-5, "the two sparse samplers disagree")
+    check(hit > 0.95 and max(depth_err, dense_depth_err) <= JAX_CONFIDENT_DEPTH_ERR
+          and max(over_half, dense_over_half) <= JAX_CONFIDENT_OVER_HALF,
+          "raycast depth off the input depth")
+    report["sparse_raycast"] = {**m29, "hit_share": hit, "confident_share": conf_share,
+                                "depth_err_m": depth_err, "over_half_voxel": over_half,
+                                "march": rounds, "spacing": spacing}
+    report["sparse_raycast rows"] = m29r
+    report["raycast dense"] = {**m29d, "depth_err_m": dense_depth_err,
+                               "over_half_voxel": dense_over_half}
+    del rc, rc_rows, rd, dense
+
+    log(f"phase 30: track_frame_to_model, the frame raycast from the identity moved "
+        f"{TRACK_SHIFT} m in x, max_iterations=10")
+    _, model, frame_depth = track_scene(tt, dev)
+    f2m_mod.reset_counts()
+    tr = run(lambda: tt.track_frame_to_model(model, eye, frame_depth, intr, eye,
+                                             max_iterations=10))
+    iters = f2m_mod.counts["iterations"]
+    pose = tr.cam_to_world.cpu().numpy()
+    truth = shifted_pose(TRACK_SHIFT)
+    d = np.linalg.inv(truth.astype(np.float64)) @ pose
+    rot = float(np.arccos(np.clip((np.trace(d[:3, :3]) - 1) / 2, -1, 1)))
+    trans = float(np.linalg.norm(d[:3, 3]))
+    jax_diff = float(np.abs(pose[:3, 3] - JAX_TRACK_TRANSLATION).max())
+    syncs = host_syncs(lambda: tt.track_frame_to_model(model, eye, frame_depth, intr, eye,
+                                                       max_iterations=10))
+    m30 = measure(lambda: tt.track_frame_to_model(model, eye, frame_depth, intr, eye,
+                                                  max_iterations=10))
+    log(f"  pose off the truth {rot:.3e} rad (tol 2e-3), {trans:.3e} m (tol half a voxel); "
+        f"translation {pose[:3, 3].tolist()}, {jax_diff:.3e} m off the JAX package's on the "
+        f"CPU {JAX_TRACK_TRANSLATION} (tol {TRACK_JAX_TOL}); {iters} iterations, {syncs} host "
+        f"syncs ({syncs / iters:.2f} an iteration); n_valid {int(tr.n_valid)}, rmse "
+        f"{float(tr.rmse):.3e}")
+    log(f"  track {fmt(m30)}")
+    check(bool(tr.converged) and rot <= 2e-3 and trans <= TSDF_VOXEL / 2,
+          "tracking missed the true pose")
+    check(jax_diff <= TRACK_JAX_TOL, "tracking disagrees with the JAX package's pose")
+    report["track"] = {**m30, "iterations": iters, "syncs_per_iteration": syncs / iters,
+                       "rot_err_rad": rot, "trans_err_m": trans, "jax_diff_m": jax_diff}
+    del model, frame_depth, svol
+
+    log(f"phase 31: FrameToModelOdometry() defaults over {F2M_FRAMES} {h}x{w} frames of an "
+        f"analytic wavy wall, the sensor moving ~0.01 m and 0.005 rad a frame")
+    frames = [(torch.from_numpy(dpt).to(dev), truth) for dpt, truth in wall_frames()]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    odo = tt.FrameToModelOdometry(tt.CameraIntrinsics(*DEPTH_INTR.tolist()), h, w, device=dev)
+    frame_ms, errs, iters = [], [], []
+    for dpt, truth in frames:
+        f2m_mod.reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pose = run(lambda: odo.register_frame(dpt))
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        iters.append(f2m_mod.counts["iterations"])
+        errs.append(pose_errors(pose.matrix.cpu().numpy(), truth))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more frame, profiled and sync-counted, on shallow copies: an
+    # update replaces the volume and pose rather than writing into them
+    nxt = frames[-1][0]
+    busy = busy_time(lambda: copy.copy(odo).register_frame(nxt))
+    syncs = host_syncs(lambda: copy.copy(odo).register_frame(nxt))
+    worst = (max(e[0] for e in errs), max(e[1] for e in errs))
+    log(f"  pose errors (m, rad) {errs} (worst {worst}, tol {F2M_TOL}); ms a frame "
+        f"{[round(x, 2) for x in frame_ms]} (after the first: mean "
+        f"{np.mean(frame_ms[1:]):.2f}); tracking iterations {iters}; {int(odo.volume.n_blocks)} "
+        f"blocks of {odo.volume.max_blocks}; a frame: busy {busy:.2f} ms, {syncs} host syncs; "
+        f"peak {peak:.3f} GiB ({report['card']})")
+    check(worst[0] <= F2M_TOL[0] and worst[1] <= F2M_TOL[1], "odometry poses off the truth")
+    report["odometry"] = {"ms_per_frame_after_first": float(np.mean(frame_ms[1:])),
+                          "frame_ms": frame_ms, "pose_errors": errs, "iterations": iters,
+                          "busy_ms": busy, "host_syncs": syncs, "peak_gib": peak,
+                          "blocks": int(odo.volume.n_blocks)}
     return total, report
 
 

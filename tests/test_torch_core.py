@@ -282,3 +282,83 @@ def test_median_time_needs_the_card():
     else:
         with pytest.raises(RuntimeError):
             profiling.median_time(lambda: None)
+
+
+def test_transform_constructors_and_quaternions_match_jax(rng):
+    """``from_scaling``, ``from_quaternion``, ``from_euler_xyz``,
+    ``apply_point``, ``apply_vector`` and the quaternion maps: within 1e-6
+    of JAX's (the 3x3 products and sin/cos may round the last bit
+    differently), points within 1e-5 at 5 m."""
+    for _ in range(20):
+        ang = rng.uniform(-np.pi, np.pi, 3).astype(np.float32)
+        t = rng.normal(0, 2, 3).astype(np.float32)
+        jm = np.asarray(jtf.Transform.from_euler_xyz(jnp.asarray(ang), jnp.asarray(t)).matrix)
+        tm = ttf.Transform.from_euler_xyz(_t(ang), _t(t))
+        np.testing.assert_allclose(tm.matrix.numpy(), jm, rtol=0, atol=1e-6)
+        q = rng.normal(0, 1, 4).astype(np.float32)
+        jq = jtf.Transform.from_quaternion(jnp.asarray(q), jnp.asarray(t))
+        tq = ttf.Transform.from_quaternion(_t(q), _t(t))
+        np.testing.assert_allclose(tq.matrix.numpy(), np.asarray(jq.matrix), atol=1e-6)
+        r = np.asarray(jq.matrix)[:3, :3]
+        np.testing.assert_allclose(ttf.matrix_to_quaternion(_t(r)).numpy(),
+                                   np.asarray(jtf.matrix_to_quaternion(jnp.asarray(r))),
+                                   atol=1e-6)
+        np.testing.assert_allclose(ttf.quaternion_to_matrix(_t(q)).numpy(),
+                                   np.asarray(jtf.quaternion_to_matrix(jnp.asarray(q))),
+                                   atol=1e-6)
+        p = rng.normal(0, 5, 3).astype(np.float32)
+        np.testing.assert_allclose(tm.apply_point(_t(p)).numpy(),
+                                   np.asarray(jtf.Transform(jnp.asarray(jm)).apply_point(p)),
+                                   atol=1e-5)
+        vs = rng.normal(0, 1, (7, 3)).astype(np.float32)
+        np.testing.assert_allclose(tm.apply_vector(_t(vs)).numpy(),
+                                   np.asarray(jtf.Transform(jnp.asarray(jm)).apply_vector(vs)),
+                                   atol=1e-6)
+    for s in (2.5, [1.0, 2.0, 0.5]):
+        np.testing.assert_array_equal(ttf.Transform.from_scaling(s).matrix.numpy(),
+                                      np.asarray(jtf.Transform.from_scaling(s).matrix))
+    # the quaternion of the identity and of a half turn (a zero pivot)
+    for r in (np.eye(3, dtype=np.float32), np.diag([1.0, -1.0, -1.0]).astype(np.float32)):
+        np.testing.assert_allclose(ttf.matrix_to_quaternion(_t(r)).numpy(),
+                                   np.asarray(jtf.matrix_to_quaternion(jnp.asarray(r))),
+                                   atol=1e-7)
+
+
+def test_organized_cloud_matches_jax(rng):
+    """``OrganizedPointCloud`` and ``CameraIntrinsics``: a u16 depth image
+    back-projected (zero depth invalid), a grid with NaN holes, the
+    accessors and the conversions, against JAX's (points within 1e-6)."""
+    from threecrate_tpu.core import organized as jorg
+    from threecrate_tpu_torch.core import organized as torg
+
+    intr_j = jorg.CameraIntrinsics(525.0, 520.0, 31.5, 23.5)
+    intr_t = tt.CameraIntrinsics(525.0, 520.0, 31.5, 23.5)
+    np.testing.assert_array_equal(intr_t.as_matrix(), intr_j.as_matrix())
+    depth = rng.integers(0, 4000, (48, 64)).astype(np.uint16)
+    depth[rng.uniform(size=depth.shape) < 0.2] = 0
+    jo = jorg.OrganizedPointCloud.from_depth_image(depth, intr_j)
+    to = tt.OrganizedPointCloud.from_depth_image(depth, intr_t, device="cpu")
+    np.testing.assert_allclose(to.points.numpy(), np.asarray(jo.points), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(to.mask.numpy(), np.asarray(jo.mask))
+    assert (to.height, to.width) == (jo.height, jo.width) == (48, 64)
+    assert int(to.size()) == int(jo.size()) and bool(to.is_dense()) == bool(jo.is_dense())
+    for got, ref in ((to.at(5, 7), jo.at(5, 7)), (to.row(3), jo.row(3)), (to.ring(9), jo.ring(9))):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-6)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_allclose(to.to_numpy(), jo.to_numpy(), atol=1e-6)
+    flat = to.to_unorganized()
+    assert flat.capacity == 48 * 64 and len(flat) == int(jo.size())
+    pts = rng.normal(0, 1, (6, 5, 3)).astype(np.float32)
+    pts[1, 2, 0] = np.nan
+    jg, tg = jorg.OrganizedPointCloud.from_numpy(pts), torg.OrganizedPointCloud.from_numpy(
+        pts, device="cpu")
+    np.testing.assert_array_equal(tg.mask.numpy(), np.asarray(jg.mask))
+    assert not bool(tg.is_dense()) and int(tg.size()) == 29
+    mask = rng.uniform(size=(6, 5)) < 0.5
+    np.testing.assert_array_equal(
+        torg.OrganizedPointCloud.from_numpy(pts, mask, device="cpu").mask.numpy(), mask)
+    for bad in (np.zeros((4, 3)), np.zeros((2, 2, 2))):
+        with pytest.raises(terr.InvalidDataError):
+            torg.OrganizedPointCloud.from_numpy(bad, device="cpu")
+    with pytest.raises(terr.InvalidDataError):
+        torg.OrganizedPointCloud.from_depth_image(np.zeros(5), intr_t, device="cpu")

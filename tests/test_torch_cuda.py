@@ -29,7 +29,14 @@ SHOT/USC entries on the card against the port's own CPU run: valid flags
 equal on >= 99%, descriptor cosine >= 0.999 on >= 97% (an LRF sign vote
 at its tie threshold may flip under the card's last-bit differences);
 GICP, NDT and an odometry frame on the card within 1e-4 of the port's
-own CPU run, Patchwork++'s ground mask equal on >= 99.9% of points.
+own CPU run, Patchwork++'s ground mask equal on >= 99.9% of points;
+the depth-camera slice on the card against the port's CPU run (no
+kernel): dense and sparse fusion with equal block keys and weights on
+>= 99.95% of voxels, tsdf within 1e-6 where both pick the same pixel;
+raycasts of one volume with masks equal on >= 99.9% of pixels and depth
+within 1e-5 m where both hit; ``FrameToModelOdometry`` poses within
+1e-4; a depth image back-projected into an ``OrganizedPointCloud``
+within 1e-6.
 """
 
 import numpy as np
@@ -1041,3 +1048,132 @@ def test_odometry_frame_on_card_matches_cpu(cuda):
         poses[dev.type] = pose.matrix.cpu()
     assert launches >= 1
     torch.testing.assert_close(poses["cuda"], poses["cpu"], atol=1e-4, rtol=0)
+
+
+def _wavy(h=120, w=160, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    return (2.0 + 0.3 * np.sin(xx / 20.0) * np.cos(yy / 15.0)
+            + 0.005 * rng.normal(0, 1, (h, w))).astype(np.float32)
+
+
+def _tilted(i):
+    return tt.Transform.from_euler_xyz(torch.tensor([0.01 * i, -0.02 * i, 0.015 * i]),
+                                       torch.tensor([0.02 * i, -0.01 * i, 0.03 * i])).matrix
+
+
+def _same_pixels(g, c):
+    """Share of voxels with equal weights, and the tsdf on them."""
+    same = g.weight.cpu() == c.weight
+    torch.testing.assert_close(g.tsdf.cpu()[same], c.tsdf[same], atol=1e-6, rtol=0)
+    return same.float().mean().item()
+
+
+def test_tsdf_on_card_matches_cpu(cuda):
+    """Three tilted frames fused into a 64³ volume, then the banded
+    extraction of the CPU's volume on both devices."""
+    intr = np.array([130.0, 130.0, 80.0, 60.0], np.float32)
+    vols = []
+    for dev in (cuda, torch.device("cpu")):
+        v = tt.create_tsdf_volume((64, 64, 64), 4.0 / 64, origin=(-2.0, -2.0, 0.5), device=dev)
+        for i in range(3):
+            v = tt.tsdf_integrate(v, _wavy(), intr, _tilted(i))
+        vols.append(v)
+    assert vols[0].tsdf.device.type == cuda.type
+    assert _same_pixels(*vols) >= 0.9995
+    c = vols[1]
+    g = tt.TsdfVolume(*(x.to(cuda) for x in c[:2]), None, *(x.to(cuda) for x in c[3:]))
+    sc, sg = tt.tsdf_extract_surface_banded(c), tt.tsdf_extract_surface_banded(g)
+    assert int(sc.count) == int(sg.count) > 1000
+    torch.testing.assert_close(sg.cloud.points.cpu(), sc.cloud.points, atol=1e-6, rtol=0)
+
+
+def test_sparse_tsdf_on_card_matches_cpu(cuda):
+    """The same frames into an 8³-block sparse grid (512 blocks), with
+    colour: keys and n_blocks equal, weights on >= 99.95% of voxels."""
+    intr = np.array([130.0, 130.0, 80.0, 60.0], np.float32)
+    rgb = np.random.default_rng(3).uniform(0, 1, (120, 160, 3)).astype(np.float32)
+    vols = []
+    for dev in (cuda, torch.device("cpu")):
+        v = tt.create_sparse_tsdf_volume(4.0 / 64, origin=(-2.0, -2.0, 0.5), grid_blocks=(8, 8, 8),
+                                         max_blocks=512, with_color=True, device=dev)
+        for i in range(3):
+            v = tt.sparse_tsdf_integrate(v, _wavy(), intr, _tilted(i), grid_blocks=(8, 8, 8),
+                                         rgb=rgb)
+        vols.append(v)
+    g, c = vols
+    assert int(g.n_blocks) == int(c.n_blocks) > 50
+    assert torch.equal(g.block_keys.cpu(), c.block_keys)
+    assert _same_pixels(g, c) >= 0.9995
+    same = (g.weight.cpu() == c.weight)[..., None].expand_as(c.color)
+    torch.testing.assert_close(g.color.cpu()[same], c.color[same], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_raycast_on_card_matches_cpu(cuda, materialize):
+    """One sparse volume (fused on the CPU) raycast from a tilted pose on
+    both devices, and the dense raycast of its dense copy."""
+    intr = np.array([130.0, 130.0, 80.0, 60.0], np.float32)
+    c = tt.create_sparse_tsdf_volume(4.0 / 64, origin=(-2.0, -2.0, 0.5), grid_blocks=(8, 8, 8),
+                                     max_blocks=512, device="cpu")
+    c = tt.sparse_tsdf_integrate(c, _wavy(), intr, np.eye(4, dtype=np.float32),
+                                 grid_blocks=(8, 8, 8))
+    g = tt.SparseTsdfVolume(*(x.to(cuda) for x in c[:7]), None)
+    kw = dict(grid_blocks=(8, 8, 8), near=0.6, far=4.0, materialize=materialize)
+    pose = _tilted(1)
+    out = [tt.sparse_tsdf_raycast(v, intr, pose, 120, 160, **kw) for v in (g, c)]
+    d = tt.sparse_tsdf_to_dense(c, (8, 8, 8))
+    out += [tt.tsdf_raycast(v, intr, pose, 120, 160, near=0.6, far=4.0)
+            for v in (tt.TsdfVolume(*(x.to(cuda) if x is not None else None for x in d)), d)]
+    for rg, rc in (out[:2], out[2:]):
+        both = rg.mask.cpu() & rc.mask
+        assert (rg.mask.cpu() == rc.mask).float().mean().item() >= 0.999
+        assert both.float().mean().item() > 0.5
+        torch.testing.assert_close(rg.depth.cpu()[both], rc.depth[both], atol=1e-5, rtol=0)
+
+
+def test_frame_to_model_on_card_matches_cpu(cuda):
+    """FrameToModelOdometry (16³ blocks of 8 at 1/32 m) over four 60×80
+    frames of the JAX test's wavy scene rendered from a moving pose: the
+    card's poses within 1e-4 of the CPU run's, volume and pose on the
+    device asked for."""
+    h, w = 60, 80
+    intr = np.array([70.0, 70.0, w / 2 - 0.5, h / 2 - 0.5], np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    d0 = (2.0 + 0.3 * np.sin(xx / 10.0) * np.cos(yy / 7.0) + 0.1 * np.sin(yy / 5.0)
+          ).astype(np.float32)
+    kw = dict(voxel_size=4.0 / 128, origin=(-2.0, -2.0, 0.5), grid_blocks=(16, 16, 16),
+              max_blocks=4096, config=tt.FrameToModelConfig(near=0.6, far=4.0))
+    master = tt.FrameToModelOdometry(intr, h, w, device="cpu", **kw)
+    master.register_frame(d0)
+    frames = [d0] + [master.render(tt.Transform.from_euler_xyz(
+        torch.tensor([0.008 * i, -0.005 * i, 0.0]),
+        torch.tensor([0.012 * i, -0.008 * i, 0.015 * i])).matrix).depth.numpy()
+        for i in range(1, 4)]
+    poses = []
+    for dev in (cuda, torch.device("cpu")):
+        odo = tt.FrameToModelOdometry(intr, h, w, device=dev, **kw)
+        poses.append([odo.register_frame(f).matrix.cpu() for f in frames])
+        assert odo.volume.tsdf.device.type == odo.pose.device.type == dev.type
+    for g, c in zip(*poses):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=0)
+
+
+def test_organized_and_transform_on_card_match_cpu(cuda):
+    """A u16 depth image back-projected on the card and on the CPU (points
+    within 1e-6); an euler-angle Transform (built on the host, as every
+    constructor is) applied to points and vectors on the card."""
+    depth = np.random.default_rng(5).integers(0, 4000, (48, 64)).astype(np.uint16)
+    cam = tt.CameraIntrinsics(525.0, 520.0, 31.5, 23.5)
+    g = tt.OrganizedPointCloud.from_depth_image(depth, cam)
+    c = tt.OrganizedPointCloud.from_depth_image(depth, cam, device="cpu")
+    assert g.points.device.type == cuda.type
+    torch.testing.assert_close(g.points.cpu(), c.points, atol=1e-6, rtol=0)
+    assert torch.equal(g.mask.cpu(), c.mask) and int(g.size()) == int(c.size())
+    tc_ = tt.Transform.from_euler_xyz([0.3, -0.2, 0.1], [1.0, 2.0, 3.0])
+    tg = tt.Transform(tc_.matrix.to(cuda))
+    v = torch.tensor([[0.5, -1.0, 2.0]])
+    torch.testing.assert_close(tg.apply_vector(v.to(cuda)).cpu(), tc_.apply_vector(v),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(tg.apply_point(v[0].to(cuda)).cpu(), tc_.apply_point(v[0]),
+                               atol=1e-6, rtol=0)

@@ -2,7 +2,7 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Six slices are ported:
+for NVIDIA Hopper (``csrc/``). Seven slices are ported:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
 ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
 batched RANSAC, then ICP), the Morton-window neighbourhood ops (FPFH
@@ -14,7 +14,9 @@ point-to-plane, batched and multiscale ICP; then the registration
 family beyond point-to-point ICP: GICP (the union kernels at k = 20 and
 ``icp_match`` with six payload rows), NDT on the sorted voxel hash,
 Patchwork++ ground segmentation, and KISS-ICP with ``OdometryModel``;
-with the data model, Morton keys, small linear algebra and exact
+then the depth-camera mapping slice: dense and block-sparse TSDF
+fusion, TSDF raycasting and frame-to-model tracking with
+``FrameToModelOdometry`` (no kernel of its own); with the data model, Morton keys, small linear algebra and exact
 neighbour search they need. Clouds built with ``PointCloud.from_numpy``
 live on the card unless the caller asks for the CPU. Modules mirror the
 JAX package's layout and public names.
@@ -25,9 +27,11 @@ __version__ = "0.1.0"
 from . import core, interop, kernels, models, ops, utils
 from .core import (
     AlgorithmError,
+    CameraIntrinsics,
     DeviceError,
     InvalidDataError,
     IoError,
+    OrganizedPointCloud,
     PointCloud,
     ThreeCrateError,
     Transform,
@@ -48,6 +52,8 @@ from .ops.filtering import (OutlierResult, VoxelGridResult, passthrough_filter,
 from .ops.gicp import GicpConfig, gicp
 from .ops.global_registration import (GlobalRegistrationConfig,
                                       GlobalRegistrationResult, global_registration)
+from .ops.frame_to_model import FrameToModelConfig, FrameToModelOdometry, TrackResult
+from .ops.frame_to_model import track as track_frame_to_model
 from .ops.ground import (GroundSegmentationResult, PatchworkConfig,
                          patchwork_plus_plus, segment_ground)
 from .ops.kiss_icp import KissIcpConfig, KissIcpOdometry, kiss_icp
@@ -58,6 +64,23 @@ from .ops.normals import (NormalEstimationConfig, estimate_normals,
 from .ops.registration import (ICPConfig, ICPResult, MultiscaleConfig, icp,
                                 icp_point_to_plane, icp_point_to_point,
                                 multiscale_icp_point_to_point)
+from .ops.tsdf import TsdfVolume
+from .ops.tsdf import create_volume as create_tsdf_volume
+from .ops.tsdf import extract_surface as tsdf_extract_surface
+from .ops.tsdf import extract_surface_banded_auto as tsdf_extract_surface_banded
+from .ops.tsdf import integrate as tsdf_integrate
+from .ops.tsdf import integrate_sequence as tsdf_integrate_sequence
+from .ops.tsdf_raycast import RaycastResult
+from .ops.tsdf_raycast import raycast as tsdf_raycast
+from .ops.tsdf_raycast import shade as tsdf_shade
+from .ops.tsdf_raycast import shade_rgb as tsdf_shade_rgb
+from .ops.tsdf_raycast import sparse_raycast as sparse_tsdf_raycast
+from .ops.tsdf_sparse import SparseTsdfVolume
+from .ops.tsdf_sparse import create_sparse_volume as create_sparse_tsdf_volume
+from .ops.tsdf_sparse import sparse_extract_surface as sparse_tsdf_extract_surface
+from .ops.tsdf_sparse import sparse_integrate as sparse_tsdf_integrate
+from .ops.tsdf_sparse import sparse_marching_cubes_soup as sparse_tsdf_marching_cubes_soup
+from .ops.tsdf_sparse import sparse_to_dense as sparse_tsdf_to_dense
 
 __all__ = [
     "core", "interop", "kernels", "models", "ops", "utils",
@@ -79,5 +102,12 @@ __all__ = [
     "statistical_outlier_removal_with_threshold", "radius_outlier_removal",
     "ThreeCrateError", "IoError", "InvalidDataError", "AlgorithmError",
     "DeviceError", "VisualizationError", "UnsupportedError",
-    "UnsupportedFormatError", "__version__",
+    "UnsupportedFormatError", "CameraIntrinsics", "OrganizedPointCloud",
+    "TsdfVolume", "create_tsdf_volume", "tsdf_extract_surface", "tsdf_integrate",
+    "tsdf_integrate_sequence", "tsdf_extract_surface_banded", "SparseTsdfVolume",
+    "create_sparse_tsdf_volume", "sparse_tsdf_extract_surface", "sparse_tsdf_integrate",
+    "sparse_tsdf_marching_cubes_soup", "sparse_tsdf_to_dense", "RaycastResult",
+    "tsdf_raycast", "tsdf_shade", "tsdf_shade_rgb", "sparse_tsdf_raycast",
+    "FrameToModelConfig", "FrameToModelOdometry", "TrackResult", "track_frame_to_model",
+    "__version__",
 ]

@@ -44,6 +44,11 @@ class Transform:
         return cls(m)
 
     @classmethod
+    def from_scaling(cls, s) -> "Transform":
+        s = torch.as_tensor(s, dtype=torch.float32).broadcast_to((3,))
+        return cls(torch.diag(torch.cat([s, torch.ones(1, device=s.device)])))
+
+    @classmethod
     def from_rotation_matrix(cls, r, t=None) -> "Transform":
         m = torch.eye(4)
         m[:3, :3] = torch.as_tensor(r, dtype=torch.float32)
@@ -54,6 +59,20 @@ class Transform:
     @classmethod
     def from_axis_angle(cls, axis, angle, t=None) -> "Transform":
         return cls.from_rotation_matrix(axis_angle_to_matrix(axis, angle), t)
+
+    @classmethod
+    def from_quaternion(cls, q, t=None) -> "Transform":
+        """Unit quaternion ``(w, x, y, z)`` (+ optional translation)."""
+        return cls.from_rotation_matrix(quaternion_to_matrix(q), t)
+
+    @classmethod
+    def from_euler_xyz(cls, angles, t=None) -> "Transform":
+        """Intrinsic XYZ euler angles ``(rx, ry, rz)`` in radians."""
+        rx, ry, rz = torch.as_tensor(angles, dtype=torch.float32)
+        ex = axis_angle_to_matrix([1.0, 0.0, 0.0], rx)
+        ey = axis_angle_to_matrix([0.0, 1.0, 0.0], ry)
+        ez = axis_angle_to_matrix([0.0, 0.0, 1.0], rz)
+        return cls.from_rotation_matrix(fp32_matmul(fp32_matmul(ez, ey), ex), t)
 
     @classmethod
     def from_exp_coords(cls, xi) -> "Transform":
@@ -73,6 +92,15 @@ class Transform:
         return fp32_matmul(points, self.rotation.transpose(-1, -2)) \
             + self.translation
 
+    def apply_point(self, point) -> torch.Tensor:
+        p = torch.as_tensor(point, dtype=torch.float32, device=self.matrix.device)
+        return fp32_matmul(self.rotation, p) + self.translation
+
+    def apply_vector(self, vec) -> torch.Tensor:
+        """Rotate only (the 3x3 block)."""
+        v = torch.as_tensor(vec, dtype=torch.float32, device=self.matrix.device)
+        return fp32_matmul(v, self.rotation.transpose(-1, -2))
+
     def compose(self, other: "Transform") -> "Transform":
         """Returns ``self ∘ other`` (apply ``other`` first)."""
         return Transform(fp32_matmul(self.matrix, other.matrix))
@@ -88,6 +116,34 @@ class Transform:
         m[:3, 3] = -fp32_matmul(rt, self.translation)
         m[3, 3] = 1.0
         return Transform(m)
+
+
+def quaternion_to_matrix(q) -> torch.Tensor:
+    """Unit quaternion ``(w, x, y, z)`` → (3, 3) rotation matrix."""
+    q = torch.as_tensor(q, dtype=torch.float32)
+    w, x, y, z = q / torch.linalg.vector_norm(q)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
+    ])
+
+
+def matrix_to_quaternion(r) -> torch.Tensor:
+    """(3, 3) rotation matrix → unit quaternion ``(w, x, y, z)``; branch-free
+    (each component from its own diagonal combination, its sign from the
+    antisymmetric part)."""
+    r = torch.as_tensor(r, dtype=torch.float32)
+    m00, m11, m22 = r[0, 0], r[1, 1], r[2, 2]
+    qw = torch.sqrt(torch.clamp_min(1 + (m00 + m11 + m22), 0.0)) / 2
+    qx = torch.sqrt(torch.clamp_min(1 + m00 - m11 - m22, 0.0)) / 2
+    qy = torch.sqrt(torch.clamp_min(1 - m00 + m11 - m22, 0.0)) / 2
+    qz = torch.sqrt(torch.clamp_min(1 - m00 - m11 + m22, 0.0)) / 2
+    qx = torch.copysign(qx, r[2, 1] - r[1, 2])
+    qy = torch.copysign(qy, r[0, 2] - r[2, 0])
+    qz = torch.copysign(qz, r[1, 0] - r[0, 1])
+    q = torch.stack([qw, qx, qy, qz])
+    return q / torch.linalg.vector_norm(q)
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,12 @@ system has no learned weights: besides the clouds, the state both
 packages share is their configs, which ``fpfh_config_from``,
 ``shot_config_from``, ``global_registration_config_from``,
 ``multiscale_config_from``, ``gicp_config_from``, ``ndt_config_from``,
-``patchwork_config_from`` and ``kiss_icp_config_from`` carry over field
-by field.
+``patchwork_config_from``, ``kiss_icp_config_from`` and
+``frame_to_model_config_from`` carry over field by field. The depth
+pipeline's state comes over as numpy arrays too: a fused dense or sparse
+TSDF volume (``tsdf_volume_from_numpy``, ``sparse_tsdf_volume_from_numpy``)
+and raycast model maps (``raycast_result_from_numpy``), so both packages
+can be fed the same volume and maps.
 """
 
 from __future__ import annotations
@@ -23,23 +27,29 @@ import torch
 from .core.point_cloud import PointCloud
 from .core.transform import Transform
 from .ops.features import FpfhConfig, FpfhResult, ShotConfig, ShotResult
+from .ops.frame_to_model import FrameToModelConfig
 from .ops.gicp import GicpConfig
 from .ops.global_registration import GlobalRegistrationConfig
 from .ops.ground import PatchworkConfig
 from .ops.kiss_icp import KissIcpConfig
 from .ops.ndt import NdtConfig
 from .ops.registration import MultiscaleConfig
+from .ops.tsdf import TsdfVolume
+from .ops.tsdf_raycast import RaycastResult
+from .ops.tsdf_sparse import SparseTsdfVolume
+
+
+def _put(x, dtype, device):
+    """A copy of ``x`` as a tensor on ``device`` (None stays None)."""
+    return None if x is None else torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
 def cloud_from_numpy(points, mask, attrs: Optional[Dict] = None,
                      device="cuda") -> PointCloud:
     """A port ``PointCloud`` with exactly these padded rows and mask, on
     the card unless ``device`` says otherwise."""
-    def put(x, dtype):
-        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
-
-    return PointCloud(put(points, torch.float32), put(mask, torch.bool),
-                      {k: put(v, torch.float32) for k, v in (attrs or {}).items()})
+    return PointCloud(_put(points, torch.float32, device), _put(mask, torch.bool, device),
+                      {k: _put(v, torch.float32, device) for k, v in (attrs or {}).items()})
 
 
 def transform_from_numpy(m, device="cuda") -> Transform:
@@ -100,6 +110,41 @@ def patchwork_config_from(config) -> PatchworkConfig:
 def kiss_icp_config_from(config) -> KissIcpConfig:
     """The port's ``KissIcpConfig`` with the fields of a JAX one."""
     return _config_from(KissIcpConfig, config)
+
+
+def frame_to_model_config_from(config) -> FrameToModelConfig:
+    """The port's ``FrameToModelConfig`` with the fields of a JAX one."""
+    return _config_from(FrameToModelConfig, config)
+
+
+def tsdf_volume_from_numpy(tsdf, weight, color, origin, voxel_size, truncation,
+                           device="cuda") -> TsdfVolume:
+    """The port's ``TsdfVolume`` with a JAX volume's fields (read as
+    numpy arrays; ``color`` may be None), on ``device``."""
+    f32 = torch.float32
+    return TsdfVolume(*(_put(x, f32, device) for x in (tsdf, weight, color, origin,
+                                                         voxel_size, truncation)))
+
+
+def sparse_tsdf_volume_from_numpy(block_keys, n_blocks, tsdf, weight, origin, voxel_size,
+                                  truncation, color=None, device="cuda") -> SparseTsdfVolume:
+    """The port's ``SparseTsdfVolume`` with a JAX sparse volume's fields
+    (read as numpy arrays, in the JAX field order), on ``device``."""
+    f32 = torch.float32
+    return SparseTsdfVolume(_put(block_keys, torch.int32, device),
+                            _put(n_blocks, torch.int32, device),
+                            *(_put(x, f32, device) for x in (tsdf, weight, origin, voxel_size,
+                                                             truncation, color)))
+
+
+def raycast_result_from_numpy(depth, vertices, normals, mask, confident=None, color=None,
+                              device="cuda") -> RaycastResult:
+    """The port's ``RaycastResult`` with a JAX result's maps (read as
+    numpy arrays; ``confident`` and ``color`` may be None), on ``device``."""
+    f32, b = torch.float32, torch.bool
+    return RaycastResult(_put(depth, f32, device), _put(vertices, f32, device),
+                         _put(normals, f32, device), _put(mask, b, device),
+                         _put(confident, b, device), _put(color, f32, device))
 
 
 def fpfh_result_to_numpy(res: FpfhResult) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """The JAX package's results on the CPU for ``chip_smoke.py``'s phases 24-26
-(Patchwork++, NDT and the odometry frames), the references those phases
-gate the port against, each beside the port's own CPU run of the same
-input.
+(Patchwork++, NDT and the odometry frames) and 30-31 (frame-to-model
+tracking and ``FrameToModelOdometry``), the references those phases gate
+the port against, each beside the port's own CPU run of the same input.
 
-    JAX_PLATFORMS=cpu python3 tools/family_references.py [ground] [ndt] [odometry]
+    JAX_PLATFORMS=cpu python3 tools/family_references.py [ground] [ndt] [odometry] [f2m]
 
 - ground: recall and precision against ``chip_smoke.ground_scan``'s
   labels, and the share of points where the two masks agree;
 - ndt: the transform ``ndt_registration`` reaches on phase 25's 250,000-point
   pair (2 m cells, 20 iterations, ε = 0);
 - odometry: the pose errors (m, rad) of phase 26's 5 frames against the
-  truth, with the default ``KissIcpConfig``.
+  truth, with the default ``KissIcpConfig``;
+- f2m: the pose ``track`` reaches on phase 30's maps (each package
+  fusing and raycasting bench.py's frame on its own), and the pose
+  errors (m, rad) of ``FrameToModelOdometry()`` over phase 31's wall
+  frames.
 
 Each section prints one JSON line. No device is measured (minutes on
 the CPU for the odometry frames).
@@ -88,11 +92,73 @@ def odometry():
     return out
 
 
+def f2m():
+    import jax.numpy as jnp
+    from threecrate_tpu.core.organized import CameraIntrinsics as JaxIntrinsics
+    from threecrate_tpu.ops import frame_to_model as jf
+    from threecrate_tpu.ops import tsdf_raycast as jrc
+    from threecrate_tpu.ops import tsdf_sparse as jsp
+    import threecrate_tpu_torch as tt
+
+    h, w = chip_smoke.DEPTH_HW
+    intr, eye = jnp.asarray(chip_smoke.DEPTH_INTR), jnp.eye(4, dtype=jnp.float32)
+    grid = chip_smoke.TSDF_GRID
+    vol = jsp.sparse_integrate(
+        jsp.create_sparse_volume(chip_smoke.TSDF_VOXEL, origin=chip_smoke.TSDF_ORIGIN,
+                                 grid_blocks=grid, block=8,
+                                 max_blocks=chip_smoke.TSDF_MAX_BLOCKS),
+        jnp.asarray(chip_smoke.wavy_depth()), intr, eye, grid_blocks=grid, block=8)
+    ray = dict(grid_blocks=grid, block=8, near=chip_smoke.RAY_NEAR, far=chip_smoke.RAY_FAR)
+    model = jrc.sparse_raycast(vol, intr, eye, h, w, **ray)
+    frame = jrc.sparse_raycast(vol, intr, jnp.asarray(chip_smoke.shifted_pose(
+        chip_smoke.TRACK_SHIFT)), h, w, **ray)
+    jt = np.asarray(jf.track(model, eye, frame.depth, intr, eye, max_iterations=10).cam_to_world)
+    _, tmodel, tdepth = chip_smoke.track_scene(tt, "cpu")
+    pt = tt.track_frame_to_model(tmodel, np.eye(4, dtype=np.float32), tdepth,
+                                 chip_smoke.DEPTH_INTR, np.eye(4, dtype=np.float32),
+                                 max_iterations=10).cam_to_world.numpy()
+    out = {"section": "f2m", "jax_track_translation": jt[:3, 3].tolist(),
+           "port_cpu_track_translation": pt[:3, 3].tolist(),
+           "port_cpu_vs_jax": float(np.abs(pt - jt).max())}
+    # phase 29's check: the raycast depth against the input on confident
+    # pixels, sparse (the model above) and dense (phase 27's volume)
+    dense = jt_integrate(chip_smoke)
+    dmodel = jrc.raycast(dense, intr, eye, h, w, near=chip_smoke.RAY_NEAR, far=chip_smoke.RAY_FAR)
+    for name, res in (("sparse", model), ("dense", dmodel)):
+        err = np.abs(np.asarray(res.depth) - chip_smoke.wavy_depth())[np.asarray(res.confident)]
+        out[f"jax_{name}_raycast_confident_depth_err"] = {
+            "max_m": float(err.max()), "over_half_voxel": int((err > chip_smoke.TSDF_VOXEL / 2).sum()),
+            "confident": int(err.size)}
+    frames = list(chip_smoke.wall_frames())
+    cam = chip_smoke.DEPTH_INTR.tolist()
+    for name, odo, put in (("jax", jf.FrameToModelOdometry(JaxIntrinsics(*cam), h, w),
+                            jnp.asarray),
+                           ("port_cpu", tt.FrameToModelOdometry(tt.CameraIntrinsics(*cam), h, w,
+                                                                device="cpu"), lambda x: x)):
+        t0 = time.perf_counter()
+        errs = [chip_smoke.pose_errors(np.asarray(odo.register_frame(put(d)).matrix), truth)
+                for d, truth in frames]
+        out[name + "_pose_errors"] = errs
+        out[name + "_worst"] = [max(e[0] for e in errs), max(e[1] for e in errs)]
+        out[name + "_s"] = time.perf_counter() - t0
+    return out
+
+
+def jt_integrate(cs):
+    """Phase 27's dense volume, fused by the JAX package."""
+    import jax.numpy as jnp
+    from threecrate_tpu.ops import tsdf as jax_tsdf
+
+    vol = jax_tsdf.create_volume((cs.TSDF_RES,) * 3, cs.TSDF_VOXEL, origin=cs.TSDF_ORIGIN)
+    return jax_tsdf.integrate(vol, jnp.asarray(cs.wavy_depth()), jnp.asarray(cs.DEPTH_INTR),
+                              jnp.eye(4, dtype=jnp.float32))
+
+
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    sections = {"ground": ground, "ndt": ndt, "odometry": odometry}
+    sections = {"ground": ground, "ndt": ndt, "odometry": odometry, "f2m": f2m}
     for name in sys.argv[1:] or list(sections):
         print(json.dumps(sections[name]()), flush=True)
 
