@@ -166,11 +166,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
     analytic wavy wall rendered in float64, the sensor moving ~0.01 m
     and 0.005 rad a frame: each pose within ``F2M_TOL`` of the truth
     (the JAX package's worst frame, rounded up); ms a frame, busy time
-    and host syncs of a frame.
+    and host syncs of a frame;
+
+then the surface-reconstruction slice (no kernel), each entry timed the
+same way:
+32. dense ``extract_soup_cubes`` of phase 27's 256^3 volume at iso 0
+    (bench.py:433-456): live triangles, the same triangle multiset as
+    phase 33's banded soup (rounded to 5 decimals);
+33. ``extract_soup_cubes_banded`` on it, block 8, the cap the power of
+    two from ``_block_active_count`` (bench.py:458-487): mask and
+    vertices bit-equal to the port's CPU run on the same grid; active
+    blocks against the cap;
+34. ``marching_cubes`` of that grid through the device and the host weld
+    (equal counts and triangle multisets), and the welded
+    ``sparse_tsdf_marching_cubes_soup`` of phase 28's sparse volume
+    against the dense mesh of the weight-masked volume (JAX's bounds:
+    face counts within 3%, > 95% of vertices rounded to 1e-4 shared);
+35. Poisson at bench.py:489-520's input, 100k points of the
+    registration scan put on the unit sphere with radial normals:
+    ``_solve`` on the multigrid solver (8 cycles) at 128^3 with its
+    relative residual, the spread of chi over two calls and chi and iso
+    against the port's CPU run (within ``POISSON_CHI_TOL`` of max|chi|),
+    then ``poisson_reconstruct(PoissonConfig(depth=7))``: vertex radii
+    with a median within 0.02 of 1 and a std below 0.02.
 
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21 and 23-31; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21 and 23-35; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -188,6 +210,7 @@ r2, the nearest d² or the k-th d²), counted on this run's inputs; phase
 from __future__ import annotations
 
 import copy
+import importlib
 import json
 import math
 import re
@@ -332,6 +355,19 @@ TRACK_JAX_TOL = 1e-4
 F2M_FRAMES = 8
 F2M_STEP = ((0.003, -0.004, 0.0), (0.006, -0.004, 0.007))
 F2M_TOL = (3e-4, 2e-4)
+# The surface slice (phases 32-35). Phase 34: the sparse mesh against the
+# dense one, as tests/test_tsdf_sparse.py:118-129 bounds it (face counts,
+# share of rounded vertices shared). Phase 35: bench.py's Poisson input
+# (100k points of scan(·, 3) on the unit sphere, a 128^3 grid over
+# [-1.2, 1.2]^3, 8 V-cycles), chi against the port's CPU run within
+# POISSON_CHI_TOL of max|chi| (the CPU tests hold the port to JAX's within
+# that: measured 1.2e-5), and the depth-7 mesh's radii
+# (tests/test_reconstruction.py:129-139)
+MC_BLOCK = 8
+SPARSE_MESH_FACES, SPARSE_MESH_SHARED = 0.03, 0.95
+POISSON_N, POISSON_RES, POISSON_LO = 100_000, 128, -1.2
+POISSON_CHI_TOL = 1e-4
+POISSON_RADIUS_TOL = 0.02
 GICP_K = 20              # GicpConfig's k_correspondences: the union passes at k = 20
 REG_ANGLE = 0.35
 REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
@@ -1380,8 +1416,9 @@ def main() -> int:
     fast_launches, fast_report = window_fast_phases(dev, kernels)
     fam_launches, fam_report = registration_family_phases(dev, kernels)
     depth_launches, depth_report = depth_camera_phases(dev, kernels)
+    surf_launches, surf_report = surface_phases(dev, kernels)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
-                 depth_launches):
+                 depth_launches, surf_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1471,6 +1508,7 @@ def main() -> int:
     log(f"window_fast, voxel grid and ICP variants: {json.dumps(fast_report)}")
     log(f"GICP, Patchwork++, NDT and odometry: {json.dumps(fam_report)}")
     log(f"depth-camera slice: {json.dumps(depth_report)}")
+    log(f"surface slice: {json.dumps(surf_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2556,6 +2594,208 @@ def depth_camera_phases(dev, kernels):
                           "frame_ms": frame_ms, "pose_errors": errs, "iterations": iters,
                           "busy_ms": busy, "host_syncs": syncs, "peak_gib": peak,
                           "blocks": int(odo.volume.n_blocks)}
+    return total, report
+
+
+def triangle_set(vertices: torch.Tensor, mask: torch.Tensor) -> np.ndarray:
+    """A soup's live triangles as a sorted multiset of rows rounded to 5
+    decimals (``TestBandedMarchingCubes._soup_set``), picked on the
+    device."""
+    tri = vertices.reshape(-1, 9)[mask].cpu().numpy()
+    return np.sort(np.ascontiguousarray(tri.round(5)).view([("", np.float32)] * 9), axis=None)
+
+
+def mesh_triangle_set(mesh) -> np.ndarray:
+    v, f = mesh.to_numpy()
+    return np.sort(np.ascontiguousarray(v[f].round(5).reshape(-1, 9)).view(
+        [("", np.float32)] * 9), axis=None)
+
+
+def surface_phases(dev, kernels):
+    """Phases 32-35: the surface-reconstruction slice (no kernel of its
+    own) through its entries at bench.py's sizes, each run with the launch
+    counters reset just before and read just after, checked, then timed:
+    median of 3 after a warm-up (CUDA events), peak memory, device busy
+    time and host syncs. Returns (launches, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.reconstruction import multigrid
+    from threecrate_tpu_torch.reconstruction import poisson as poisson_mod
+    from threecrate_tpu_torch.utils.profiling import median_time
+    mc = importlib.import_module("threecrate_tpu_torch.reconstruction.marching_cubes")
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line()}
+    cpu = torch.device("cpu")
+
+    def run(fn):
+        out, counts = run_counted(kernels, total, fn)
+        check(not any(counts.values()), "the surface slice launched a kernel")
+        return out
+
+    def measure(fn, profile=True):
+        """ms (median of 3 after one warm-up), peak GiB, host syncs and,
+        with ``profile``, busy ms."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = 1e3 * median_time(fn, warmup=1, iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out = {"ms": ms, "peak_gib": peak, "host_syncs": host_syncs(fn)}
+        if profile:
+            out["busy_ms"] = busy_time(fn)
+        return out
+
+    def fmt(m):
+        busy = f"device busy {m['busy_ms']:.2f} ms, " if "busy_ms" in m else ""
+        return (f"{m['ms']:.2f} ms median of 3, peak {m['peak_gib']:.3f} GiB, {busy}"
+                f"{m['host_syncs']} host syncs ({report['card']})")
+
+    t_phase = time.perf_counter()
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        return f"{t:.1f} s"
+
+    depth_np, eye_np = wavy_depth(), np.eye(4, dtype=np.float32)
+    depth, intr, eye = (torch.from_numpy(x).to(dev) for x in (depth_np, DEPTH_INTR, eye_np))
+    res3 = (TSDF_RES,) * 3
+    vol = tt.tsdf_integrate(tt.create_tsdf_volume(res3, TSDF_VOXEL, origin=TSDF_ORIGIN,
+                                                  device=dev), depth, intr, eye)
+    grid = tt.VolumetricGrid(vol.tsdf, vol.origin, vol.voxel_size)
+
+    log(f"phase 32: extract_soup_cubes of phase 27's {TSDF_RES}^3 volume at iso 0 (dense)")
+    dense = run(lambda: mc.extract_soup_cubes(grid, 0.0))
+    dense_set = triangle_set(dense.vertices, dense.mask)
+    del dense
+    m32 = measure(lambda: mc.extract_soup_cubes(grid, 0.0))
+    log(f"  {len(dense_set)} live triangles; {fmt(m32)}; phase {phase_seconds()}")
+
+    log(f"phase 33: extract_soup_cubes_banded, block {MC_BLOCK}, cap from _block_active_count")
+    n_act = int(run(lambda: mc._block_active_count(grid.values, 0.0, block=MC_BLOCK)))
+    n_blocks = math.prod(-(-(n - 1) // MC_BLOCK) for n in grid.values.shape)
+    cap = 256
+    while cap < n_act:
+        cap *= 2
+    banded = run(lambda: mc.extract_soup_cubes_banded(grid, 0.0, block=MC_BLOCK,
+                                                      max_blocks=cap))
+    banded_set = triangle_set(banded.vertices, banded.mask)
+    t0 = time.perf_counter()
+    grid_cpu = tt.VolumetricGrid(grid.values.cpu(), grid.origin.cpu(), grid.spacing.cpu())
+    banded_cpu = mc.extract_soup_cubes_banded(grid_cpu, 0.0, block=MC_BLOCK, max_blocks=cap)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    mask_eq = torch.equal(banded.mask.cpu(), banded_cpu.mask)
+    verts_eq = torch.equal(banded.vertices.cpu(), banded_cpu.vertices)
+    same_set = dense_set.shape == banded_set.shape and bool((dense_set == banded_set).all())
+    del banded, banded_cpu, dense_set
+    m33 = measure(lambda: mc.extract_soup_cubes_banded(grid, 0.0, block=MC_BLOCK,
+                                                       max_blocks=cap))
+    log(f"  {n_act} active blocks of {n_blocks}, cap {cap}; {len(banded_set)} live triangles; "
+        f"the dense soup's triangle multiset {same_set}; against the CPU run ({cpu_ms:.0f} ms): "
+        f"mask equal {mask_eq}, vertices bit-equal {verts_eq}; {fmt(m33)}; phase "
+        f"{phase_seconds()}")
+    check(len(banded_set) > 0.1 * TSDF_RES ** 2 and same_set,
+          "banded and dense soups disagree on the card")
+    check(mask_eq and verts_eq, "the banded soup on the card differs from the CPU run")
+    report["extract_soup_cubes"] = {**m32, "triangles": len(banded_set)}
+    report["extract_soup_cubes_banded"] = {**m33, "active_blocks": n_act, "cap": cap,
+                                           "blocks": n_blocks, "cpu_ms": cpu_ms}
+    del banded_set, grid_cpu
+
+    log("phase 34: marching_cubes through the device and the host weld; the sparse "
+        "volume's mesh against the dense one")
+    meshes = {w: run(lambda: tt.marching_cubes(grid, 0.0, weld=w)) for w in ("device", "host")}
+    counts = {w: (int(m.vertex_count()), int(m.face_count())) for w, m in meshes.items()}
+    sets = [mesh_triangle_set(m) for m in meshes.values()]
+    welds_eq = counts["device"] == counts["host"] and sets[0].shape == sets[1].shape \
+        and bool((sets[0] == sets[1]).all())
+    on_card = all(m.vertices.device.type == dev.type for m in meshes.values())
+    del meshes, sets
+    m34 = {w: measure(lambda: tt.marching_cubes(grid, 0.0, weld=w), profile=w == "device")
+           for w in ("device", "host")}
+    svol = tt.sparse_tsdf_integrate(
+        tt.create_sparse_tsdf_volume(TSDF_VOXEL, origin=TSDF_ORIGIN, grid_blocks=TSDF_GRID,
+                                     max_blocks=TSDF_MAX_BLOCKS, device=dev),
+        depth, intr, eye, grid_blocks=TSDF_GRID)
+
+    def sparse_mesh():
+        return mc.soup_to_mesh(tt.sparse_tsdf_marching_cubes_soup(svol, TSDF_GRID))
+
+    mesh_s = run(sparse_mesh)
+    masked = tt.VolumetricGrid(torch.where(vol.weight >= 1.0, vol.tsdf, 1.0),
+                               vol.origin + 0.5 * vol.voxel_size, vol.voxel_size)
+    mesh_d = run(lambda: tt.marching_cubes(masked, 0.0))
+    fd, fs = int(mesh_d.face_count()), int(mesh_s.face_count())
+    kd = set(map(tuple, mesh_d.to_numpy()[0].round(4).tolist()))
+    ks = set(map(tuple, mesh_s.to_numpy()[0].round(4).tolist()))
+    shared = len(kd & ks) / max(len(kd), len(ks), 1)
+    m34s = measure(sparse_mesh)
+    log(f"  welds: counts (vertices, faces) {counts}, equal triangle multisets {welds_eq}, "
+        f"meshes on the card {on_card}; device weld {fmt(m34['device'])}; host weld "
+        f"{fmt(m34['host'])}")
+    log(f"  sparse: {int(svol.n_blocks)} blocks, {fs} faces against the dense mesh's {fd} (tol "
+        f"{SPARSE_MESH_FACES}), {shared:.5f} of rounded vertices shared (need > "
+        f"{SPARSE_MESH_SHARED}); sparse soup + weld {fmt(m34s)}; phase {phase_seconds()}")
+    check(welds_eq and on_card and counts["host"][1] > 0.1 * TSDF_RES ** 2,
+          "device and host welds disagree")
+    check(fs > 0 and abs(fd - fs) <= SPARSE_MESH_FACES * fd and shared > SPARSE_MESH_SHARED,
+          "the sparse mesh disagrees with the dense one")
+    report["marching_cubes device weld"] = {**m34["device"], "vertices": counts["device"][0],
+                                            "faces": counts["device"][1]}
+    report["marching_cubes host weld"] = m34["host"]
+    report["sparse marching cubes + weld"] = {**m34s, "faces": fs, "dense_faces": fd,
+                                              "shared": shared}
+    del vol, grid, masked, svol, mesh_s, mesh_d, kd, ks
+
+    log(f"phase 35: Poisson, {POISSON_N} points on the unit sphere, {POISSON_RES}^3, "
+        "multigrid (8 cycles), then poisson_reconstruct(PoissonConfig(depth=7))")
+    pts_np = scan(POISSON_N, 3)
+    pts_np = pts_np / np.maximum(np.linalg.norm(pts_np, axis=1, keepdims=True), 1e-9)
+    pts = torch.from_numpy(pts_np).to(dev)
+    mask = torch.ones(POISSON_N, dtype=torch.bool, device=dev)
+    spacing = torch.tensor(2.4 / (POISSON_RES - 1), device=dev)
+    origin = torch.full((3,), POISSON_LO, device=dev)
+    args = (pts, pts, mask, origin, spacing, POISSON_RES, 200, 1e-4)
+
+    def solve(*a):
+        return poisson_mod._solve(*(a or args), solver="multigrid", mg_cycles=8)
+
+    chi, iso, support = run(solve)
+    chi2 = solve()[0]
+    scale = chi.abs().max().item()
+    spread = (chi - chi2).abs().max().item() / scale
+    rhs = poisson_mod._splat(*args[:6])[0]
+    resid = multigrid.mg_residual_norm(rhs, chi, 1e-4).item()
+    t0 = time.perf_counter()
+    chi_c, iso_c, support_c = solve(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    chi_err = (chi.cpu() - chi_c).abs().max().item() / scale
+    iso_err = abs(iso.item() - iso_c.item()) / scale
+    sup_err = (support.cpu() - support_c).abs().max().item() / support_c.abs().max().item()
+    del chi2, rhs, chi_c, support_c
+    m35 = measure(solve)
+    log(f"  relative residual {resid:.3e}; chi spread over two calls {spread:.3e} of max|chi| "
+        f"{scale:.4f}; against the CPU run ({cpu_ms:.0f} ms): chi {chi_err:.3e}, iso "
+        f"{iso_err:.3e} of max|chi| (tol {POISSON_CHI_TOL}), support {sup_err:.3e} of its "
+        f"max; {fmt(m35)}; {phase_seconds()}")
+    check(resid < 1e-3 and chi_err <= POISSON_CHI_TOL and iso_err <= POISSON_CHI_TOL
+          and sup_err <= 1e-5, "the Poisson solve on the card disagrees with the CPU run")
+    cloud = tt.PointCloud.from_numpy(pts_np, normals=pts_np, device=dev)
+    cfg = tt.PoissonConfig(depth=7)
+    mesh = run(lambda: tt.poisson_reconstruct(cloud, cfg))
+    v, f = mesh.to_numpy()
+    r = np.linalg.norm(v, axis=1)
+    m35r = measure(lambda: tt.poisson_reconstruct(cloud, cfg), profile=False)
+    log(f"  poisson_reconstruct: {len(v)} vertices, {len(f)} faces on "
+        f"{mesh.vertices.device.type}; radius median {np.median(r):.5f}, std {r.std():.5f} "
+        f"(tol {POISSON_RADIUS_TOL}); {fmt(m35r)}; {phase_seconds()}")
+    check(len(f) > 10000 and abs(np.median(r) - 1.0) <= POISSON_RADIUS_TOL
+          and r.std() < POISSON_RADIUS_TOL, "the depth-7 Poisson mesh is off the sphere")
+    report["poisson _solve multigrid 128^3"] = {
+        **m35, "residual": resid, "chi_spread": spread, "chi_err": chi_err, "iso_err": iso_err,
+        "cpu_ms": cpu_ms}
+    report["poisson_reconstruct depth 7"] = {**m35r, "faces": len(f),
+                                             "radius_median": float(np.median(r)),
+                                             "radius_std": float(r.std())}
     return total, report
 
 

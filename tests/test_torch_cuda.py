@@ -1177,3 +1177,127 @@ def test_organized_and_transform_on_card_match_cpu(cuda):
                                atol=1e-6, rtol=0)
     torch.testing.assert_close(tg.apply_point(v[0].to(cuda)).cpu(), tc_.apply_point(v[0]),
                                atol=1e-6, rtol=0)
+
+
+def _mc():
+    import importlib
+    return importlib.import_module("threecrate_tpu_torch.reconstruction.marching_cubes")
+
+
+def _soup_set(soup):
+    tri = soup.vertices.reshape(-1, 9)[soup.mask].cpu().numpy()
+    return np.sort(np.ascontiguousarray(tri.round(5)).view([("", np.float32)] * 9), axis=None)
+
+
+def test_marching_cubes_soups_on_card_match_cpu(cuda):
+    """The 48³ sphere SDF built on the card (within 1e-6 of the CPU's:
+    the card's norm sums in another order): dense, banded and tetrahedra
+    soups of that grid bit-equal to the CPU run's on its copy, and the
+    dense and banded soups the same triangle multiset."""
+    mc = _mc()
+    g = mc.create_sphere_volume(48, device=cuda)
+    torch.testing.assert_close(g.values.cpu(), mc.create_sphere_volume(48, device="cpu").values,
+                               atol=1e-6, rtol=0)
+    c = mc.VolumetricGrid(g.values.cpu(), g.origin.cpu(), g.spacing.cpu())
+    for fn in (lambda v: mc.extract_soup_cubes(v, 0.0),
+               lambda v: mc.extract_soup_cubes_banded(v, 0.0, block=8, max_blocks=512),
+               lambda v: mc.extract_soup(v, 0.0)):
+        sg, sc = fn(g), fn(c)
+        assert sg.vertices.device.type == "cuda"
+        assert torch.equal(sg.mask.cpu(), sc.mask)
+        assert torch.equal(sg.vertices.cpu(), sc.vertices)
+    dense = _soup_set(mc.extract_soup_cubes(g, 0.0))
+    banded = _soup_set(mc.extract_soup_cubes_auto(g))
+    assert dense.shape == banded.shape and (dense == banded).all()
+
+
+def test_welds_on_card_match_host_and_cpu(cuda):
+    mc = _mc()
+    soup = mc.extract_soup_cubes(mc.create_sphere_volume(48, device=cuda), 0.0)
+    dev_mesh = mc.soup_to_mesh(soup, method="device")
+    host_mesh = mc.soup_to_mesh(soup, method="host")
+    cpu_mesh = mc.soup_to_mesh(mc.TriangleSoup(soup.vertices.cpu(), soup.mask.cpu()),
+                               method="device")
+    assert dev_mesh.vertices.device.type == host_mesh.vertices.device.type == "cuda"
+    for a, b in zip(dev_mesh.to_numpy(), cpu_mesh.to_numpy()):
+        np.testing.assert_array_equal(a, b)
+    sets = []
+    for m in (dev_mesh, host_mesh):
+        v, f = m.to_numpy()
+        sets.append(np.sort(np.ascontiguousarray(v[f].round(5).reshape(-1, 9)).view(
+            [("", np.float32)] * 9), axis=None))
+    assert int(dev_mesh.face_count()) == int(host_mesh.face_count()) > 1000
+    assert int(dev_mesh.vertex_count()) == int(host_mesh.vertex_count())
+    assert (sets[0] == sets[1]).all()
+
+
+def test_sparse_marching_cubes_on_card_matches_cpu(cuda):
+    depth = (2.0 + 0.3 * np.sin(np.mgrid[0:120, 0:160][1] / 20.0)
+             * np.cos(np.mgrid[0:120, 0:160][0] / 15.0)).astype(np.float32)
+    intr = np.array([130.0, 130.0, 80.0, 60.0], np.float32)
+    soups = []
+    for dev in (cuda, torch.device("cpu")):
+        vol = tt.sparse_tsdf_integrate(
+            tt.create_sparse_tsdf_volume(4.0 / 64, origin=(-2.0, -2.0, 0.5),
+                                         grid_blocks=(8, 8, 8), max_blocks=512, device=dev),
+            depth, intr, np.eye(4, dtype=np.float32), grid_blocks=(8, 8, 8))
+        soups.append(tt.sparse_tsdf_marching_cubes_soup(vol, (8, 8, 8)))
+    g, c = soups
+    assert int(c.mask.sum()) > 1000
+    same = g.mask.cpu() == c.mask
+    assert same.float().mean().item() >= 0.999
+    both = (g.mask.cpu() & c.mask).repeat_interleave(3)
+    torch.testing.assert_close(g.vertices.cpu()[both], c.vertices[both], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("res", [16, 32, 64])
+def test_mg_solve_on_card_converges(cuda, res):
+    from threecrate_tpu_torch.reconstruction import multigrid
+    b = torch.from_numpy(np.random.default_rng(0).normal(size=(res,) * 3).astype(np.float32))
+    x = multigrid.mg_solve(b.to(cuda), 1e-4, cycles=8)
+    rel = multigrid.mg_residual_norm(b.to(cuda), x, 1e-4)
+    assert x.device.type == "cuda" and rel.item() < 1e-4, (res, rel.item())
+    xc = multigrid.mg_solve(b, 1e-4, cycles=8)
+    assert (x.cpu() - xc).abs().max().item() <= 1e-3 * xc.abs().max().item()
+
+
+def test_poisson_on_card_matches_cpu(cuda):
+    from threecrate_tpu_torch.reconstruction import poisson
+    rng = np.random.default_rng(1)
+    p = rng.normal(size=(4000, 3)).astype(np.float32)
+    p /= np.linalg.norm(p, axis=1, keepdims=True)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        pts = torch.from_numpy(p).to(dev)
+        args = (pts, pts, torch.ones(4000, dtype=torch.bool, device=dev),
+                torch.full((3,), -1.2, device=dev), torch.tensor(2.4 / 63, device=dev), 64, 200,
+                1e-4)
+        out.append([poisson._solve(*args, solver=s) for s in ("cg", "multigrid")])
+    for (gchi, giso, gsup), (cchi, ciso, csup) in zip(*out):
+        scale = cchi.abs().max().item()
+        assert (gchi.cpu() - cchi).abs().max().item() <= 1e-4 * scale
+        assert abs(giso.item() - ciso.item()) <= 1e-4 * scale
+        torch.testing.assert_close(gsup.cpu(), csup, atol=1e-5 * csup.max().item(), rtol=0)
+    cloud = tt.PointCloud.from_numpy(p, normals=p, device=cuda)
+    mesh = tt.poisson_reconstruct(cloud, tt.PoissonConfig(depth=6))
+    v, f = mesh.to_numpy()
+    r = np.linalg.norm(v, axis=1)
+    assert mesh.vertices.device.type == "cuda" and len(f) > 1000
+    assert abs(np.median(r) - 1.0) < 0.05 and r.std() < 0.05
+
+
+def test_triangle_mesh_round_trip_on_card(cuda):
+    rng = np.random.default_rng(2)
+    v = rng.normal(size=(300, 3)).astype(np.float32)
+    f = rng.integers(0, 300, (500, 3)).astype(np.int32)
+    mesh = tt.TriangleMesh.from_numpy(v, f, normals=v, colors=np.abs(v))
+    assert mesh.vertices.device.type == "cuda" and mesh.faces.dtype == torch.int32
+    v2, f2 = mesh.to_numpy()
+    np.testing.assert_array_equal(v2, v)
+    np.testing.assert_array_equal(f2, f)
+    np.testing.assert_array_equal(mesh.attr_to_numpy("colors"), np.abs(v))
+    cpu = tt.TriangleMesh.from_numpy(v, f, device="cpu")
+    torch.testing.assert_close(mesh.compute_vertex_normals().normals.cpu(),
+                               cpu.compute_vertex_normals().normals, atol=1e-5, rtol=0)
+    torch.testing.assert_close(mesh.face_areas().cpu(), cpu.face_areas(), atol=1e-6, rtol=0)
+    assert int(mesh.face_count()) == 500 and not bool(mesh.is_empty())

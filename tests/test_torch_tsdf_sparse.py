@@ -10,8 +10,14 @@ of 8³ voxels, its ``max_blocks=8`` overflow case, the two frames of
   overflow); weights equal; tsdf and colours within 1e-6;
 - ``sparse_to_dense`` equal to JAX's arrays, and on the allocated voxels
   equal to the port's dense fusion (as the JAX test requires of JAX);
-- surface points: count, mask and order equal, points within 1e-6 m.
+- surface points: count, mask and order equal, points within 1e-6 m;
+- ``sparse_marching_cubes_soup``: mask and vertices bit-equal to JAX's;
+  its welded mesh within JAX's own bounds of the dense mesh (face counts
+  within 3%, > 95% of rounded vertices shared), and both meshes' counts
+  equal to JAX's.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from threecrate_tpu.core.transform import Transform as JaxTransform  # noqa: E402
+from threecrate_tpu.ops import tsdf as jtsdf  # noqa: E402
 from threecrate_tpu.ops import tsdf_sparse as jsp  # noqa: E402
 
 from threecrate_tpu_torch.ops import tsdf as tt  # noqa: E402
@@ -220,6 +227,51 @@ def test_sequence_matches_loop_and_jax():
 
 
 def test_marching_cubes_is_left_for_the_next_slice():
-    _, tv = _fuse(frames=1)
-    with pytest.raises(NotImplementedError, match="reconstruction/marching_cubes.py"):
-        tsp.sparse_marching_cubes_soup(tv, GRID, BLOCK)
+    """The name is older than the port of marching cubes, which no longer
+    raises: ``sparse_marching_cubes_soup`` on the one-frame volume equals
+    the JAX package's soup bit for bit (mask and every vertex row)."""
+    jv, tv = _fuse(frames=1)
+    js = jsp.sparse_marching_cubes_soup(jv, GRID, BLOCK)
+    ts = tsp.sparse_marching_cubes_soup(tv, GRID, BLOCK)
+    assert ts.mask.shape == (512 * BLOCK ** 3 * 5,) and int(ts.mask.sum()) > 0
+    np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
+    np.testing.assert_array_equal(ts.vertices.numpy(), np.asarray(js.vertices))
+
+
+def test_sparse_mesh_matches_dense_mc():
+    """JAX's ``TestSparseMarchingCubes.test_mesh_matches_dense_mc`` on the
+    port, with its bounds: the welded sparse soup against marching cubes
+    of the dense 64³ volume (unobserved voxels read as far): face counts
+    within 3%, more than 95% of the vertices rounded to 1e-4 shared; and
+    both port meshes with the JAX package's face and vertex counts."""
+    mc = importlib.import_module("threecrate_tpu_torch.reconstruction.marching_cubes")
+    jmc = importlib.import_module("threecrate_tpu.reconstruction.marching_cubes")
+    depth, intr = _frame()
+    eye = np.eye(4, dtype=np.float32)
+    jv, tv = _fuse(frames=1)
+    counts = []
+    for dense_mod, sparse_vol, soup_fn, m in (
+            (jtsdf, jv, jsp.sparse_marching_cubes_soup, jmc),
+            (tt, tv, tsp.sparse_marching_cubes_soup, mc)):
+        if m is jmc:
+            dense = jtsdf.integrate(jtsdf.create_volume((64, 64, 64), VOX, origin=ORIGIN),
+                                    jnp.asarray(depth), intr, jnp.asarray(eye))
+            vals = jnp.asarray(np.where(np.asarray(dense.weight) >= 1.0,
+                                        np.asarray(dense.tsdf), 1.0))
+        else:
+            dense = tt.integrate(tt.create_volume((64, 64, 64), VOX, origin=ORIGIN,
+                                                  device="cpu"), depth, intr, eye)
+            vals = torch.where(dense.weight >= 1.0, dense.tsdf, 1.0)
+        g = m.VolumetricGrid(vals, dense.origin + 0.5 * dense.voxel_size, dense.voxel_size)
+        mesh_d = m.marching_cubes(g, 0.0)
+        mesh_s = m.soup_to_mesh(soup_fn(sparse_vol, GRID, BLOCK))
+        fd, fs = int(mesh_d.face_count()), int(mesh_s.face_count())
+        counts.append((fd, fs, int(mesh_d.vertex_count()), int(mesh_s.vertex_count())))
+        if m is mc:
+            assert fs > 0 and abs(fd - fs) <= 0.03 * max(fd, 1), (fd, fs)
+            vd = mesh_d.vertices[:counts[-1][2]].numpy()
+            vs = mesh_s.vertices[:counts[-1][3]].numpy()
+            kd = set(map(tuple, vd.round(4).tolist()))
+            ks = set(map(tuple, vs.round(4).tolist()))
+            assert len(kd & ks) > 0.95 * max(len(kd), len(ks)), (len(kd), len(ks))
+    assert counts[1] == counts[0], counts

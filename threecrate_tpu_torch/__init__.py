@@ -2,7 +2,7 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Seven slices are ported:
+for NVIDIA Hopper (``csrc/``). Eight slices are ported:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
 ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
 batched RANSAC, then ICP), the Morton-window neighbourhood ops (FPFH
@@ -16,7 +16,10 @@ family beyond point-to-point ICP: GICP (the union kernels at k = 20 and
 Patchwork++ ground segmentation, and KISS-ICP with ``OdometryModel``;
 then the depth-camera mapping slice: dense and block-sparse TSDF
 fusion, TSDF raycasting and frame-to-model tracking with
-``FrameToModelOdometry`` (no kernel of its own); with the data model, Morton keys, small linear algebra and exact
+``FrameToModelOdometry`` (no kernel of its own); then surface
+reconstruction: ``TriangleMesh``, marching cubes (dense, banded and
+over the sparse TSDF) with both welds, and screened Poisson on the CG
+and multigrid solvers (no kernel of its own); with the data model, Morton keys, small linear algebra and exact
 neighbour search they need. Clouds built with ``PointCloud.from_numpy``
 live on the card unless the caller asks for the CPU. Modules mirror the
 JAX package's layout and public names.
@@ -24,7 +27,7 @@ JAX package's layout and public names.
 
 __version__ = "0.1.0"
 
-from . import core, interop, kernels, models, ops, utils
+from . import core, interop, kernels, models, ops, reconstruction, utils
 from .core import (
     AlgorithmError,
     CameraIntrinsics,
@@ -35,12 +38,13 @@ from .core import (
     PointCloud,
     ThreeCrateError,
     Transform,
+    TriangleMesh,
     UnsupportedError,
     UnsupportedFormatError,
     VisualizationError,
 )
 from .models import OdometryModel, PerceptionResult, PerceptionStep, RegistrationModel
-from .ops.features import (SHOT_DIM, USC_DIM, FpfhConfig, FpfhResult, ShotConfig,
+from .ops.features import (FPFH_DIM, SHOT_DIM, USC_DIM, FpfhConfig, FpfhResult, ShotConfig,
                            ShotResult, extract_fpfh_features,
                            extract_fpfh_features_with_normals, extract_shot_features,
                            extract_usc_features, match_descriptors)
@@ -51,12 +55,14 @@ from .ops.filtering import (OutlierResult, VoxelGridResult, passthrough_filter,
                             voxel_grid_filter, voxel_grid_filter_detailed)
 from .ops.gicp import GicpConfig, gicp
 from .ops.global_registration import (GlobalRegistrationConfig,
-                                      GlobalRegistrationResult, global_registration)
+                                      GlobalRegistrationResult, global_registration,
+                                      global_registration_with_normals)
 from .ops.frame_to_model import FrameToModelConfig, FrameToModelOdometry, TrackResult
 from .ops.frame_to_model import track as track_frame_to_model
 from .ops.ground import (GroundSegmentationResult, PatchworkConfig,
                          patchwork_plus_plus, segment_ground)
 from .ops.kiss_icp import KissIcpConfig, KissIcpOdometry, kiss_icp
+from .ops.neighbors import KnnResult, knn, knn_window, nearest_one, radius_neighbors
 from .ops.ndt import NdtConfig, NdtResult, ndt_registration
 from .ops.normals import (NormalEstimationConfig, estimate_normals,
                           estimate_normals_detailed,
@@ -64,6 +70,8 @@ from .ops.normals import (NormalEstimationConfig, estimate_normals,
 from .ops.registration import (ICPConfig, ICPResult, MultiscaleConfig, icp,
                                 icp_point_to_plane, icp_point_to_point,
                                 multiscale_icp_point_to_point)
+from .reconstruction import (PoissonConfig, VolumetricGrid, marching_cubes,
+                             poisson_reconstruct, reconstruct_marching_cubes)
 from .ops.tsdf import TsdfVolume
 from .ops.tsdf import create_volume as create_tsdf_volume
 from .ops.tsdf import extract_surface as tsdf_extract_surface
@@ -83,7 +91,7 @@ from .ops.tsdf_sparse import sparse_marching_cubes_soup as sparse_tsdf_marching_
 from .ops.tsdf_sparse import sparse_to_dense as sparse_tsdf_to_dense
 
 __all__ = [
-    "core", "interop", "kernels", "models", "ops", "utils",
+    "core", "interop", "kernels", "models", "ops", "reconstruction", "utils",
     "PointCloud", "Transform", "PerceptionStep", "PerceptionResult",
     "RegistrationModel", "OdometryModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
     "extract_fpfh_features_with_normals", "match_descriptors", "ShotConfig",
@@ -109,5 +117,8 @@ __all__ = [
     "sparse_tsdf_marching_cubes_soup", "sparse_tsdf_to_dense", "RaycastResult",
     "tsdf_raycast", "tsdf_shade", "tsdf_shade_rgb", "sparse_tsdf_raycast",
     "FrameToModelConfig", "FrameToModelOdometry", "TrackResult", "track_frame_to_model",
+    "TriangleMesh", "VolumetricGrid", "marching_cubes", "reconstruct_marching_cubes",
+    "PoissonConfig", "poisson_reconstruct", "FPFH_DIM", "global_registration_with_normals",
+    "KnnResult", "knn", "knn_window", "nearest_one", "radius_neighbors",
     "__version__",
 ]

@@ -1,4 +1,4 @@
-"""Data model: clouds, transforms, errors."""
+"""Data model: clouds, meshes, transforms, errors."""
 
 from .errors import (
     AlgorithmError,
@@ -9,16 +9,19 @@ from .errors import (
     UnsupportedError,
     UnsupportedFormatError,
     VisualizationError,
+    require,
 )
+from .mesh import TriangleMesh
 from .organized import CameraIntrinsics, OrganizedPointCloud
-from .point_cloud import NORMALS, PointCloud
+from .point_cloud import COLORS, INTENSITY, NORMALS, PointCloud
 from .transform import (Transform, matrix_to_quaternion, quaternion_to_matrix, se3_exp,
                         skew)
 
 __all__ = [
     "AlgorithmError", "DeviceError", "InvalidDataError", "IoError",
     "ThreeCrateError", "UnsupportedError", "UnsupportedFormatError",
-    "VisualizationError", "PointCloud", "NORMALS",
+    "VisualizationError", "require", "TriangleMesh", "PointCloud", "COLORS",
+    "INTENSITY", "NORMALS",
     "Transform", "se3_exp", "skew", "quaternion_to_matrix", "matrix_to_quaternion",
     "CameraIntrinsics", "OrganizedPointCloud",
 ]

@@ -35,3 +35,10 @@ class UnsupportedError(ThreeCrateError):
 class UnsupportedFormatError(IoError, UnsupportedError):
     """File format/extension has no registered reader or writer."""
 
+
+
+def require(cond: bool, message: str, err: type = InvalidDataError) -> None:
+    """Eager validation helper; raises ``err(message)`` when ``cond`` is
+    false. For host values only: a device tensor would sync here."""
+    if not cond:
+        raise err(message)

@@ -13,7 +13,10 @@ packages share is their configs, which ``fpfh_config_from``,
 pipeline's state comes over as numpy arrays too: a fused dense or sparse
 TSDF volume (``tsdf_volume_from_numpy``, ``sparse_tsdf_volume_from_numpy``)
 and raycast model maps (``raycast_result_from_numpy``), so both packages
-can be fed the same volume and maps.
+can be fed the same volume and maps. So do the surface slice's: a padded
+``TriangleMesh`` (``mesh_from_numpy`` / ``mesh_to_numpy``, the same
+capacities as JAX's), a ``VolumetricGrid`` (``grid_from_numpy``) and
+``PoissonConfig`` (``poisson_config_from``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .core.mesh import TriangleMesh
 from .core.point_cloud import PointCloud
 from .core.transform import Transform
 from .ops.features import FpfhConfig, FpfhResult, ShotConfig, ShotResult
@@ -37,6 +41,8 @@ from .ops.registration import MultiscaleConfig
 from .ops.tsdf import TsdfVolume
 from .ops.tsdf_raycast import RaycastResult
 from .ops.tsdf_sparse import SparseTsdfVolume
+from .reconstruction.marching_cubes import VolumetricGrid
+from .reconstruction.poisson import PoissonConfig
 
 
 def _put(x, dtype, device):
@@ -115,6 +121,33 @@ def kiss_icp_config_from(config) -> KissIcpConfig:
 def frame_to_model_config_from(config) -> FrameToModelConfig:
     """The port's ``FrameToModelConfig`` with the fields of a JAX one."""
     return _config_from(FrameToModelConfig, config)
+
+
+def poisson_config_from(config) -> PoissonConfig:
+    """The port's ``PoissonConfig`` with the fields of a JAX one."""
+    return _config_from(PoissonConfig, config)
+
+
+def mesh_from_numpy(vertices, faces, vertex_mask, face_mask, attrs: Optional[Dict] = None,
+                    device="cuda") -> TriangleMesh:
+    """A port ``TriangleMesh`` with exactly these padded rows and masks
+    (a JAX mesh read as numpy arrays), on ``device``."""
+    return TriangleMesh(_put(vertices, torch.float32, device), _put(faces, torch.int32, device),
+                        _put(vertex_mask, torch.bool, device), _put(face_mask, torch.bool, device),
+                        {k: _put(v, torch.float32, device) for k, v in (attrs or {}).items()})
+
+
+def mesh_to_numpy(mesh: TriangleMesh):
+    """(vertices, faces, vertex_mask, face_mask, attrs) of a port mesh,
+    padding included."""
+    return (mesh.vertices.cpu().numpy(), mesh.faces.cpu().numpy(),
+            mesh.vertex_mask.cpu().numpy(), mesh.face_mask.cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in mesh.attrs.items()})
+
+
+def grid_from_numpy(values, origin, spacing, device="cuda") -> VolumetricGrid:
+    """The port's ``VolumetricGrid`` with a JAX grid's fields, on ``device``."""
+    return VolumetricGrid(*(_put(x, torch.float32, device) for x in (values, origin, spacing)))
 
 
 def tsdf_volume_from_numpy(tsdf, weight, color, origin, voxel_size, truncation,

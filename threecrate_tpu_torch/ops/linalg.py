@@ -157,6 +157,20 @@ def kabsch_from_moments(moments: torch.Tensor) -> torch.Tensor:
     return m
 
 
+def kabsch_from_sums(wsum: torch.Tensor, sum_s: torch.Tensor, sum_t: torch.Tensor,
+                     sum_st: torch.Tensor) -> torch.Tensor:
+    """``kabsch`` from precomputed weighted sums: Σw, Σw·s (3,), Σw·t (3,)
+    and Σw·s⊗t (3, 3), the form a fused correspondence kernel emits. The
+    same fit: H = Σw·s⊗t − Σw·μs⊗μt. The 3x3 SVD runs on the host and the
+    (4, 4) transform comes back to the sums' device."""
+    wsum = torch.clamp_min(torch.as_tensor(wsum, dtype=sum_s.dtype, device=sum_s.device),
+                           _EPS)
+    mu_s, mu_t = sum_s / wsum, sum_t / wsum
+    h = sum_st - wsum * torch.outer(mu_s, mu_t)
+    moments = torch.cat([mu_s, mu_t, h.reshape(9)]).cpu()
+    return kabsch_from_moments(moments).to(sum_s.device)
+
+
 def kabsch(source: torch.Tensor, target: torch.Tensor,
            weights: torch.Tensor) -> torch.Tensor:
     """Weighted rigid alignment (Kabsch/Umeyama, no scale): the (4, 4)

@@ -88,11 +88,14 @@ def _chunk_vs_db(q, q_rows, db_points, db_norms, db_mask, k, db_tile):
 def knn(db_points: torch.Tensor, db_mask: torch.Tensor,
         queries: torch.Tensor, query_mask: Optional[torch.Tensor] = None,
         k: int = 1, *, exclude_self: bool = False, query_chunk: int = 1024,
-        db_tile: int = 262144) -> KnnResult:
+        db_tile: int = 262144, recall_target: float = 1.0) -> KnnResult:
     """Exact k-nearest neighbours. The query itself is a valid neighbour
     (distance 0) when the query set is the database, unless
     ``exclude_self`` drops each query's pair with the database row of
-    its own index (only meaningful when queries is db_points)."""
+    its own index (only meaningful when queries is db_points).
+    ``recall_target`` is accepted for the JAX signature, whose values
+    below 1 select the TPU's approximate top-k (exact off the TPU); the
+    port's top-k is always exact."""
     db_points = db_points.to(torch.float32)
     queries = queries.to(torch.float32)
     n_db = db_points.shape[0]

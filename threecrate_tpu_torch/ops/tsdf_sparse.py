@@ -268,13 +268,31 @@ def sparse_to_dense(vol: SparseTsdfVolume, grid_blocks: Tuple[int, int, int],
 def sparse_marching_cubes_soup(vol: SparseTsdfVolume, grid_blocks: Tuple[int, int, int],
                                block: int = 8, iso_level: float = 0.0,
                                min_weight: float = 1.0):
-    """Marching cubes over allocated blocks only. Not ported yet: it
-    needs the port of ``reconstruction/marching_cubes.py`` (its
-    ``TriangleSoup``, ``VolumetricGrid`` and ``extract_soup_cubes``),
-    which is the next slice."""
-    raise NotImplementedError(
-        "sparse_marching_cubes_soup is not ported yet: it needs "
-        "reconstruction/marching_cubes.py, the next slice of the port")
+    """Marching cubes over allocated blocks only: the cube extractor of
+    ``reconstruction.marching_cubes`` runs over every row's (B+1)³ apron
+    grid at once. The apron makes the cubes an exact partition (each
+    block owns the B³ cubes whose low corner lies in its own region, and
+    apron voxels equal the neighbour's own), so the mesh is seamless with
+    no cross-block lookups. Voxels below ``min_weight`` read as far (1).
+    Returns a ``TriangleSoup`` on the volume's device (weld it with
+    ``reconstruction.marching_cubes.soup_to_mesh``)."""
+    from ..reconstruction.marching_cubes import TriangleSoup, _cubes_soup
+
+    gx, gy, gz = grid_blocks
+    s1 = block + 1
+    mb = vol.max_blocks
+    tsdf = vol.tsdf.reshape(mb, s1, s1, s1)
+    wgt = vol.weight.reshape(mb, s1, s1, s1)
+    vals = torch.where(wgt >= min_weight, tsdf, 1.0)
+    bx, by, bz = _decode_keys(torch.clamp_min(vol.block_keys, 0), gy, gz)
+    # grid nodes sit at voxel centres (the dense volume's convention); the
+    # block corner is one fused multiply-add, as XLA forms it
+    corner = torch.addcmul(vol.origin, torch.stack([bx, by, bz], 1).to(torch.float32),
+                           vol.voxel_size * block) + 0.5 * vol.voxel_size
+    alive = vol.block_keys != _INVALID
+    iso = torch.as_tensor(iso_level, dtype=torch.float32, device=vals.device)
+    verts, masks = _cubes_soup(vals, iso, corner[:, None, :], vol.voxel_size)
+    return TriangleSoup(verts.reshape(-1, 3), (masks & alive[:, None]).reshape(-1))
 
 
 def sparse_integrate_sequence(vol: SparseTsdfVolume, depths, intr, poses,
