@@ -11,8 +11,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. build the CUDA kernels from ``threecrate_tpu_torch/csrc``;
 3. compare each kernel with its plain PyTorch version on the same inputs
    at the slices' real shapes: the two union-window passes on a
-   1,000,192-point Morton-sorted scan (at k = 10, band 16, and at GICP's
-   k = 20, the band widened to 20), ``icp_match`` on 1M x 1M with
+   1,000,192-point Morton-sorted scan (at k = 10, band 16, at GICP's
+   k = 20, the band widened to 20, and at the reconstruction analysis's
+   k = 8), ``icp_match`` on 1M x 1M with
    w_tiles=3 at E=0, 3 and 6 (the match row bit-equal, every row
    bit-equal on the points whose nearest target is unique and within
    ``ICP_ABS_TOL`` where ties average), the four FPFH kernels on the 1,000,192
@@ -190,10 +191,39 @@ same way:
     then ``poisson_reconstruct(PoissonConfig(depth=7))``: vertex radii
     with a median within 0.02 of 1 and a std below 0.02.
 
+then the mesh-processing slice (no kernel of its own; the union
+kernels through normals), each entry timed once warm with its peak,
+device busy time and host syncs, against the references of
+``tools/mesh_references.py``:
+36. ``ReconstructionModel(k=10, target_faces=T)`` on 100,000 points of
+    BASELINE #5's bumpy sphere at sigma 0.006 (T half the unsimplified
+    faces): the JAX package's pick (MLS) and the port's CPU run's, no
+    fallback, faces within 1% of the CPU run's before and after
+    simplification, the share of vertices within two mean spacings of
+    the input within 0.01 of the CPU run's, ``union_window_a`` and
+    ``union_window_b`` launched twice each (k = 10, then k = 8); stage
+    times and the union kernels' device time at k = 8;
+36b. the stages up to ``select_algorithm`` at sigma 0.003 at 35k and
+    100k points: ball pivoting, as the JAX package picks;
+37. ``benchmarks/r3_probe.py``'s Poisson (depth 6) + QEM to half at 35k
+    and 100k: faces at or below the target, the radius error against
+    the bumpy sphere (median, 99th percentile) within the JAX package's,
+    rounded up;
+38. MLS on phase 36's clean points (search radius 4 mean spacings):
+    radius search, fits and 6x6 solves and the signed field timed apart;
+    against a CPU run on every 8th point;
+39. alpha shape (20,000 points), ball pivoting (2,000; the candidate
+    lists against the CPU's) and Delaunay (2,000) through
+    ``auto_reconstruct_detailed``: faces within 1% of the CPU run's;
+40. Laplacian, Taubin and HC smoothing of phase 34's mesh (two calls and
+    the CPU run within 1e-5 m), clustering and edge collapse of phase
+    37's Poisson mesh, the three booleans of two 256-face spheres, and a
+    ``ProgressiveMesh`` saved, loaded and refined back to its input.
+
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21 and 23-35; the FPFH kernels' r = 0.25 entries and
-the union kernels' k = 20 entries repeat the kernel's count, each
+8, 11-16, 18, 20, 21, 23-35 and 36; the FPFH kernels' r = 0.25 entries and
+the union kernels' k = 20 and k = 8 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
 {...}}``. A kernel's bound is the larger of the bytes it must move
@@ -368,7 +398,62 @@ SPARSE_MESH_FACES, SPARSE_MESH_SHARED = 0.03, 0.95
 POISSON_N, POISSON_RES, POISSON_LO = 100_000, 128, -1.2
 POISSON_CHI_TOL = 1e-4
 POISSON_RADIUS_TOL = 0.02
+# The mesh-processing slice (phases 36-40). Phase 36: ReconstructionModel
+# on BASELINE config #5's generator (seed 11) at MESH_N points and
+# sigma = MESH_SIGMA, about half the point spacing, where the analysis
+# takes MLS; phase 36b at BASELINE5_SIGMA (the probe's own noise), where
+# it takes ball pivoting; phase 37: the probe's Poisson + QEM pipeline.
+MESH_N, MESH_SIGMA, MESH_SEED = 100_000, 0.006, 11
+BASELINE5_SIGMA, BASELINE5_SIZES = 0.003, (35_000, 100_000)
+# JAX's picks on the CPU (python3 tools/mesh_references.py picks)
+JAX_PICKS = {"phase36": "mls", 35_000: "ball_pivoting", 100_000: "ball_pivoting"}
+# Phase 37's gates: the JAX package's results on the CPU (tools/mesh_references.py
+# poisson): face counts, and the simplified mesh's radius error against the
+# bumpy sphere (median 0.00568 and 0.00717, 99th percentile 0.107 and 0.108),
+# rounded up
+JAX_POISSON = {35_000: {"faces": 29627, "simplified_faces": 14813, "median": 0.006, "p99": 0.11},
+               100_000: {"faces": 29115, "simplified_faces": 14557, "median": 0.008,
+                         "p99": 0.11}}
+# The port's own CPU results (python3 tools/mesh_references.py port: tens
+# of GB and minutes, too large for a CPU run inside this script): phase 36's pick, faces
+# before and after simplification and share of vertices within
+# NEAR_SPACINGS mean spacings of the input (MLS's sheets of unoriented
+# normals put the rest elsewhere, as in the JAX package), and phase 39's
+# faces; the card's counts must come within 1%, the share within
+# NEAR_SHARE_TOL
+PORT_CPU_MESH = {"phase36": {"algorithm": "mls", "fallbacks": [], "points": 84500,
+                             "faces": 44650, "simplified_faces": 22325,
+                             "near_share": 0.29279513888888886},
+                 "alpha_shape": {"faces": 39703}, "ball_pivoting": {"faces": 2658},
+                 "delaunay": {"faces": 3960}}
+NEAR_SPACINGS, NEAR_SHARE_TOL = 2.0, 0.01
+# Phase 38: MLS on the card against the CPU run on every MLS_CPU_EVERY-th
+# point (the CPU's exact radius search of all ~85k would take minutes). The
+# search: at most MLS_OTHER_SETS of the points find another set of 32
+# neighbours (the cap cuts inside the radius, so a near tie at the 32nd
+# decides), d² within MLS_D2_TOL where the ids agree (the expanded d² of
+# unit-scale points rounds at ~2.4e-7). The fit alone, the card's fit of
+# the CPU's own neighbourhoods: within MLS_POS_TOL of the radius and
+# normals |cos| >= MLS_COS_TOL on >= MLS_SHARE of the points. End to end,
+# every point within MLS_END_TOL of the radius: at 4 mean spacings a
+# neighbour's d² is ~2e-4 to 3e-3, so that rounding moves the Gaussian
+# weights by up to ~1e-3 and the projections with them (on an H100: 99.5%
+# within 1e-5 of the radius, the largest 5.7e-3)
+MLS_CPU_EVERY, MLS_POS_TOL, MLS_COS_TOL, MLS_SHARE = 8, 1e-5, 0.9999, 0.999
+MLS_OTHER_SETS, MLS_D2_TOL, MLS_END_TOL = 0.005, 1e-6, 1e-2
+# Phase 39's sizes, cut where the host loops set the time (ball pivoting's
+# front takes milliseconds a point); phase 40: smoothing's spread between
+# two calls and difference from the CPU run (m, on a 4 m volume), and the
+# booleans' spheres (4·rings² faces: the host BSP's cost grows steeply
+# with the faces)
+ALPHA_N, BPA_N, DELAUNAY_N = 20_000, 2_000, 2_000
+# BPA's candidate d² on the card against the CPU's, slot by slot: the
+# expanded d² = |q|² + |p|² - 2q·p of unit-sphere points rounds at ~2.4e-7
+BPA_D2_TOL = 1e-6
+SMOOTH_TOL = 1e-5
+BOOLEAN_RINGS = 8
 GICP_K = 20              # GicpConfig's k_correspondences: the union passes at k = 20
+ANALYSIS_K = 8           # reconstruction.pipeline.analyze_data's normals: the union passes at k = 8
 REG_ANGLE = 0.35
 REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
 REG_CONFIG = dict(ransac_iterations=16384, fpfh_radius=FPFH_RADIUS,
@@ -415,6 +500,40 @@ def scan_labels(n: int, seed: int):
 def scan(n: int, seed: int) -> np.ndarray:
     """The points of ``scan_labels``."""
     return scan_labels(n, seed)[0]
+
+
+def bumpy_sphere(n: int, sigma: float, seed: int = MESH_SEED) -> np.ndarray:
+    """BASELINE config #5's cloud (benchmarks/r3_probe.py:243-249): points
+    of the sphere of radius 1 + 0.05·sin 3u, u the azimuth, with
+    normal(0, sigma) noise."""
+    rng = np.random.default_rng(seed)
+    u, v = rng.uniform(0, 2 * np.pi, n), np.arccos(rng.uniform(-1, 1, n))
+    sphere = np.stack([np.sin(v) * np.cos(u), np.sin(v) * np.sin(u), np.cos(v)], -1)
+    return (sphere * (1 + 0.05 * np.sin(3 * u)[:, None])
+            + rng.normal(0, sigma, (n, 3))).astype(np.float32)
+
+
+def bumpy_radius_error(v: np.ndarray) -> np.ndarray:
+    """|‖p‖ − (1 + 0.05·sin 3u)| of each vertex p, u its azimuth."""
+    u = np.arctan2(v[:, 1], v[:, 0])
+    return np.abs(np.linalg.norm(v, axis=1) - (1 + 0.05 * np.sin(3 * u)))
+
+
+def fibonacci_sphere(n: int) -> np.ndarray:
+    """examples/reconstruction_pipeline.py's unit sphere."""
+    i = np.arange(n, dtype=np.float64)
+    phi = np.arccos(1 - 2 * (i + 0.5) / n)
+    theta = np.pi * (1 + 5 ** 0.5) * i
+    return np.stack([np.cos(theta) * np.sin(phi), np.sin(theta) * np.sin(phi), np.cos(phi)],
+                    -1).astype(np.float32)
+
+
+def terrain(n: int, seed: int = 5) -> np.ndarray:
+    """A wavy height field over the unit square."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 1, (n, 2))
+    z = 0.05 * np.sin(xy[:, 0] * 6) * np.cos(xy[:, 1] * 5)
+    return np.stack([xy[:, 0], xy[:, 1], z], -1).astype(np.float32)
 
 
 def ground_scan():
@@ -786,10 +905,12 @@ def busy_time(fn) -> float:
     return device_profile(fn)[1]
 
 
-def host_syncs(fn) -> int:
-    """Host syncs in one call of ``fn`` after a warm-up: the warnings that
+def host_syncs(fn, warmup: bool = True) -> int:
+    """Host syncs in one call of ``fn`` (after a warm-up call unless
+    ``warmup`` is false): the warnings that
     ``torch.cuda.set_sync_debug_mode("warn")`` raises in it."""
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -800,6 +921,21 @@ def host_syncs(fn) -> int:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def measure(fn, profile: bool = True) -> dict:
+    """ms of ``fn`` (median of 3 after one warm-up, CUDA events), peak GiB,
+    host syncs and, with ``profile``, device busy ms."""
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = 1e3 * median_time(fn, warmup=1, iters=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"ms": ms, "peak_gib": peak, "host_syncs": host_syncs(fn)}
+    if profile:
+        out["busy_ms"] = busy_time(fn)
+    return out
 
 
 def run_counted(kernels, total, fn):
@@ -1002,10 +1138,11 @@ def shot_kernel_checks(pa, pb, pos_b, perm_a):
     return calls, err, pairs
 
 
-def union_k20_checks(pts_a, valid_a, row_a, tile: int, band: int):
-    """Phase 3 at GICP's shape: both union passes at k = GICP_K (the band
-    widened from ``band`` to k, the KMAX = 32 instantiation) on the sorted
-    1M scan against their plain versions, count and radius (use_b)
+def union_k_checks(pts_a, valid_a, row_a, tile: int, band: int, k: int):
+    """Phase 3 at another k of the main path: both union passes at ``k``
+    (GICP's 20, the band widened from ``band`` to k, the KMAX = 32
+    instantiation; the analysis's 8, inside the band) on the sorted 1M
+    scan against their plain versions, count and radius (use_b)
     bit-equal, sums within SUM_REL_TOL. Returns ({timing name: (kernel
     call, plain ms of the one checked call)}, {name: max abs error},
     (selected pairs of A, of B))."""
@@ -1021,25 +1158,25 @@ def union_k20_checks(pts_a, valid_a, row_a, tile: int, band: int):
         return out, start.elapsed_time(end)
 
     va = valid_a[0] > 0.5
-    a_in = (pts_a, valid_a, GICP_K, tile, band)
+    a_in = (pts_a, valid_a, k, tile, band)
     out_a = window_union_a_tiles(*a_in)
     ref_a, plain_a = plain_once(lambda: window_union_a_plain(*a_in))
     ea = union_error(out_a, ref_a, va)
     b_in = (pts_a[:, row_a].contiguous(), valid_a[:, row_a].contiguous(),
             row_a.to(torch.int32)[None].contiguous(), out_a[10][row_a][None].contiguous(),
-            GICP_K, tile, band)
+            k, tile, band)
     out_b = window_union_b_tiles(*b_in)
     ref_b, plain_b = plain_once(lambda: window_union_b_plain(*b_in))
     eb = union_error(out_b, ref_b, b_in[1][0] > 0.5)
     for kname, e in (("union_window_a", ea), ("union_window_b", eb)):
         row = "radius" if kname.endswith("a") else "use_b"
-        log(f"  {kname} k={GICP_K} band {band}->{max(band, GICP_K)}: cnt+{row} bit-equal "
+        log(f"  {kname} k={k} band {band}->{max(band, k)}: cnt+{row} bit-equal "
             f"{e[0]:.6f} (need 1), sums max rel err {e[1]:.3e} (tol {SUM_REL_TOL}), max abs "
             f"err {e[2]:.3e}")
-        check(e[0] == 1.0 and e[1] <= SUM_REL_TOL, f"{kname} k={GICP_K} disagrees")
-    calls = {f"union_window_a k={GICP_K}": (lambda: window_union_a_tiles(*a_in), plain_a),
-             f"union_window_b k={GICP_K}": (lambda: window_union_b_tiles(*b_in), plain_b)}
-    errs = {f"union_window_a k={GICP_K}": ea[2], f"union_window_b k={GICP_K}": eb[2]}
+        check(e[0] == 1.0 and e[1] <= SUM_REL_TOL, f"{kname} k={k} disagrees")
+    calls = {f"union_window_a k={k}": (lambda: window_union_a_tiles(*a_in), plain_a),
+             f"union_window_b k={k}": (lambda: window_union_b_tiles(*b_in), plain_b)}
+    errs = {f"union_window_a k={k}": ea[2], f"union_window_b k={k}": eb[2]}
     return calls, errs, (ref_a[0].sum().item(), ref_b[0].sum().item())
 
 
@@ -1176,7 +1313,11 @@ def main() -> int:
         f"err {eb[1]:.3e} (tol {SUM_REL_TOL}), max abs err {eb[2]:.3e}, "
         f"use_b share {use_b_share:.4f}")
     check(eb[0] == 1.0 and eb[1] <= SUM_REL_TOL, "union_window_b disagrees")
-    k20_calls, k20_err, k20_pairs = union_k20_checks(pts_a, valid_a, row_a, tile, band)
+    k_calls, k_err, k_pairs = {}, {}, {}
+    for kk in (GICP_K, ANALYSIS_K):
+        calls_k, err_k, k_pairs[kk] = union_k_checks(pts_a, valid_a, row_a, tile, band, kk)
+        k_calls.update(calls_k)
+        k_err.update(err_k)
     normals_err, normals_pairs = normals_kernel_checks(pts_a, valid_a, k, tile)
 
     ids_a = perm_a.to(torch.int32)[None].contiguous()
@@ -1342,7 +1483,7 @@ def main() -> int:
         ms[kname] = (1e3 * (k1 + k2) / 2, 1e3 * (p1 + p2) / 2)
         log(f"  {kname}: kernel {1e3 * k1:.4f} / {1e3 * k2:.4f} ms, plain "
             f"{1e3 * p1:.4f} / {1e3 * p2:.4f} ms; SM clock {sm_clock()}")
-    for kname, (kern, plain_ms) in k20_calls.items():
+    for kname, (kern, plain_ms) in k_calls.items():
         k1 = median_time(kern, warmup=1, iters=10)
         k2 = median_time(kern, warmup=0, iters=10)
         ms[kname] = (1e3 * (k1 + k2) / 2, plain_ms)
@@ -1350,9 +1491,10 @@ def main() -> int:
             f"(phase 3's one call); SM clock {sm_clock()}")
     work = kernel_work(pts_a.shape[1], tile, band, icp_args[0], pa.shape[1], pairs,
                        {**windows, **knn_open, "icp_match": icp_open})
-    work["union_window_a k=20"], work["union_window_b k=20"] = union_work(
-        pts_a.shape[1], tile, max(band, GICP_K), *k20_pairs)
-    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls, k20_calls
+    for kk, pairs_k in k_pairs.items():
+        work[f"union_window_a k={kk}"], work[f"union_window_b k={kk}"] = union_work(
+            pts_a.shape[1], tile, max(band, kk), *pairs_k)
+    del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls, k_calls
     del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, perm_a, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
 
@@ -1417,8 +1559,9 @@ def main() -> int:
     fam_launches, fam_report = registration_family_phases(dev, kernels)
     depth_launches, depth_report = depth_camera_phases(dev, kernels)
     surf_launches, surf_report = surface_phases(dev, kernels)
+    mesh_launches, mesh_report = mesh_phases(dev, kernels)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
-                 depth_launches, surf_launches):
+                 depth_launches, surf_launches, mesh_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1430,6 +1573,10 @@ def main() -> int:
                                       "threecrate_tpu/kernels/knn_pallas.py:564"),
               "union_window_b k=20": ("threecrate_tpu_torch/csrc/union_window.cu",
                                       "threecrate_tpu/kernels/knn_pallas.py:600"),
+              "union_window_a k=8": ("threecrate_tpu_torch/csrc/union_window.cu",
+                                     "threecrate_tpu/kernels/knn_pallas.py:564"),
+              "union_window_b k=8": ("threecrate_tpu_torch/csrc/union_window.cu",
+                                     "threecrate_tpu/kernels/knn_pallas.py:600"),
               "icp_match": ("threecrate_tpu_torch/csrc/icp_match.cu",
                             "threecrate_tpu/kernels/icp_pallas.py:113"),
               "spfh_a": ("threecrate_tpu_torch/csrc/fpfh.cu",
@@ -1474,7 +1621,7 @@ def main() -> int:
               "window_normals": ("threecrate_tpu_torch/csrc/union_window.cu",
                                  "threecrate_tpu/kernels/knn_pallas.py:505")}
     errs = {"union_window_a": ea[2], "union_window_b": eb[2], "icp_match": icp_err,
-            **knn_err, "window_normals": normals_err, **fpfh_err, **shot_err, **k20_err}
+            **knn_err, "window_normals": normals_err, **fpfh_err, **shot_err, **k_err}
     for kname in ("shot_hist_a", "shot_hist_b", "shot_hist_b placed", "shot_hist_a add"):
         errs[kname] = max(errs[kname], errs.pop(f"{kname} usc"))   # both variants
     # each knn_window entry counts its own shape's launches
@@ -1509,6 +1656,7 @@ def main() -> int:
     log(f"GICP, Patchwork++, NDT and odometry: {json.dumps(fam_report)}")
     log(f"depth-camera slice: {json.dumps(depth_report)}")
     log(f"surface slice: {json.dumps(surf_report)}")
+    log(f"mesh-processing slice: {json.dumps(mesh_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2362,15 +2510,6 @@ def depth_camera_phases(dev, kernels):
         check(not any(counts.values()), "the depth-camera slice launched a kernel")
         return out
 
-    def measure(fn):
-        """ms (median of 3 after one warm-up), peak GiB, busy ms, host syncs."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ms = 1e3 * median_time(fn, warmup=1, iters=3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        return {"ms": ms, "peak_gib": peak, "busy_ms": busy_time(fn),
-                "host_syncs": host_syncs(fn)}
-
     def cpu_run(fn):
         t0 = time.perf_counter()
         out = fn()
@@ -2620,7 +2759,6 @@ def surface_phases(dev, kernels):
     import threecrate_tpu_torch as tt
     from threecrate_tpu_torch.reconstruction import multigrid
     from threecrate_tpu_torch.reconstruction import poisson as poisson_mod
-    from threecrate_tpu_torch.utils.profiling import median_time
     mc = importlib.import_module("threecrate_tpu_torch.reconstruction.marching_cubes")
 
     total = dict.fromkeys(kernels.WRAPPERS, 0)
@@ -2630,18 +2768,6 @@ def surface_phases(dev, kernels):
     def run(fn):
         out, counts = run_counted(kernels, total, fn)
         check(not any(counts.values()), "the surface slice launched a kernel")
-        return out
-
-    def measure(fn, profile=True):
-        """ms (median of 3 after one warm-up), peak GiB, host syncs and,
-        with ``profile``, busy ms."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ms = 1e3 * median_time(fn, warmup=1, iters=3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        out = {"ms": ms, "peak_gib": peak, "host_syncs": host_syncs(fn)}
-        if profile:
-            out["busy_ms"] = busy_time(fn)
         return out
 
     def fmt(m):
@@ -2796,6 +2922,375 @@ def surface_phases(dev, kernels):
     report["poisson_reconstruct depth 7"] = {**m35r, "faces": len(f),
                                              "radius_median": float(np.median(r)),
                                              "radius_std": float(r.std())}
+    return total, report
+
+
+def uv_sphere(n_sub: int, center=(0.0, 0.0, 0.0)):
+    """A closed UV sphere of radius 1: n_sub rings of 2·n_sub vertices and
+    two poles, 4·n_sub² faces."""
+    thetas = np.linspace(0.25, np.pi - 0.25, n_sub)
+    phis = np.linspace(0, 2 * np.pi, n_sub * 2, endpoint=False)
+    m = len(phis)
+    v = np.stack([np.outer(np.sin(thetas), np.cos(phis)).ravel(),
+                  np.outer(np.sin(thetas), np.sin(phis)).ravel(),
+                  np.repeat(np.cos(thetas), m)], -1)
+    f = [[i * m + j, i * m + (j + 1) % m, (i + 1) * m + j] for i in range(n_sub - 1)
+         for j in range(m)]
+    f += [[i * m + (j + 1) % m, (i + 1) * m + (j + 1) % m, (i + 1) * m + j]
+          for i in range(n_sub - 1) for j in range(m)]
+    top, bot, last = len(v), len(v) + 1, (n_sub - 1) * m
+    f += [[top, (j + 1) % m, j] for j in range(m)]
+    f += [[bot, last + j, last + (j + 1) % m] for j in range(m)]
+    v = np.concatenate([v, [[0, 0, 1], [0, 0, -1]]]) + np.asarray(center)
+    return v.astype(np.float32), np.asarray(f, np.int32)
+
+
+def mesh_phases(dev, kernels):
+    """Phases 36-40: the mesh-processing slice (no kernel of its own: its
+    only kernels are the union passes that the normals of
+    ``ReconstructionModel`` and of ``analyze_data`` run at 65,536 points
+    and above). Each entry runs on the card, is checked against the
+    JAX package's pick and the port's CPU results
+    (``tools/mesh_references.py``) or a CPU run in this script, and is timed with
+    its peak, device busy time and host syncs. Returns (launches of the
+    counted runs, numbers for the log)."""
+    import tempfile
+
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch.ops import neighbors
+    from threecrate_tpu_torch.reconstruction import pipeline
+    from threecrate_tpu_torch.utils.profiling import device_profile
+    mls = importlib.import_module("threecrate_tpu_torch.reconstruction.moving_least_squares")
+    bpa = importlib.import_module("threecrate_tpu_torch.reconstruction.ball_pivoting")
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line()}
+    cpu = torch.device("cpu")
+    algo = pipeline.Algorithm
+
+    def timed(fn):
+        """(fn(), ms on the host clock around it and a synchronise)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def once(fn):
+        """A warm host-bound call measured once a way: ms, peak GiB, device
+        busy ms (``device_profile`` with no warm-up) and host syncs."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(fn)[1]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = device_profile(fn, warmup=0)[1]
+        return {"ms": ms, "peak_gib": peak, "busy_ms": busy,
+                "host_syncs": host_syncs(fn, warmup=False)}
+
+    def fmt(m):
+        return (f"{m['ms']:.1f} ms, peak {m['peak_gib']:.3f} GiB, device busy "
+                f"{m['busy_ms']:.1f} ms (idle share {1 - m['busy_ms'] / m['ms']:.3f}), "
+                f"{m['host_syncs']} host syncs ({report['card']})")
+
+    t_phase = time.perf_counter()
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        return f"{t:.1f} s"
+
+    def no_kernel(fn):
+        out, counts = run_counted(kernels, total, fn)
+        check(not any(counts.values()), "an entry of the mesh slice launched a kernel")
+        return out
+
+    # -- phase 36 -----------------------------------------------------------
+    log(f"phase 36: ReconstructionModel(k=10) on {MESH_N:,} points of BASELINE #5's bumpy "
+        f"sphere at sigma {MESH_SIGMA} (seed {MESH_SEED})")
+    ref = PORT_CPU_MESH["phase36"]
+    pts = bumpy_sphere(MESH_N, MESH_SIGMA)
+    cloud = tt.PointCloud.from_numpy(pts, device=dev)
+    # the unsimplified mesh's faces set the target, as r3_probe halves them
+    # (this call also warms every stage up)
+    target = max(int(tt.ReconstructionModel(k=10)(cloud).face_count()) // 2, 100)
+    model = tt.ReconstructionModel(k=10, target_faces=target)
+    mesh, counts = run_counted(kernels, total, lambda: model(cloud))
+    n_model = int(mesh.face_count())
+    stage = {}
+    filt, stage["sor"] = timed(lambda: tt.statistical_outlier_removal(cloud, k=10))
+    clean, stage["compact"] = timed(lambda: filt.cloud.compact())
+    withn, stage["normals"] = timed(lambda: tt.estimate_normals(clean, k=10))
+    ch, stage["analysis"] = timed(lambda: pipeline.analyze_data(withn))
+    pick = pipeline.select_algorithm(ch, pipeline.PipelineConfig())
+    cfg = tt.MlsConfig(search_radius=max(ch.mean_spacing * 4, 1e-3))
+    smoothed, stage["mls"] = timed(lambda: tt.mls_smooth(withn, cfg))
+    grid, stage["signed_field"] = timed(lambda: mls._signed_field(smoothed, 48))
+    stage["marching_cubes"] = timed(lambda: tt.marching_cubes(grid, 0.0))[1]
+    res, stage["auto_reconstruct"] = timed(lambda: pipeline.auto_reconstruct_detailed(withn))
+    faces = int(res.mesh.face_count())
+    stage["simplification"] = timed(lambda: tt.simplify_mesh(res.mesh, target))[1]
+    near = neighbors.knn(cloud.points, cloud.mask, mesh.vertices[mesh.vertex_mask], None,
+                         1).distances[:, 0].cpu().numpy() / ch.mean_spacing
+    near_share = float((near <= NEAR_SPACINGS).mean())
+    m36 = once(lambda: model(cloud))
+    k8 = device_profile(lambda: pipeline.analyze_data(withn), top=1000, warmup=0)
+    union_k8 = {e[0][:90]: (e[1], e[2]) for e in k8[2] if "union" in e[0].lower()}
+    log(f"  JAX's pick on the CPU {JAX_PICKS['phase36']}; the port's CPU run "
+        f"{ref['algorithm']} with {ref['faces']} faces ({ref['points']} points kept), "
+        f"{ref['simplified_faces']} after simplification")
+    log(f"  card: {int(clean.size())} points kept; analysis {json.dumps(ch._asdict())}; pick "
+        f"{pick.value}; auto_reconstruct_detailed: {res.algorithm.value}, fallbacks "
+        f"{[a.value for a in res.fallbacks_used]}, {faces} faces; target {target}")
+    log(f"  stages (ms, one warm call each, after the counted model call): "
+        f"{json.dumps(stage)}")
+    log(f"  ReconstructionModel(k=10, target_faces={target}): {n_model} faces, launches "
+        f"{ {k: n for k, n in counts.items() if n} }; vertices within {NEAR_SPACINGS} mean "
+        f"spacings of the input: {near_share:.4f} (CPU run {ref['near_share']:.4f}), distance "
+        f"quantiles 50/90/99/100% {np.quantile(near, [0.5, 0.9, 0.99, 1]).round(3).tolist()} "
+        f"spacings; {fmt(m36)}")
+    log(f"  union kernels in one analyze_data call (k = 8; ms, count): {json.dumps(union_k8)}; "
+        f"phase {phase_seconds()}")
+    check(pick.value == res.algorithm.value == ref["algorithm"] == JAX_PICKS["phase36"],
+          "phase 36 picked another algorithm than the CPU runs")
+    check(res.fallbacks_used == [] and ref["fallbacks"] == [], "phase 36 fell back")
+    check(abs(faces - ref["faces"]) <= 0.01 * ref["faces"], "phase 36's mesh differs from the CPU's")
+    check(n_model <= target and abs(n_model - ref["simplified_faces"])
+          <= 0.01 * ref["simplified_faces"], "phase 36's simplified mesh differs from the CPU's")
+    check(abs(near_share - ref["near_share"]) <= NEAR_SHARE_TOL,
+          "phase 36's mesh lies elsewhere than the CPU run's")
+    check(only(counts, {"union_window_a": 2, "union_window_b": 2}),
+          "ReconstructionModel did not run the union kernels at k = 10 and k = 8 once each")
+    report["ReconstructionModel 100k"] = {**m36, "faces": n_model, "target": target,
+                                          "unsimplified_faces": faces, "algorithm": pick.value,
+                                          "near_share": near_share,
+                                          "stages_ms": stage, "union_k8": union_k8,
+                                          "launches": {k: n for k, n in counts.items() if n}}
+
+    log(f"phase 36b: ReconstructionModel's stages up to select_algorithm at sigma "
+        f"{BASELINE5_SIGMA} (BASELINE #5's own noise)")
+    for n in BASELINE5_SIZES:
+        c = tt.PointCloud.from_numpy(bumpy_sphere(n, BASELINE5_SIGMA), device=dev)
+        t = {}
+        f, t["sor"] = timed(lambda: tt.statistical_outlier_removal(c, k=10))
+        cl, t["compact"] = timed(lambda: f.cloud.compact())
+        w, t["normals"] = timed(lambda: tt.estimate_normals(cl, k=10))
+        chb, t["analysis"] = timed(lambda: pipeline.analyze_data(w))
+        p = pipeline.select_algorithm(chb, pipeline.PipelineConfig())
+        log(f"  {n:,} points: pick {p.value} (JAX: {JAX_PICKS[n]}); analysis "
+            f"{json.dumps(chb._asdict())}; stages ms {json.dumps(t)}")
+        check(p.value == JAX_PICKS[n], f"phase 36b picked {p.value} at {n} points")
+        report[f"pick sigma {BASELINE5_SIGMA} {n}"] = {"algorithm": p.value, "stages_ms": t}
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 37 -----------------------------------------------------------
+    log("phase 37: BASELINE #5 as benchmarks/r3_probe.py runs it: normals (k = 10), "
+        "poisson_reconstruct(PoissonConfig(depth=6)), simplify_mesh to half the faces")
+    poisson_mesh = None
+    for n in BASELINE5_SIZES:
+        jref = JAX_POISSON[n]
+        pc = tt.estimate_normals(tt.PointCloud.from_numpy(bumpy_sphere(n, BASELINE5_SIGMA),
+                                                          device=dev), 10)
+        cfg6 = tt.PoissonConfig(depth=6)
+        pm = no_kernel(lambda: tt.poisson_reconstruct(pc, cfg6))
+        pf = int(pm.face_count())
+        tgt = max(pf // 2, 100)
+        simp, simp_ms = timed(lambda: tt.simplify_mesh(pm, tgt))
+        sf = int(simp.face_count())
+        err = bumpy_radius_error(simp.to_numpy()[0])
+        med, p99 = float(np.median(err)), float(np.percentile(err, 99))
+        m37 = measure(lambda: tt.poisson_reconstruct(pc, cfg6))
+        log(f"  {n:,} points: {pf} faces (JAX {jref['faces']}), simplified to {sf} of "
+            f"{tgt} in {simp_ms:.0f} ms on the host (JAX {jref['simplified_faces']}); radius "
+            f"error median {med:.5f}, p99 {p99:.5f} (gates {jref['median']}, {jref['p99']}); "
+            f"poisson_reconstruct {fmt(m37)}")
+        check(sf <= tgt and med <= jref["median"] and p99 <= jref["p99"],
+              f"phase 37's pipeline at {n} points is off the bumpy sphere or over its target")
+        report[f"poisson+QEM {n}"] = {**m37, "faces": pf, "simplified_faces": sf,
+                                      "simplify_ms": simp_ms, "radius_median": med,
+                                      "radius_p99": p99}
+        if poisson_mesh is None:
+            poisson_mesh = pm
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 38 -----------------------------------------------------------
+    radius = float(np.float32(cfg.search_radius))
+    log(f"phase 38: MLS on phase 36's {int(withn.size()):,} clean points, search radius "
+        f"{radius:.5f} (4 mean spacings)")
+    pts_d, mask_d = withn.points, withn.mask
+    t = {}
+    search, t["radius_search"] = timed(lambda: neighbors.radius_neighbors(
+        pts_d, mask_d, pts_d, mask_d, radius, cfg.max_neighbors))
+    reg = float(np.float32(cfg.regularization))
+
+    def fit():
+        return mls._mls_project_rows(pts_d[search.indices], search.mask, search.distances,
+                                     pts_d, mask_d, radius, cfg.kernel, cfg.basis.value, reg)
+
+    _, t["fits_and_solves"] = timed(fit)
+    fit_profile = device_profile(fit, top=1000, warmup=0)
+    solve_ms = sum(e[1] for e in fit_profile[2]
+                   if any(s in e[0].lower() for s in ("potrf", "potrs", "cholesky", "trsm")))
+    log("  the fit's largest device entries (ms, count): " + json.dumps(
+        [(e[0][:60], round(e[1], 3), e[2]) for e in fit_profile[2][:6]]))
+    sm = no_kernel(lambda: tt.mls_smooth(withn, cfg))
+    _, t["signed_field"] = timed(lambda: mls._signed_field(sm, 48))
+    rec = no_kernel(lambda: tt.mls_reconstruct(withn, cfg, grid_resolution=48))
+    m38 = once(lambda: tt.mls_reconstruct(withn, cfg, grid_resolution=48))
+    n_valid = int(withn.size())
+    sel = torch.arange(0, n_valid, MLS_CPU_EVERY)
+    t0 = time.perf_counter()
+    pc_, mc_ = pts_d.cpu(), mask_d.cpu()
+    res_c = neighbors.radius_neighbors(pc_, mc_, pc_[sel], mc_[sel], radius, cfg.max_neighbors)
+    proj_c, nrm_c, valid_c = mls._mls_project_rows(pc_[res_c.indices], res_c.mask,
+                                                   res_c.distances, pc_[sel], mc_[sel], radius,
+                                                   cfg.kernel, cfg.basis.value, reg)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    seld = sel.to(dev)
+
+    def agreement(proj, nrm):
+        """Per point (|Δp| / radius, |cos| of the normals) against the CPU fit."""
+        return ((proj.cpu() - proj_c).abs().amax(1) / radius,
+                (nrm.cpu() * nrm_c).sum(1).abs())
+
+    # the search: neighbour sets, and d² slot by slot where the ids agree
+    card_ids = torch.where(search.mask, search.indices, -1)[seld].cpu()
+    cpu_ids = torch.where(res_c.mask, res_c.indices, -1)
+    rows_same = (torch.sort(card_ids, 1).values == torch.sort(cpu_ids, 1).values).all(1)
+    slot_same = (card_ids == cpu_ids) & res_c.mask
+    d2_err = (search.distances[seld].cpu() ** 2 - res_c.distances ** 2)[slot_same].abs().max()
+    other_sets = 1 - rows_same.float().mean().item()
+    # the fit alone: the card's fit of the CPU's own neighbourhoods
+    fit_g = mls._mls_project_rows(pts_d[res_c.indices.to(dev)], res_c.mask.to(dev),
+                                  res_c.distances.to(dev), pts_d[seld], mask_d[seld], radius,
+                                  cfg.kernel, cfg.basis.value, reg)
+    dp_fit, cos_fit = agreement(fit_g[0], fit_g[1])
+    fit_share = ((dp_fit <= MLS_POS_TOL) & (cos_fit >= MLS_COS_TOL)).float().mean().item()
+    # end to end: the card's own search and fit
+    dp, cos = agreement(sm.points[seld], sm.normals[seld])
+    valid_g = sm.normals[seld].cpu().abs().sum(1) > 0
+    shares = {f"{tol:g}": ((dp <= tol) & (cos >= MLS_COS_TOL)).float().mean().item()
+              for tol in (1e-5, 1e-4, 1e-3, 1e-2)}
+    log(f"  stages ms {json.dumps(t)}; the Cholesky kernels {solve_ms:.2f} ms of the fit's "
+        f"device time; mls_reconstruct(grid 48): {int(rec.face_count())} faces (phase 36: "
+        f"{faces}); {fmt(m38)}")
+    log(f"  against the CPU run on every {MLS_CPU_EVERY}th point ({len(sel)} points, "
+        f"{cpu_ms:.0f} ms): the search found another neighbour set on {other_sets:.5f} of them "
+        f"(need <= {MLS_OTHER_SETS}), d² within {d2_err:.3e} where the ids agree (tol "
+        f"{MLS_D2_TOL}); the card's fit of the CPU's neighbourhoods within {MLS_POS_TOL} of "
+        f"the radius with |cos| >= {MLS_COS_TOL} on {fit_share:.5f} (need >= {MLS_SHARE}); end "
+        f"to end, shares within each tolerance of the radius {json.dumps(shares)} (need all "
+        f"within {MLS_END_TOL}), largest {dp.max().item():.3e}; valid equal "
+        f"{torch.equal(valid_g, valid_c)}; phase {phase_seconds()}")
+    check(other_sets <= MLS_OTHER_SETS and d2_err <= MLS_D2_TOL and fit_share >= MLS_SHARE
+          and dp.max().item() <= MLS_END_TOL and torch.equal(valid_g, valid_c),
+          "MLS on the card disagrees with the CPU run")
+    check(int(rec.face_count()) == faces, "mls_reconstruct differs from phase 36's MLS mesh")
+    report["mls 85k"] = {**m38, "stages_ms": t, "cholesky_ms": solve_ms, "other_sets": other_sets,
+                         "d2_err": d2_err.item(), "fit_share": fit_share, "shares": shares,
+                         "max_dp": dp.max().item(), "cpu_ms": cpu_ms}
+    del search, sm, rec, smoothed, grid
+
+    # -- phase 39 -----------------------------------------------------------
+    log("phase 39: alpha shape, ball pivoting and Delaunay through "
+        "auto_reconstruct_detailed(PipelineConfig(preferred=...))")
+    inputs = {"alpha_shape": fibonacci_sphere(ALPHA_N), "ball_pivoting": fibonacci_sphere(BPA_N),
+              "delaunay": terrain(DELAUNAY_N)}
+    for name, p in inputs.items():
+        c = tt.estimate_normals(tt.PointCloud.from_numpy(p, device=dev), k=10)
+        config = pipeline.PipelineConfig(preferred=algo(name))
+        r, ms = timed(lambda: no_kernel(lambda: pipeline.auto_reconstruct_detailed(c, config)))
+        nf, cref = int(r.mesh.face_count()), PORT_CPU_MESH[name]
+        extra = ""
+        if name == "ball_pivoting":
+            # its only device work is the candidate search: equal lists give
+            # the CPU's mesh. On the Fibonacci lattice many neighbours tie,
+            # so two lists may order (or cut at the 16th) tied ids apart;
+            # slot by slot their d² must agree within BPA_D2_TOL
+            ids, ok, d = bpa._candidates(c, bpa.BallPivotingConfig().k_candidates)
+            ids_c, ok_c, d_c = bpa._candidates(tt.PointCloud(c.points.cpu(), c.mask.cpu()),
+                                               bpa.BallPivotingConfig().k_candidates)
+            rows_same = float(((ids == ids_c) | ~ok).all(1)[:len(p)].mean())
+            d2_err = float(np.abs(d[ok] ** 2 - d_c[ok] ** 2).max())
+            extra = (f"; candidate lists equal to the CPU's on {rows_same:.4f} of the points, "
+                     f"d² within {d2_err:.2e} slot by slot (tol {BPA_D2_TOL})")
+            check(np.array_equal(ok, ok_c) and d2_err <= BPA_D2_TOL,
+                  "BPA's candidates on the card differ from the CPU's")
+        busy = device_profile(lambda: pipeline.auto_reconstruct_detailed(c, config),
+                              warmup=0)[1] if name != "ball_pivoting" else None
+        log(f"  {name}, {len(p):,} points: {r.algorithm.value}, fallbacks "
+            f"{[a.value for a in r.fallbacks_used]}, {nf} faces (CPU run {cref['faces']}) in "
+            f"{ms:.0f} ms" + (f", device busy {busy:.1f} ms" if busy is not None else "")
+            + extra)
+        check(r.algorithm.value == name and r.fallbacks_used == []
+              and abs(nf - cref["faces"]) <= 0.01 * cref["faces"],
+              f"phase 39's {name} differs from the CPU run")
+        report[f"{name} {len(p)}"] = {"ms": ms, "busy_ms": busy, "faces": nf}
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 40 -----------------------------------------------------------
+    log("phase 40: mesh smoothing on phase 34's welded mesh, clustering and edge collapse on "
+        "phase 37's Poisson mesh, booleans, a ProgressiveMesh round trip")
+    depth, intr = (torch.from_numpy(x).to(dev) for x in (wavy_depth(), DEPTH_INTR))
+    vol = tt.tsdf_integrate(tt.create_tsdf_volume((TSDF_RES,) * 3, TSDF_VOXEL,
+                                                  origin=TSDF_ORIGIN, device=dev),
+                            depth, intr, torch.eye(4, device=dev))
+    welded = tt.marching_cubes(tt.VolumetricGrid(vol.tsdf, vol.origin, vol.voxel_size), 0.0)
+    del vol
+    welded_cpu = tt.TriangleMesh(*(x.cpu() for x in (welded.vertices, welded.faces,
+                                                     welded.vertex_mask, welded.face_mask)))
+    vm = welded.vertex_mask
+    nv, nf = int(vm.sum()), int(welded.face_count())
+    for name in ("smooth_laplacian", "smooth_taubin", "smooth_hc"):
+        fn = getattr(tt, name)
+        a = no_kernel(lambda: fn(welded)).vertices[vm]
+        b = fn(welded).vertices[vm]
+        t0 = time.perf_counter()
+        c = fn(welded_cpu).vertices[vm.cpu()]
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        spread = (a - b).abs().max().item()
+        diff = (a.cpu() - c).abs().max().item()
+        m = measure(lambda: fn(welded))
+        log(f"  {name} on {nv} vertices, {nf} faces: two calls differ by {spread:.2e} m, the "
+            f"CPU run ({cpu_ms:.0f} ms) by {diff:.2e} m (tol {SMOOTH_TOL}); {fmt(m)}")
+        check(spread <= SMOOTH_TOL and diff <= SMOOTH_TOL,
+              f"{name} on the card disagrees with itself or the CPU")
+        report[name] = {**m, "spread": spread, "cpu_diff": diff, "cpu_ms": cpu_ms}
+    pf = int(poisson_mesh.face_count())
+    cl, cl_ms = timed(lambda: no_kernel(lambda: tt.simplification.cluster_simplify(
+        poisson_mesh)))
+    ec, ec_ms = timed(lambda: no_kernel(lambda: tt.EdgeCollapseSimplifier().simplify(
+        poisson_mesh, pf // 2)))
+    log(f"  cluster_simplify of the {pf}-face Poisson mesh: {int(cl.face_count())} faces in "
+        f"{cl_ms:.0f} ms; EdgeCollapseSimplifier to {pf // 2}: {int(ec.face_count())} faces in "
+        f"{ec_ms:.0f} ms (host)")
+    check(0 < int(cl.face_count()) < pf and 0 < int(ec.face_count()) <= pf // 2 + 8
+          and cl.device.type == ec.device.type == dev.type, "phase 40's simplifiers failed")
+    report["cluster_simplify"] = {"ms": cl_ms, "faces": int(cl.face_count())}
+    report["edge_collapse"] = {"ms": ec_ms, "faces": int(ec.face_count())}
+    sa = tt.TriangleMesh.from_numpy(*uv_sphere(BOOLEAN_RINGS), device=dev)
+    sb = tt.TriangleMesh.from_numpy(*uv_sphere(BOOLEAN_RINGS, (0.6, 0.1, 0.05)), device=dev)
+    for name in ("mesh_union", "mesh_intersection", "mesh_difference"):
+        out, ms = timed(lambda: no_kernel(lambda: getattr(tt, name)(sa, sb)))
+        log(f"  {name} of two {int(sa.face_count())}-face spheres: {int(out.face_count())} "
+            f"faces in {ms:.0f} ms (host)")
+        check(int(out.face_count()) > 0 and out.device.type == dev.type, f"{name} failed")
+        report[name] = {"ms": ms, "faces": int(out.face_count())}
+    src = tt.TriangleMesh.from_numpy(*uv_sphere(16), device=dev)
+    (prog, ms) = timed(lambda: tt.ProgressiveMesh.from_mesh(src, 200))
+    BUILD = Path(__file__).resolve().parent / "build"
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        prog.save(Path(tmp) / "pm.npz")
+        back = tt.ProgressiveMesh.load(Path(tmp) / "pm.npz")
+    full = back.full_mesh(device=dev)
+    round_trip = all(np.array_equal(a, b) for a, b in zip(full.to_numpy(), src.to_numpy()))
+    lods = [int(m.face_count()) for m in back.lod_levels(4, device=dev)]
+    log(f"  ProgressiveMesh of a {int(src.face_count())}-face sphere to 200 faces in {ms:.0f} "
+        f"ms, {len(prog.splits)} splits; saved and loaded: full mesh equal to the input "
+        f"{round_trip}, LOD faces {lods}; phase {phase_seconds()}")
+    check(round_trip and lods[0] <= 200 and lods[-1] == int(src.face_count())
+          and full.device.type == dev.type, "the ProgressiveMesh round trip failed")
+    report["progressive"] = {"ms": ms, "lods": lods}
     return total, report
 
 

@@ -106,7 +106,7 @@ def test_union_kernels_match_plain(cuda):
 
 @pytest.mark.parametrize("lattice", [False, True])
 @pytest.mark.parametrize("tile", [64, 256, 1024])
-@pytest.mark.parametrize("k", [3, 10, 16, 17, 20, 33, 40, 64])
+@pytest.mark.parametrize("k", [3, 8, 10, 16, 17, 20, 33, 40, 64])
 def test_union_kernel_edges(cuda, tile, k, lattice):
     """Both passes at each register-list size (12/16/32/64) and block
     shape: duplicate points, 10% invalid columns, the first tile (no
@@ -1301,3 +1301,70 @@ def test_triangle_mesh_round_trip_on_card(cuda):
                                cpu.compute_vertex_normals().normals, atol=1e-5, rtol=0)
     torch.testing.assert_close(mesh.face_areas().cpu(), cpu.face_areas(), atol=1e-6, rtol=0)
     assert int(mesh.face_count()) == 500 and not bool(mesh.is_empty())
+
+
+def _bumpy_sphere(n, sigma, seed):
+    rng = np.random.default_rng(seed)
+    u, v = rng.uniform(0, 2 * np.pi, n), np.arccos(rng.uniform(-1, 1, n))
+    sphere = np.stack([np.sin(v) * np.cos(u), np.sin(v) * np.sin(u), np.cos(v)], -1)
+    return (sphere * (1 + 0.05 * np.sin(3 * u)[:, None])
+            + rng.normal(0, sigma, (n, 3))).astype(np.float32)
+
+
+def test_mls_on_card_matches_cpu(cuda):
+    pts = _bumpy_sphere(20_000, 0.006, 11)
+    cfg = tt.MlsConfig(search_radius=0.08)
+    out = [tt.mls_smooth(tt.PointCloud.from_numpy(pts, device=d), cfg) for d in (cuda, "cpu")]
+    assert out[0].points.device.type == "cuda"
+    gp, cp = out[0].to_numpy(), out[1].to_numpy()
+    gn, cn = out[0].attr_to_numpy("normals"), out[1].attr_to_numpy("normals")
+    ok = (np.abs(gp - cp).max(1) <= 1e-5 * cfg.search_radius) & (np.abs((gn * cn).sum(1))
+                                                                  >= 0.9999)
+    assert ok.mean() >= 0.999, ok.mean()
+    np.testing.assert_array_equal(np.linalg.norm(gn, axis=1) > 0, np.linalg.norm(cn, axis=1) > 0)
+    mesh = tt.mls_reconstruct(tt.PointCloud.from_numpy(pts, device=cuda), cfg, 32)
+    assert mesh.vertices.device.type == "cuda" and int(mesh.face_count()) > 1000
+
+
+def test_mesh_smoothing_spread_on_card(cuda):
+    grid = tt.VolumetricGrid.from_function(lambda p: (p * p).sum(-1).sqrt() - 0.8, (48,) * 3,
+                                           (-1.0, -1.0, -1.0), 2.0 / 47, device="cpu")
+    v, f = tt.marching_cubes(grid, 0.0).to_numpy()
+    v = v + np.random.default_rng(3).normal(0, 0.01, v.shape).astype(np.float32)
+    for name in ("smooth_laplacian", "smooth_taubin", "smooth_hc"):
+        fn = getattr(tt, name)
+        on_card = [fn(tt.TriangleMesh.from_numpy(v, f, device=cuda)).to_numpy()[0]
+                   for _ in range(2)]
+        cpu = fn(tt.TriangleMesh.from_numpy(v, f, device="cpu")).to_numpy()[0]
+        assert np.abs(on_card[0] - on_card[1]).max() <= 1e-5, name
+        assert np.abs(on_card[0] - cpu).max() <= 1e-5, name
+
+
+def test_auto_reconstruct_reraises_a_kernel_failure(cuda, monkeypatch):
+    """The analysis runs the union kernels; then the library is made to
+    fail, and the Poisson branch's normals (the union kernels again, the
+    cloud has 65,536+ points and no normals) must raise ``DeviceError``
+    out of the fallback chain instead of trying the next algorithm."""
+    from threecrate_tpu_torch.core.errors import DeviceError
+    from threecrate_tpu_torch.kernels import _build
+    from threecrate_tpu_torch.reconstruction import pipeline
+
+    cloud = tt.PointCloud.from_numpy(_bumpy_sphere(70_000, 0.003, 11), device=cuda)
+    ch = pipeline.analyze_data(cloud)
+    calls = []
+    real_execute = pipeline._execute
+
+    def counted(c, algo, characteristics):
+        calls.append(algo)
+        return real_execute(c, algo, characteristics)
+
+    def broken():
+        raise DeviceError("forced kernel failure")
+
+    monkeypatch.setattr(pipeline, "analyze_data", lambda c, samples=2000: ch)
+    monkeypatch.setattr(pipeline, "_execute", counted)
+    monkeypatch.setattr(_build, "lib", broken)
+    with pytest.raises(DeviceError, match="forced kernel failure"):
+        pipeline.auto_reconstruct_detailed(
+            cloud, pipeline.PipelineConfig(preferred=pipeline.Algorithm.POISSON))
+    assert calls == [pipeline.Algorithm.POISSON]

@@ -27,7 +27,7 @@ JAX package's layout and public names.
 
 __version__ = "0.1.0"
 
-from . import core, interop, kernels, models, ops, reconstruction, utils
+from . import core, interop, kernels, models, ops, reconstruction, simplification, utils
 from .core import (
     AlgorithmError,
     CameraIntrinsics,
@@ -43,7 +43,9 @@ from .core import (
     UnsupportedFormatError,
     VisualizationError,
 )
-from .models import OdometryModel, PerceptionResult, PerceptionStep, RegistrationModel
+from .core.typed_clouds import ColoredNormalPointCloud, ColoredPointCloud, NormalPointCloud
+from .models import (OdometryModel, PerceptionResult, PerceptionStep, ReconstructionModel,
+                     RegistrationModel)
 from .ops.features import (FPFH_DIM, SHOT_DIM, USC_DIM, FpfhConfig, FpfhResult, ShotConfig,
                            ShotResult, extract_fpfh_features,
                            extract_fpfh_features_with_normals, extract_shot_features,
@@ -70,8 +72,19 @@ from .ops.normals import (NormalEstimationConfig, estimate_normals,
 from .ops.registration import (ICPConfig, ICPResult, MultiscaleConfig, icp,
                                 icp_point_to_plane, icp_point_to_point,
                                 multiscale_icp_point_to_point)
-from .reconstruction import (PoissonConfig, VolumetricGrid, marching_cubes,
-                             poisson_reconstruct, reconstruct_marching_cubes)
+from .ops.mesh_boolean import (BooleanOp, mesh_boolean, mesh_difference,
+                               mesh_intersection, mesh_union)
+from .ops.mesh_smoothing import (HcConfig, LaplacianConfig, TaubinConfig, smooth_hc,
+                                 smooth_laplacian, smooth_taubin)
+from .reconstruction import (AlphaShapeConfig, BallPivotingConfig, DelaunayConfig,
+                             MlsConfig, PipelineConfig, PoissonConfig, VolumetricGrid,
+                             alpha_shape_reconstruction, analyze_data, auto_reconstruct,
+                             auto_reconstruct_detailed, ball_pivoting_reconstruction,
+                             delaunay_reconstruction, estimate_optimal_alpha,
+                             fill_boundary_holes, marching_cubes, mls_reconstruct,
+                             mls_smooth, poisson_reconstruct, reconstruct_marching_cubes)
+from .simplification import (ClusteringSimplifier, EdgeCollapseSimplifier, ProgressiveMesh,
+                             QuadricErrorSimplifier, simplify_mesh)
 from .ops.tsdf import TsdfVolume
 from .ops.tsdf import create_volume as create_tsdf_volume
 from .ops.tsdf import extract_surface as tsdf_extract_surface
@@ -91,7 +104,8 @@ from .ops.tsdf_sparse import sparse_marching_cubes_soup as sparse_tsdf_marching_
 from .ops.tsdf_sparse import sparse_to_dense as sparse_tsdf_to_dense
 
 __all__ = [
-    "core", "interop", "kernels", "models", "ops", "reconstruction", "utils",
+    "core", "interop", "kernels", "models", "ops", "reconstruction", "simplification",
+    "utils",
     "PointCloud", "Transform", "PerceptionStep", "PerceptionResult",
     "RegistrationModel", "OdometryModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
     "extract_fpfh_features_with_normals", "match_descriptors", "ShotConfig",
@@ -120,5 +134,15 @@ __all__ = [
     "TriangleMesh", "VolumetricGrid", "marching_cubes", "reconstruct_marching_cubes",
     "PoissonConfig", "poisson_reconstruct", "FPFH_DIM", "global_registration_with_normals",
     "KnnResult", "knn", "knn_window", "nearest_one", "radius_neighbors",
+    "ReconstructionModel", "NormalPointCloud", "ColoredPointCloud",
+    "ColoredNormalPointCloud", "BooleanOp", "mesh_boolean", "mesh_difference",
+    "mesh_intersection", "mesh_union", "HcConfig", "LaplacianConfig", "TaubinConfig",
+    "smooth_hc", "smooth_laplacian", "smooth_taubin", "BallPivotingConfig",
+    "ball_pivoting_reconstruction", "fill_boundary_holes", "AlphaShapeConfig",
+    "alpha_shape_reconstruction", "estimate_optimal_alpha", "DelaunayConfig",
+    "delaunay_reconstruction", "MlsConfig", "mls_reconstruct", "mls_smooth",
+    "PipelineConfig", "auto_reconstruct", "auto_reconstruct_detailed", "analyze_data",
+    "ClusteringSimplifier", "EdgeCollapseSimplifier", "ProgressiveMesh",
+    "QuadricErrorSimplifier", "simplify_mesh",
     "__version__",
 ]

@@ -1,5 +1,7 @@
 """Pipeline models."""
 
-from .perception import OdometryModel, PerceptionResult, PerceptionStep, RegistrationModel
+from .perception import (OdometryModel, PerceptionResult, PerceptionStep,
+                         ReconstructionModel, RegistrationModel)
 
-__all__ = ["OdometryModel", "PerceptionResult", "PerceptionStep", "RegistrationModel"]
+__all__ = ["OdometryModel", "PerceptionResult", "PerceptionStep", "RegistrationModel",
+           "ReconstructionModel"]

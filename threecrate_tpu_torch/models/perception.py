@@ -1,6 +1,7 @@
 """PerceptionStep (normals + ICP scan-pair alignment), OdometryModel
-(KISS-ICP scan-to-map odometry) and RegistrationModel (global FPFH +
-RANSAC initialisation, then ICP).
+(KISS-ICP scan-to-map odometry), RegistrationModel (global FPFH +
+RANSAC initialisation, then ICP) and ReconstructionModel (outlier
+filter, normals, auto reconstruction, simplification).
 
 Counterpart of ``threecrate_tpu.models.perception.PerceptionStep``:
 the target's normals (the two-window union at 65,536 points and above,
@@ -13,7 +14,7 @@ subsample phase).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -114,3 +115,31 @@ class RegistrationModel:
         return registration.icp_point_to_point(
             source, target, max_iterations=self.max_iterations,
             init=init.as_transform())
+
+
+class ReconstructionModel:
+    """Points → mesh: outlier filter → normals → surface reconstruction
+    (data-driven algorithm choice + fallback chain) → simplification;
+    counterpart of the JAX ``ReconstructionModel`` (reference:
+    pipeline.rs:814-846 auto_reconstruct).
+
+    The filter, compaction, normals and the analysis run on the cloud's
+    device, as does the picked algorithm's device work; simplification
+    runs on the host."""
+
+    def __init__(self, k: int = 10, target_faces: Optional[int] = None):
+        self.k = int(k)
+        self.target_faces = target_faces
+
+    def __call__(self, cloud: PointCloud):
+        from ..ops import filtering
+        from ..reconstruction import pipeline as recon
+        from .. import simplification
+
+        filt = filtering.statistical_outlier_removal(cloud, k=self.k)
+        clean = filt.cloud.compact()
+        withn = normals_mod.estimate_normals(clean, k=self.k)
+        mesh = recon.auto_reconstruct(withn)
+        if self.target_faces is not None:
+            mesh = simplification.simplify_mesh(mesh, self.target_faces)
+        return mesh

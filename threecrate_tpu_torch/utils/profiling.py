@@ -49,17 +49,18 @@ def _union_us(intervals) -> float:
     return total
 
 
-def device_profile(fn: Callable, top: int = 10) -> Tuple[float, float, List]:
+def device_profile(fn: Callable, top: int = 10, warmup: int = 1) -> Tuple[float, float, List]:
     """One call of ``fn`` under ``torch.profiler`` (CUDA activity only:
     host events are not read, and tracing them made a call of thousands
-    of launches several times slower to profile) after one warm-up: (wall
+    of launches several times slower to profile) after ``warmup`` calls: (wall
     ms on the host clock around the call and a synchronise, device busy
     ms, ``top`` device entries as (name, summed ms, count) by summed
     time). Busy time is the union of the call's kernel, copy and memset
     intervals; 1 − busy / wall is the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
