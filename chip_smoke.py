@@ -220,9 +220,38 @@ device busy time and host syncs, against the references of
     37's Poisson mesh, the three booleans of two 256-face spheres, and a
     ``ProgressiveMesh`` saved, loaded and refined back to its input.
 
+The file-to-segments slice (phases 41-43, no kernel of its own; the host
+parse needs the native library, which the script asserts is loaded):
+41. phase 5's pair, each cloud with a seeded intensity column, written
+    to ``.bin``, binary and ASCII PLY, binary and ``binary_compressed``
+    PCD and ``.xyz`` and read back onto the card: binary formats
+    bit-equal to the arrays written, ASCII ones bit-equal to NumPy's
+    parse of the same text; the host parse timed as bench.py's read
+    lines time it (``read_ply_raw``, ``read_kitti_bin_raw``: 2 warm-ups,
+    median of 5) and each whole read to the card; ``PerceptionStep()``
+    on the pair read from ``.bin``: phase 5's pose and kernel 1-3
+    launches; phase 34's mesh through PLY (bit-equal), OBJ (the text's
+    6 digits) and STL (against a plain weld of the same file);
+42. a street of ~1M points (the ground of the 1M scan and 40 car-sized
+    boxes) written to binary PCD, read back, then ``voxel_grid_filter``
+    at 0.1 m, ``segment_plane`` (0.15 m, 1,000 hypotheses),
+    ``extract_plane(negative=True)`` and ``extract_euclidean_clusters``
+    (0.3 m, at least 100 voxels): a level plane, 40 clusters each drawn
+    from one box and holding that box's voxels above the band; the
+    plane against the port's CPU run, the radius search on 4,096
+    sampled voxels against the CPU's, and the CPU's propagation and
+    ranking of the card's neighbour lists against the card's labels;
+    each stage timed with busy time, peak and the propagation's
+    iterations and host syncs;
+43. ``knn_grid(k=10)`` on the 1M scan with ``estimate_cell_size``:
+    recall of the exact 10 nearest on 4,096 sampled queries at least
+    the JAX package's on the CPU; validity and ids (where the distances
+    are apart) equal to the port's CPU run on those queries, distances
+    within an ulp (the card's sqrt of the same d²).
+
 The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21, 23-35 and 36; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21, 23-36 and 41; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 and k = 8 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -452,6 +481,38 @@ ALPHA_N, BPA_N, DELAUNAY_N = 20_000, 2_000, 2_000
 BPA_D2_TOL = 1e-6
 SMOOTH_TOL = 1e-5
 BOOLEAN_RINGS = 8
+# The file-to-segments slice (phases 41-43). Phase 41: the host parse is
+# timed as bench.py's read lines time it; PerceptionStep on the pair read
+# from .bin must give phase 5's pose within POSE_FILE_TOL, or within the
+# spread of two in-memory calls where the card's reductions make that
+# larger
+READ_WARMUP, READ_ITERS = 2, 5
+POSE_FILE_TOL = 1e-6
+IO_SEED = 41
+# Phase 42's street: the ground of scan_labels(1M, 0) (~700k points, 5 cm
+# thick) and STREET_BOXES boxes of STREET_BOX m standing on it, each with
+# STREET_BOX_SAMPLES samples on its four sides and top, on a grid at
+# 10-40 m from the origin with >= 3 m between boxes; the pipeline's
+# settings; a cluster must draw STREET_PURITY of its voxels from one box
+# and hold STREET_PURITY of that box's voxels above the plane's band
+STREET_BOXES, STREET_BOX, STREET_BOX_SAMPLES = 40, (4.5, 2.0, 1.5), 7_500
+STREET_VOXEL, STREET_PLANE_TOL, STREET_RANSAC = 0.1, 0.15, 1000
+STREET_TOLERANCE, STREET_MIN_CLUSTER, STREET_PURITY = 0.3, 100, 0.99
+# the plane against the port's CPU run: normal and d (m), and the inlier
+# count where fp32 boundary points differ
+STREET_NORMAL_TOL, STREET_D_TOL, STREET_COUNT_TOL = 1e-5, 1e-4, 1e-3
+# voxels whose radius search is held against the CPU's; there the
+# expanded d² = |q|² + |p|² - 2q·p rounds at a few ulp of |q|² + |p|²
+# (~1e-3 m² at 40 m), so the neighbour sets may differ only for points
+# within STREET_D2_ULPS such ulp of the radius or of the last kept slot
+STREET_SAMPLE, STREET_D2_ULPS = 4096, 8
+# Phase 43: knn_grid's recall of the exact 10 nearest on GRID_SAMPLE
+# queries drawn with GRID_SEED. The exact reference takes d² as
+# (dx² + dy²) + dz², each step rounded to fp32 (the expanded form of
+# knn loses digits at 100 m); the JAX package's recall on the same
+# queries and reference on the CPU (python3 tools/io_references.py)
+GRID_K, GRID_SAMPLE, GRID_SEED = 10, 4096, 43
+JAX_GRID_RECALL = 0.609448254108429
 GICP_K = 20              # GicpConfig's k_correspondences: the union passes at k = 20
 ANALYSIS_K = 8           # reconstruction.pipeline.analyze_data's normals: the union passes at k = 8
 REG_ANGLE = 0.35
@@ -548,6 +609,109 @@ def recall_precision(got: np.ndarray, labels: np.ndarray):
     """(share of labelled ground found, share of found points that are
     labelled ground)."""
     return float(got[labels].mean()), float(labels[got].mean()) if got.any() else 0.0
+
+
+def grid_sample() -> np.ndarray:
+    """Phase 43's GRID_SAMPLE query rows of the 1M scan, sorted."""
+    return np.sort(np.random.default_rng(GRID_SEED).choice(N_SCAN, GRID_SAMPLE, replace=False))
+
+
+def exact_nearest(db: torch.Tensor, q: torch.Tensor, k: int, chunk: int = 32) -> torch.Tensor:
+    """(Q, k) ids of the k nearest ``db`` rows of each query, by d² =
+    (dx² + dy²) + dz² with each step rounded to fp32 (the same bits on
+    the card and the CPU), ``chunk`` queries against all of ``db`` at a
+    time."""
+    out = []
+    for c0 in range(0, q.shape[0], chunk):
+        diff = q[c0:c0 + chunk, None, :] - db[None]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+            + diff[..., 2] * diff[..., 2]
+        out.append(torch.topk(d2, k, dim=1, largest=False).indices)
+    return torch.cat(out)
+
+
+def grid_recall(ids: torch.Tensor, valid: torch.Tensor, exact: torch.Tensor) -> float:
+    """Share of the exact neighbours that the valid slots of ``ids`` hold."""
+    hits = ((ids[:, :, None] == exact[:, None, :]) & valid[:, :, None]).any(1)
+    return float(hits.float().mean())
+
+
+def street_scene():
+    """Phase 42's street: (points (n, 3) float32, source (n,) int32: -1 for
+    the ground of ``scan_labels(1M, 0)``, b for a sample of box b). The
+    boxes stand on z = 0, axis-aligned, their centres drawn from a grid
+    (pitch: the box plus 3.5 m in x, 4 m in y) at 10-40 m from the
+    origin; each face gets samples in proportion to its area."""
+    pts, labels = scan_labels(N_SCAN, 0)
+    ground = pts[labels]
+    rng = np.random.default_rng(42)
+    lx, ly, lz = STREET_BOX
+    cand = np.array([(x, y) for x in np.arange(-40.0, 40.01, lx + 3.5)
+                     for y in np.arange(-40.0, 40.01, ly + 4.0) if 10 <= np.hypot(x, y) <= 40])
+    centres = cand[rng.choice(len(cand), STREET_BOXES, replace=False)]
+    # faces of a box with its min corner at 0: (origin, e1, e2)
+    faces = np.array([[(0, 0, 0), (0, ly, 0), (0, 0, lz)], [(lx, 0, 0), (0, ly, 0), (0, 0, lz)],
+                      [(0, 0, 0), (lx, 0, 0), (0, 0, lz)], [(0, ly, 0), (lx, 0, 0), (0, 0, lz)],
+                      [(0, 0, lz), (lx, 0, 0), (0, ly, 0)]])
+    area = np.array([ly * lz, ly * lz, lx * lz, lx * lz, lx * ly])
+    n = STREET_BOXES * STREET_BOX_SAMPLES
+    box = np.repeat(np.arange(STREET_BOXES), STREET_BOX_SAMPLES)
+    face = rng.choice(5, n, p=area / area.sum())
+    uv = rng.uniform(0, 1, (n, 2))
+    corner = np.c_[centres - (lx / 2, ly / 2), np.zeros(STREET_BOXES)][box]
+    f = faces[face]
+    samples = corner + f[:, 0] + uv[:, :1] * f[:, 1] + uv[:, 1:] * f[:, 2]
+    points = np.concatenate([ground, samples]).astype(np.float32)
+    source = np.concatenate([np.full(len(ground), -1), box]).astype(np.int32)
+    return points, source
+
+
+def welded_mesh(tt, dev):
+    """Phase 34's mesh: bench.py's wavy frame fused at 256^3, then
+    ``marching_cubes`` at iso 0 (the device weld)."""
+    depth, intr = (torch.from_numpy(x).to(dev) for x in (wavy_depth(), DEPTH_INTR))
+    vol = tt.tsdf_integrate(tt.create_tsdf_volume((TSDF_RES,) * 3, TSDF_VOXEL,
+                                                  origin=TSDF_ORIGIN, device=dev),
+                            depth, intr, torch.eye(4, device=dev))
+    return tt.marching_cubes(tt.VolumetricGrid(vol.tsdf, vol.origin, vol.voxel_size), 0.0)
+
+
+def plain_stl_weld(path):
+    """A plain reading of a binary STL: each corner's coordinates rounded
+    to 6 decimals as a key, the first corner of each key kept, in a dict.
+    Returns the (T, 3, 3) corners of the welded triangles."""
+    data = Path(path).read_bytes()
+    n_tri = int(np.frombuffer(data, "<u4", 1, 80)[0])
+    rec = np.frombuffer(data, np.dtype([("n", "<f4", (3,)), ("v", "<f4", (3, 3)),
+                                        ("a", "<u2")]), n_tri, 84)
+    flat = np.ascontiguousarray(rec["v"]).reshape(-1, 3)
+    first = {}
+    rep = np.empty(len(flat), np.int64)
+    for i, key in enumerate(map(tuple, np.round(flat, 6).tolist())):
+        rep[i] = first.setdefault(key, i)
+    return flat[rep].reshape(-1, 3, 3), len(first)
+
+
+def search_agreement(card, cpu, q: np.ndarray, db: np.ndarray, radius: float):
+    """Phase 42's radius search on the sampled voxels against the CPU's:
+    (share of queries with equal neighbour sets, largest |d²| difference
+    on shared ids, count of differing ids that lie outside the rounding
+    band: farther than STREET_D2_ULPS ulp of |q|² + |p|² from the radius²
+    and from the d² of the query's last kept slot)."""
+    same, worst, unexplained = 0, 0.0, 0
+    for i in range(len(q)):
+        a = dict(zip(card[0][i][card[2][i]].tolist(), card[1][i][card[2][i]].tolist()))
+        b = dict(zip(cpu[0][i][cpu[2][i]].tolist(), cpu[1][i][cpu[2][i]].tolist()))
+        same += a.keys() == b.keys()
+        for j in a.keys() & b.keys():
+            worst = max(worst, abs(a[j] ** 2 - b[j] ** 2))
+        last = max(max(a.values(), default=0.0), max(b.values(), default=0.0)) ** 2
+        for j in a.keys() ^ b.keys():
+            d2 = float(((q[i].astype(np.float64) - db[j]) ** 2).sum())
+            band = STREET_D2_ULPS * float(np.spacing(np.float32(
+                (q[i].astype(np.float64) ** 2).sum() + (db[j].astype(np.float64) ** 2).sum())))
+            unexplained += abs(d2 - radius ** 2) > band and abs(d2 - last) > band
+    return same / len(q), worst, unexplained
 
 
 def sorted_scan(dev):
@@ -1526,6 +1690,7 @@ def main() -> int:
           "FPFH, banded SPFH or window kNN kernels launched")
     check(1 <= launches["icp_match"] <= step.max_iterations,
           "icp_match not launched once per iteration")
+    phase5 = (t.copy(), dict(launches))
 
     log("phase 6: PerceptionStep() step time on the 1M scan pair")
     torch.cuda.reset_peak_memory_stats()
@@ -1560,8 +1725,9 @@ def main() -> int:
     depth_launches, depth_report = depth_camera_phases(dev, kernels)
     surf_launches, surf_report = surface_phases(dev, kernels)
     mesh_launches, mesh_report = mesh_phases(dev, kernels)
+    io_launches, io_report = io_phases(dev, kernels, *phase5)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
-                 depth_launches, surf_launches, mesh_launches):
+                 depth_launches, surf_launches, mesh_launches, io_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1657,6 +1823,7 @@ def main() -> int:
     log(f"depth-camera slice: {json.dumps(depth_report)}")
     log(f"surface slice: {json.dumps(surf_report)}")
     log(f"mesh-processing slice: {json.dumps(mesh_report)}")
+    log(f"file-to-segments slice: {json.dumps(io_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3230,12 +3397,7 @@ def mesh_phases(dev, kernels):
     # -- phase 40 -----------------------------------------------------------
     log("phase 40: mesh smoothing on phase 34's welded mesh, clustering and edge collapse on "
         "phase 37's Poisson mesh, booleans, a ProgressiveMesh round trip")
-    depth, intr = (torch.from_numpy(x).to(dev) for x in (wavy_depth(), DEPTH_INTR))
-    vol = tt.tsdf_integrate(tt.create_tsdf_volume((TSDF_RES,) * 3, TSDF_VOXEL,
-                                                  origin=TSDF_ORIGIN, device=dev),
-                            depth, intr, torch.eye(4, device=dev))
-    welded = tt.marching_cubes(tt.VolumetricGrid(vol.tsdf, vol.origin, vol.voxel_size), 0.0)
-    del vol
+    welded = welded_mesh(tt, dev)
     welded_cpu = tt.TriangleMesh(*(x.cpu() for x in (welded.vertices, welded.faces,
                                                      welded.vertex_mask, welded.face_mask)))
     vm = welded.vertex_mask
@@ -3291,6 +3453,341 @@ def mesh_phases(dev, kernels):
     check(round_trip and lods[0] <= 200 and lods[-1] == int(src.face_count())
           and full.device.type == dev.type, "the ProgressiveMesh round trip failed")
     report["progressive"] = {"ms": ms, "lods": lods}
+    return total, report
+
+
+def io_phases(dev, kernels, phase5_pose, phase5_launches):
+    """Phases 41-43: the file-to-segments slice (no kernel of its own; the
+    pair read from ``.bin`` runs kernels 1-3 through ``PerceptionStep``).
+    The files go to a temporary directory under ``build/``. Each entry
+    runs on the card and is checked against the arrays written, a plain
+    reading of the file, the port's CPU run or the JAX package's CPU
+    result (``tools/io_references.py``). Returns (launches of the
+    counted runs, numbers for the log)."""
+    import tempfile
+
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch import native
+    from threecrate_tpu_torch.io import lidar, ply
+    from threecrate_tpu_torch.models import PerceptionStep
+    from threecrate_tpu_torch.ops import neighbors, segmentation
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line()}
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def read_median(fn):
+        """ms of ``fn()``, median of READ_ITERS after READ_WARMUP calls (CUDA
+        events), as bench.py times its read lines."""
+        return 1e3 * median_time(fn, warmup=READ_WARMUP, iters=READ_ITERS)
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        return f"{t:.1f} s"
+
+    def no_kernel(fn):
+        out, counts = run_counted(kernels, total, fn)
+        check(not any(counts.values()), "an entry of the file-to-segments slice launched a kernel")
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def fmt(m):
+        return (f"{m['ms']:.2f} ms median of 3, peak {m['peak_gib']:.3f} GiB, device busy "
+                f"{m['busy_ms']:.2f} ms (idle share {1 - m['busy_ms'] / m['ms']:.3f}), "
+                f"{m['host_syncs']} host syncs ({report['card']})")
+
+    check(native.available(), "the native I/O library did not build or load")
+    log(f"  native I/O library {native.library_path().name} loaded")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp_dir:
+        tmp = Path(tmp_dir)
+
+        # -- phase 41 -------------------------------------------------------
+        log("phase 41: phase 5's pair with a seeded intensity column through .bin, PLY (binary "
+            "and ASCII), PCD (binary and binary_compressed) and .xyz, read onto the card")
+        src = scan(N_SCAN, 0)
+        rng = np.random.default_rng(IO_SEED)
+        written = {name: (pts, rng.uniform(0, 255, N_SCAN).astype(np.float32))
+                   for name, pts in (("source", src), ("target", src + SHIFT))}
+        formats = {"bin": ("bin", {}), "ply": ("ply", {}), "ply_ascii": ("ply", {"binary": False}),
+                   "pcd": ("pcd", {}), "pcd_compressed": ("pcd", {"compressed": True}),
+                   "xyz": ("xyz", {})}
+        files, write_ms = {}, {}
+        for name, (pts, inten) in written.items():
+            host = tt.PointCloud.from_numpy(pts, intensity=inten, device=cpu)
+            for key, (ext, kw) in formats.items():
+                files[name, key] = tmp / f"{name}_{key}.{ext}"
+                write_ms[f"{name} {key}"] = timed(
+                    lambda: tt.write_point_cloud(files[name, key], host, **kw))[1]
+        read_report, bin_pair = {}, {}
+        for (name, key), path in files.items():
+            native.reset_counts()
+            cloud, ms = timed(lambda: no_kernel(lambda: tt.read_point_cloud(path)))
+            parser = dict(native.counts)
+            got = cloud.to_numpy(), cloud.attr_to_numpy("intensity")
+            pts, inten = written[name]
+            if key in ("ply_ascii", "xyz"):
+                # NumPy's parse of the same text, the native parser's plain version
+                text = path.read_bytes()
+                if key == "ply_ascii":
+                    text = text[text.index(b"end_header\n") + len(b"end_header\n"):]
+                table = np.array(text.split(), np.float64).reshape(-1, 4).astype(np.float32)
+                want = table[:, :3], table[:, 3]
+                check(parser.get("native") == 1 and not parser.get("numpy"),
+                      f"{name} {key} did not run the native parser: {parser}")
+            else:
+                want = pts, inten
+            equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+            rel = float(np.abs(got[0] - pts).max() / np.abs(pts).max())
+            log(f"  {name} {key}: {path.stat().st_size / 2**20:.1f} MiB written in "
+                f"{write_ms[f'{name} {key}']:.0f} ms, read onto {cloud.device} in {ms:.1f} ms; "
+                f"points and intensity bit-equal to the {'text' if key in ('ply_ascii', 'xyz') else 'arrays'} "
+                f"written {equal}; largest |read - written| {rel:.2e} of max|p|; parser calls {parser}")
+            check(cloud.device.type == "cuda" and equal, f"{name} {key} read back wrong")
+            read_report[f"{name} {key}"] = {"read_ms": ms, "write_ms": write_ms[f"{name} {key}"],
+                                            "bytes": path.stat().st_size, "max_rel_err": rel}
+            if key == "bin":
+                bin_pair[name] = cloud
+            del cloud
+
+        native.reset_counts()
+        path = {k: files["source", k] for k in formats}
+        parse = {"read_ply_raw binary": read_median(lambda: ply.read_ply_raw(path["ply"])),
+                 "read_ply_raw ascii": read_median(lambda: ply.read_ply_raw(path["ply_ascii"])),
+                 "read_kitti_bin_raw": read_median(lambda: lidar.read_kitti_bin_raw(path["bin"]))}
+        check(native.counts["native"] == READ_WARMUP + READ_ITERS and not native.counts["numpy"],
+              f"the timed ASCII parse did not run the native parser: {dict(native.counts)}")
+        table = lidar.read_kitti_bin_raw(path["bin"])
+        upload = read_median(lambda: tt.PointCloud.from_numpy(table[:, :3], intensity=table[:, 3],
+                                                              device=dev))
+        whole = {k: read_median(lambda: tt.read_point_cloud(p)) for k, p in path.items()}
+        log(f"  host parse of the 1M source (ms, median of {READ_ITERS} after {READ_WARMUP}; the "
+            f"ASCII parse ran the native parser {native.counts['native']} times, NumPy "
+            f"{native.counts['numpy']}): {json.dumps(parse)}; upload of the parsed table "
+            f"{upload:.2f} ms; whole read_point_cloud onto the card: {json.dumps(whole)} "
+            f"({report['card']})")
+        report["read"] = {"files": read_report, "parse_ms": parse, "upload_ms": upload,
+                          "read_point_cloud_ms": whole}
+
+        step = PerceptionStep()
+        s_c, t_c = bin_pair["source"], bin_pair["target"]
+        res, counts = run_counted(kernels, total, lambda: step(
+            s_c.points[:N_SCAN], s_c.mask[:N_SCAN], t_c.points[:N_SCAN], t_c.mask[:N_SCAN]))
+        pose = res.transform.cpu().numpy()
+        mask = np.ones(N_SCAN, bool)
+        mem = [step(src, mask, src + SHIFT, mask).transform.cpu().numpy() for _ in range(2)]
+        spread = max(float(np.abs(a - b).max()) for a, b in
+                     ((mem[0], mem[1]), (mem[0], phase5_pose), (mem[1], phase5_pose)))
+        diff = float(np.abs(pose - phase5_pose).max())
+        kernel_1_3 = ("union_window_a", "union_window_b", "icp_match")
+        log(f"  PerceptionStep() on the pair read from .bin: pose within {diff:.3e} of phase 5's "
+            f"(two in-memory calls and phase 5 spread {spread:.3e}; tol max({POSE_FILE_TOL}, "
+            f"spread)); launches {counts} (phase 5: "
+            f"{ {k: phase5_launches[k] for k in kernel_1_3} })")
+        check(diff <= max(POSE_FILE_TOL, spread), "the file-fed pose differs from phase 5's")
+        check(all(counts[k] == phase5_launches[k] for k in kernel_1_3)
+              and only(counts, {k: phase5_launches[k] for k in kernel_1_3}),
+              "the file-fed step launched other kernels than phase 5")
+        report["perception_from_bin"] = {"pose_diff": diff, "in_memory_spread": spread,
+                                         "launches": counts}
+        del bin_pair, s_c, t_c, res
+
+        mesh = welded_mesh(tt, dev)
+        v, f = mesh.to_numpy()
+        obj_v = np.array(" ".join(f"{x:.6g}" for x in v.ravel()).split(),
+                         np.float32).reshape(-1, 3)
+        mesh_report = {}
+        for ext in ("ply", "obj", "stl"):
+            mpath = tmp / f"mesh.{ext}"
+            tt.write_mesh(mpath, mesh)
+            back, ms = timed(lambda: no_kernel(lambda: tt.read_mesh(mpath)))
+            rv, rf = back.to_numpy()
+            if ext == "stl":
+                corners, n_unique = plain_stl_weld(mpath)
+                ok = len(rv) == n_unique and np.array_equal(rv[rf], corners)
+                what = (f"{len(rv)} welded vertices of {len(v)}, corners equal to a plain weld "
+                        f"of the file {ok}, within {np.abs(rv[rf] - v[f]).max():.1e} m of the "
+                        f"corners written")
+            else:
+                ok = np.array_equal(rf, f) and np.array_equal(rv, v if ext == "ply" else obj_v)
+                what = (f"faces and vertices equal to the {'arrays' if ext == 'ply' else 'text'}"
+                        f" written {ok}")
+            log(f"  phase 34's mesh ({len(v)} vertices, {len(f)} faces) through .{ext}: read onto "
+                f"{back.device} in {ms:.1f} ms; {what}")
+            check(ok and back.device.type == "cuda", f"the mesh read back from .{ext} is wrong")
+            mesh_report[ext] = {"read_ms": ms, "vertices": len(rv), "faces": len(rf)}
+        report["mesh_files"] = mesh_report
+        del mesh
+        log(f"  phase {phase_seconds()}")
+
+        # -- phase 42 -------------------------------------------------------
+        log(f"phase 42: a street of the 1M scan's ground and {STREET_BOXES} boxes of "
+            f"{STREET_BOX} m through binary PCD, then voxel_grid_filter({STREET_VOXEL}), "
+            f"segment_plane({STREET_PLANE_TOL}, {STREET_RANSAC}, seed=0), "
+            f"extract_plane(negative=True), extract_euclidean_clusters(tolerance="
+            f"{STREET_TOLERANCE}, min_cluster_size={STREET_MIN_CLUSTER})")
+        pts, source = street_scene()
+        spath = tmp / "street.pcd"
+        tt.write_point_cloud(spath, tt.PointCloud.from_numpy(pts, device=cpu))
+        cloud = no_kernel(lambda: tt.read_point_cloud(spath))
+        check(np.array_equal(cloud.to_numpy(), pts), "the street read back wrong")
+        det = no_kernel(lambda: tt.voxel_grid_filter_detailed(cloud, STREET_VOXEL))
+        vox = no_kernel(lambda: tt.voxel_grid_filter(cloud, STREET_VOXEL))
+        check(torch.equal(vox.points, det.cloud.points) and torch.equal(vox.mask, det.cloud.mask),
+              "voxel_grid_filter and its detailed form disagree")
+        n_vox = int(det.num_voxels)
+        down = det.cloud.compact()
+        plane = no_kernel(lambda: tt.segment_plane(down, STREET_PLANE_TOL, STREET_RANSAC, seed=0))
+        rest = no_kernel(lambda: tt.extract_plane(down, plane, negative=True).compact())
+        cfg = tt.EuclideanClusterConfig(tolerance=STREET_TOLERANCE,
+                                        min_cluster_size=STREET_MIN_CLUSTER)
+        segmentation.reset_counts()
+        clusters = no_kernel(lambda: tt.extract_euclidean_clusters(rest, cfg))
+        props = dict(segmentation.counts)
+
+        nrm = plane.model.normal.cpu().numpy().astype(np.float64)
+        d0 = float(plane.model.d)
+        down_np = down.to_numpy()
+        height = (down_np @ nrm + d0) * np.sign(nrm[2])
+        inl = plane.inlier_mask[:n_vox].cpu().numpy()
+        rest_idx = np.flatnonzero(~inl)
+        n_rest = len(rest_idx)
+        inv = det.voxel_index[:len(pts)].cpu().numpy().astype(np.int64)
+        votes = np.bincount(inv * (STREET_BOXES + 1) + source + 1,
+                            minlength=n_vox * (STREET_BOXES + 1)).reshape(n_vox, -1)
+        vox_box = votes.argmax(1) - 1
+        labels = clusters.labels[:n_rest].cpu().numpy()
+        n_cl = int(clusters.n_clusters)
+        purity, coverage, boxes = [], [], []
+        for c in range(n_cl):
+            members = rest_idx[labels == c]
+            owner = np.bincount(vox_box[members] + 1, minlength=STREET_BOXES + 1)[1:].argmax()
+            above = np.flatnonzero((vox_box == owner) & (height > STREET_PLANE_TOL))
+            purity.append(float((vox_box[members] == owner).mean()))
+            coverage.append(float(np.isin(above, members).mean()))
+            boxes.append(int(owner))
+        log(f"  {len(pts):,} points, {n_vox:,} voxels; plane normal {nrm.round(6).tolist()}, d "
+            f"{d0:.5f}, {int(plane.inlier_count):,} inliers; {n_rest:,} voxels off the plane; "
+            f"{n_cl} clusters (need {STREET_BOXES}) from {len(set(boxes))} boxes, purity min "
+            f"{min(purity, default=0):.4f}, coverage of the box above the band min "
+            f"{min(coverage, default=0):.4f} (need {STREET_PURITY}); label propagation "
+            f"{props.get('iterations', 0)} iterations, {props.get('syncs', 0)} host syncs")
+        check(abs(nrm[2]) >= 0.999, "the street's plane is not level")
+        check(n_cl == STREET_BOXES and len(set(boxes)) == STREET_BOXES
+              and min(purity) >= STREET_PURITY and min(coverage) >= STREET_PURITY,
+              "the clusters are not the boxes")
+
+        # the port's CPU run: the plane on the same voxels, the radius
+        # search on sampled voxels, and the propagation and ranking of the
+        # card's neighbour lists
+        down_cpu = tt.PointCloud(down.points.cpu(), down.mask.cpu(), {})
+        plane_cpu, plane_cpu_ms = timed(lambda: tt.segment_plane(
+            down_cpu, STREET_PLANE_TOL, STREET_RANSAC, seed=0))
+        n_diff = float(np.abs(plane_cpu.model.normal.numpy() - nrm).max())
+        d_diff = abs(float(plane_cpu.model.d) - d0)
+        c_card, c_cpu = int(plane.inlier_count), int(plane_cpu.inlier_count)
+        flips = int((plane_cpu.inlier_mask != plane.inlier_mask.cpu()).sum())
+        log(f"  the CPU run's plane ({plane_cpu_ms:.0f} ms): normal within {n_diff:.2e} (tol "
+            f"{STREET_NORMAL_TOL}), d within {d_diff:.2e} m (tol {STREET_D_TOL}), inliers "
+            f"{c_cpu:,} against {c_card:,} (tol {STREET_COUNT_TOL:.0e} relative), "
+            f"{flips} voxels on the other side")
+        check(n_diff <= STREET_NORMAL_TOL and d_diff <= STREET_D_TOL
+              and abs(c_cpu - c_card) <= STREET_COUNT_TOL * c_cpu,
+              "the plane differs from the CPU run's")
+        nbr = neighbors.radius_neighbors(rest.points, rest.mask, rest.points, rest.mask,
+                                         cfg.tolerance, cfg.max_neighbors)
+        rows = np.sort(np.random.default_rng(IO_SEED).choice(n_rest, STREET_SAMPLE,
+                                                             replace=False))
+        rp, rm = rest.points.cpu(), rest.mask.cpu()
+        cpu_nbr, search_ms = timed(lambda: neighbors.radius_neighbors(
+            rp, rm, rp[rows], rm[rows], cfg.tolerance, cfg.max_neighbors))
+        card_rows = [x[torch.from_numpy(rows).to(dev)].cpu().numpy() for x in nbr]
+        same, worst, unexplained = search_agreement(
+            card_rows, [x.numpy() for x in cpu_nbr], rp[rows].numpy(), rp.numpy(),
+            cfg.tolerance)
+        norm2 = float((rp[:n_rest].double() ** 2).sum(1).max())
+        d2_tol = STREET_D2_ULPS * float(np.spacing(np.float32(2 * norm2)))
+        host = neighbors.KnnResult(*(x.cpu() for x in nbr))
+        lab_cpu, n_cpu, sizes_cpu = segmentation._rank_clusters(
+            segmentation._propagate(host, rm), rm, cfg.min_cluster_size, cfg.max_cluster_size)
+        labels_equal = (torch.equal(lab_cpu, clusters.labels.cpu()) and int(n_cpu) == n_cl
+                        and torch.equal(sizes_cpu, clusters.sizes.cpu()))
+        log(f"  the CPU's radius search of {STREET_SAMPLE} sampled voxels ({search_ms:.0f} ms): "
+            f"equal neighbour sets on {same:.4f}, the others differ only within the rounding "
+            f"band of the radius or the last slot ({unexplained} ids outside it), d² of shared "
+            f"ids within {worst:.2e} (tol {d2_tol:.2e}); the CPU's propagation and ranking of "
+            f"the card's lists give the card's labels, count and sizes {labels_equal}")
+        check(unexplained == 0 and worst <= d2_tol,
+              "the radius search differs from the CPU's beyond its rounding")
+        check(labels_equal, "the clusters differ from the CPU's propagation of the same lists")
+        del nbr, host, cpu_nbr
+
+        stages = {"read_pcd": lambda: tt.read_point_cloud(spath),
+                  "voxel_grid_filter": lambda: tt.voxel_grid_filter(cloud, STREET_VOXEL),
+                  "segment_plane": lambda: tt.segment_plane(down, STREET_PLANE_TOL,
+                                                            STREET_RANSAC, seed=0),
+                  "extract_plane_compact": lambda: tt.extract_plane(down, plane,
+                                                                    negative=True).compact(),
+                  "extract_euclidean_clusters": lambda: tt.extract_euclidean_clusters(rest, cfg)}
+        timing = {}
+        for name, fn in stages.items():
+            timing[name] = measure(fn)
+            log(f"  {name}: {fmt(timing[name])}")
+        report["street"] = {"points": len(pts), "voxels": n_vox, "inliers": c_card,
+                            "off_plane": n_rest, "clusters": n_cl, "purity_min": min(purity),
+                            "coverage_min": min(coverage), "propagation": props,
+                            "cpu_plane_ms": plane_cpu_ms, "cpu_count": c_cpu, "flips": flips,
+                            "search_same_share": same, "stages": timing}
+        del cloud, det, vox, down, rest, clusters
+        log(f"  phase {phase_seconds()}")
+
+    # -- phase 43 -----------------------------------------------------------
+    log(f"phase 43: knn_grid(k={GRID_K}) on the 1M scan with estimate_cell_size")
+    pts = scan(N_SCAN, 0)
+    cloud = tt.PointCloud.from_numpy(pts, device=dev)
+    cell = neighbors.estimate_cell_size(cloud.points, cloud.mask, GRID_K)
+    res = no_kernel(lambda: tt.knn_grid(cloud.points, cloud.mask, cloud.points, cloud.mask,
+                                        GRID_K, cell))
+    sample = grid_sample()
+    s_dev = torch.from_numpy(sample).to(dev)
+    exact = exact_nearest(cloud.points[:N_SCAN], cloud.points[s_dev], GRID_K)
+    recall = grid_recall(res.indices[s_dev], res.mask[s_dev], exact)
+    cp, cm = cloud.points.cpu(), cloud.mask.cpu()
+    cpu_res, cpu_ms = timed(lambda: neighbors.knn_grid(cp, cm, cp[sample], cm[sample], GRID_K,
+                                                       cell))
+    ids, dist, valid = (x[s_dev].cpu() for x in res)
+    # d² is bit-equal on both (the same rounded steps); the card's sqrt may
+    # round the last bit differently, so distances are held to one ulp
+    ulp = torch.from_numpy(np.spacing(cpu_res.distances.numpy()))
+    d_equal = torch.equal(valid, cpu_res.mask) and bool(
+        ((dist - cpu_res.distances).abs() <= ulp)[valid].all())
+    dd = torch.where(valid, dist, torch.inf)
+    gap = torch.minimum(torch.diff(dd, dim=1, prepend=torch.full((len(sample), 1), -torch.inf)),
+                        torch.diff(dd, dim=1, append=torch.full((len(sample), 1), torch.inf)))
+    apart = valid & (gap > 0)
+    ids_equal = torch.equal(ids[apart], cpu_res.indices[apart])
+    m43 = measure(lambda: tt.knn_grid(cloud.points, cloud.mask, cloud.points, cloud.mask,
+                                      GRID_K, cell))
+    log(f"  cell {cell:.5f} m; recall of the exact {GRID_K} nearest on {GRID_SAMPLE} sampled "
+        f"queries {recall:.5f} (the JAX package on the CPU: {JAX_GRID_RECALL}); against the "
+        f"port's CPU run on those queries ({cpu_ms:.0f} ms): validity equal and distances "
+        f"within an ulp {d_equal}, ids equal where the distances are apart {ids_equal} "
+        f"({float(apart.float().mean()):.4f} of slots); {fmt(m43)}")
+    check(recall >= JAX_GRID_RECALL, "knn_grid's recall is below the JAX package's")
+    check(d_equal and ids_equal, "knn_grid on the card differs from the CPU run")
+    report["knn_grid"] = {"cell": cell, "recall": recall, "jax_recall": JAX_GRID_RECALL,
+                          "cpu_ms": cpu_ms, **m43}
+    log(f"  phase {phase_seconds()}")
     return total, report
 
 

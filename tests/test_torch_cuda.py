@@ -36,7 +36,14 @@ kernel): dense and sparse fusion with equal block keys and weights on
 raycasts of one volume with masks equal on >= 99.9% of pixels and depth
 within 1e-5 m where both hit; ``FrameToModelOdometry`` poses within
 1e-4; a depth image back-projected into an ``OrganizedPointCloud``
-within 1e-6.
+within 1e-6; the file-to-segments slice: every reader lands its cloud
+or mesh on the card with the bits of the file, the plane scorer on
+the card picks the CPU's hypothesis from the same triples (normal
+within 1e-6, every count within 2 of the CPU's: the point-plane
+product may round differently at the threshold), cluster labels and
+``knn_grid``'s validity and ids equal to the CPU's and its distances
+within an ulp (the same d², the card's sqrt), and the memory helpers
+read the card.
 """
 
 import numpy as np
@@ -1368,3 +1375,110 @@ def test_auto_reconstruct_reraises_a_kernel_failure(cuda, monkeypatch):
         pipeline.auto_reconstruct_detailed(
             cloud, pipeline.PipelineConfig(preferred=pipeline.Algorithm.POISSON))
     assert calls == [pipeline.Algorithm.POISSON]
+
+
+# ---------------------------------------------------------------------------
+# the file-to-segments slice
+# ---------------------------------------------------------------------------
+
+def _io_cloud(n=5000, seed=21):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    return pts, {"normals": nrm / np.linalg.norm(nrm, axis=1, keepdims=True),
+                 "intensity": rng.uniform(0, 255, n).astype(np.float32)}
+
+
+@pytest.mark.parametrize("ext,kw", [("ply", {}), ("ply", {"binary": False}), ("pcd", {}),
+                                    ("pcd", {"compressed": True}), ("bin", {}), ("xyz", {})])
+def test_readers_land_on_the_card_with_the_file_bits(cuda, tmp_path, ext, kw):
+    pts, attrs = _io_cloud()
+    path = tmp_path / f"c.{ext}"
+    tt.write_point_cloud(path, tt.PointCloud.from_numpy(pts, device="cpu", **attrs), **kw)
+    card = tt.read_point_cloud(path)
+    host = tt.read_point_cloud(path, device="cpu")
+    assert card.points.device.type == "cuda" and card.mask.device.type == "cuda"
+    assert sorted(card.attrs) == sorted(host.attrs)
+    np.testing.assert_array_equal(card.to_numpy(), host.to_numpy())
+    for k in host.attrs:
+        assert card.attrs[k].device.type == "cuda"
+        np.testing.assert_array_equal(card.attr_to_numpy(k), host.attr_to_numpy(k))
+    if ext != "xyz" and kw.get("binary", True):
+        np.testing.assert_array_equal(card.to_numpy(), pts)
+        np.testing.assert_array_equal(card.attr_to_numpy("intensity"), attrs["intensity"])
+
+
+@pytest.mark.parametrize("ext", ["ply", "obj", "stl"])
+def test_mesh_readers_land_on_the_card(cuda, tmp_path, ext):
+    rng = np.random.default_rng(22)
+    v = rng.normal(size=(400, 3)).astype(np.float32)
+    f = rng.integers(0, 400, (700, 3)).astype(np.int32)
+    path = tmp_path / f"m.{ext}"
+    tt.write_mesh(path, tt.TriangleMesh.from_numpy(v, f, device="cpu"))
+    card, host = tt.read_mesh(path), tt.read_mesh(path, device="cpu")
+    assert card.vertices.device.type == card.faces.device.type == "cuda"
+    for a, b in zip(card.to_numpy(), host.to_numpy()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_plane_scorer_on_card_matches_cpu(cuda):
+    from threecrate_tpu_torch.ops import segmentation as seg
+    rng = np.random.default_rng(23)
+    floor = np.c_[rng.uniform(-20, 20, (20000, 2)), 0.03 * rng.normal(size=20000)]
+    clutter = rng.uniform(-20, 20, (5000, 3)) + [0, 0, 5]
+    pts = np.concatenate([floor, clutter]).astype(np.float32)
+    host = tt.PointCloud.from_numpy(pts, device="cpu")
+    card = tt.PointCloud.from_numpy(pts, device=cuda)
+    idx = seg._sample_triples(host.mask, 512, 0)
+    c_out = seg._plane_ransac(card.points, card.mask, idx.to(cuda), 0.1)
+    h_out = seg._plane_ransac(host.points, host.mask, idx, 0.1)
+    torch.testing.assert_close(c_out[0].cpu(), h_out[0], atol=1e-6, rtol=0)
+    assert (c_out[3].cpu() - h_out[3]).abs().max() <= 2
+    a, b = tt.segment_plane(card, 0.1, 512), tt.segment_plane(host, 0.1, 512)
+    assert a.inlier_mask.device.type == "cuda"
+    torch.testing.assert_close(a.model.normal.cpu(), b.model.normal, atol=1e-5, rtol=0)
+    assert abs(int(a.inlier_count) - int(b.inlier_count)) <= 1e-3 * int(b.inlier_count)
+
+
+def test_clusters_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(24)
+    centres = rng.uniform(-1, 1, (15, 3)) * [1, 1, 0] + [0, 0, 0.5]
+    sizes = rng.integers(5, 400, 15)
+    pts = np.concatenate([c + rng.normal(0, 0.01, (s, 3)) for c, s in zip(centres, sizes)]
+                         + [rng.uniform(-1.2, 1.2, (200, 3))]).astype(np.float32)
+    cfg = tt.EuclideanClusterConfig(tolerance=0.03, min_cluster_size=10)
+    a = tt.extract_euclidean_clusters(tt.PointCloud.from_numpy(pts, device=cuda), cfg)
+    b = tt.extract_euclidean_clusters(tt.PointCloud.from_numpy(pts, device="cpu"), cfg)
+    assert a.labels.device.type == "cuda" and int(a.n_clusters) == int(b.n_clusters) > 3
+    assert torch.equal(a.labels.cpu(), b.labels) and torch.equal(a.sizes.cpu(), b.sizes)
+
+
+def test_knn_grid_on_card_matches_cpu(cuda):
+    pts = np.random.default_rng(25).uniform(-3, 3, (30000, 3)).astype(np.float32)
+    out = []
+    for d in (cuda, "cpu"):
+        c = tt.PointCloud.from_numpy(pts, device=d)
+        cell = tt.ops.neighbors.estimate_cell_size(c.points, c.mask, 10)
+        out.append(tt.knn_grid(c.points, c.mask, c.points, c.mask, 10, cell))
+    assert out[0].indices.device.type == "cuda"
+    assert torch.equal(out[0].mask.cpu(), out[1].mask)
+    # the same d² on both; the card's sqrt may round the last bit differently
+    ulp = torch.from_numpy(np.spacing(out[1].distances.numpy()))
+    assert bool(((out[0].distances.cpu() - out[1].distances).abs() <= ulp)[out[1].mask].all())
+    d = torch.where(out[1].mask, out[1].distances, torch.inf)
+    inf = torch.full((d.shape[0], 1), torch.inf)
+    apart = out[1].mask & (torch.minimum(torch.diff(d, dim=1, prepend=-inf),
+                                         torch.diff(d, dim=1, append=inf)) > 0)
+    assert torch.equal(out[0].indices.cpu()[apart], out[1].indices[apart])
+
+
+def test_profiling_memory_helpers_on_card(cuda):
+    from threecrate_tpu_torch.utils import profiling
+    stats = profiling.device_memory_stats()
+    assert stats["bytes_in_use"] >= 0 and "peak_bytes_in_use" in stats
+    out, peak = profiling.measure_peak_memory(lambda: torch.ones(2 ** 20, device=cuda) * 2)
+    assert peak >= 4 * 2 ** 20 and float(out[0]) == 2.0
+    mem = profiling.program_memory(lambda x: x.repeat(4), torch.ones(2 ** 20, device=cuda))
+    assert mem["peak_bytes"] >= 16 * 2 ** 20 and set(mem) == {"argument_bytes", "peak_bytes",
+                                                              "output_bytes"}
+    assert profiling.sync(torch.ones(5, device=cuda)) == 5.0

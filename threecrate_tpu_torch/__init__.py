@@ -19,7 +19,13 @@ fusion, TSDF raycasting and frame-to-model tracking with
 ``FrameToModelOdometry`` (no kernel of its own); then surface
 reconstruction: ``TriangleMesh``, marching cubes (dense, banded and
 over the sparse TSDF) with both welds, and screened Poisson on the CG
-and multigrid solvers (no kernel of its own); with the data model, Morton keys, small linear algebra and exact
+and multigrid solvers (no kernel of its own); then mesh processing
+(``ReconstructionModel``, MLS, alpha shapes, ball pivoting, Delaunay,
+the simplifiers, smoothing and booleans); then the file-to-segments
+slice: the I/O registry (PLY, PCD, OBJ, STL, XYZ/CSV and the LiDAR
+formats, parsed on the host with the C++ helpers of ``native``), plane
+RANSAC, Euclidean clustering, ``knn_grid`` and the point-cloud ops;
+with the data model, Morton keys, small linear algebra and exact
 neighbour search they need. Clouds built with ``PointCloud.from_numpy``
 live on the card unless the caller asks for the CPU. Modules mirror the
 JAX package's layout and public names.
@@ -27,7 +33,8 @@ JAX package's layout and public names.
 
 __version__ = "0.1.0"
 
-from . import core, interop, kernels, models, ops, reconstruction, simplification, utils
+from . import (core, interop, io, kernels, models, native, ops, reconstruction,
+               simplification, utils)
 from .core import (
     AlgorithmError,
     CameraIntrinsics,
@@ -64,7 +71,15 @@ from .ops.frame_to_model import track as track_frame_to_model
 from .ops.ground import (GroundSegmentationResult, PatchworkConfig,
                          patchwork_plus_plus, segment_ground)
 from .ops.kiss_icp import KissIcpConfig, KissIcpOdometry, kiss_icp
-from .ops.neighbors import KnnResult, knn, knn_window, nearest_one, radius_neighbors
+from .io import (MeshChunk, read_mesh, read_mesh_iter, read_point_cloud,
+                 read_point_cloud_iter, supported_extensions, write_mesh, write_point_cloud)
+from .ops.neighbors import (BruteForceSearch, KdTree, KnnResult, knn, knn_grid, knn_window,
+                            nearest_one, radius_neighbors)
+from .ops.point_cloud_ops import (concatenate, k_nearest_neighbors, nearest_neighbor,
+                                  neighbors_within)
+from .ops.segmentation import (ClusterResult, EuclideanClusterConfig, PlaneModel,
+                               PlaneSegmentationResult, extract_euclidean_clusters,
+                               extract_plane, segment_plane, segment_plane_parallel)
 from .ops.ndt import NdtConfig, NdtResult, ndt_registration
 from .ops.normals import (NormalEstimationConfig, estimate_normals,
                           estimate_normals_detailed,
@@ -104,8 +119,8 @@ from .ops.tsdf_sparse import sparse_marching_cubes_soup as sparse_tsdf_marching_
 from .ops.tsdf_sparse import sparse_to_dense as sparse_tsdf_to_dense
 
 __all__ = [
-    "core", "interop", "kernels", "models", "ops", "reconstruction", "simplification",
-    "utils",
+    "core", "interop", "io", "kernels", "models", "native", "ops", "reconstruction",
+    "simplification", "utils",
     "PointCloud", "Transform", "PerceptionStep", "PerceptionResult",
     "RegistrationModel", "OdometryModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
     "extract_fpfh_features_with_normals", "match_descriptors", "ShotConfig",
@@ -144,5 +159,11 @@ __all__ = [
     "PipelineConfig", "auto_reconstruct", "auto_reconstruct_detailed", "analyze_data",
     "ClusteringSimplifier", "EdgeCollapseSimplifier", "ProgressiveMesh",
     "QuadricErrorSimplifier", "simplify_mesh",
+    "read_point_cloud", "write_point_cloud", "read_mesh", "write_mesh",
+    "read_point_cloud_iter", "read_mesh_iter", "MeshChunk", "supported_extensions",
+    "BruteForceSearch", "KdTree", "knn_grid", "ClusterResult", "EuclideanClusterConfig",
+    "PlaneModel", "PlaneSegmentationResult", "extract_euclidean_clusters", "extract_plane",
+    "segment_plane", "segment_plane_parallel", "concatenate", "k_nearest_neighbors",
+    "nearest_neighbor", "neighbors_within",
     "__version__",
 ]

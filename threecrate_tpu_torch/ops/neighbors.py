@@ -19,16 +19,22 @@ a Z-order curve per pass, search each tile's prev/self/next tiles with
 the ``knn_window_tiles`` kernel and merge the passes (``_merge_topk``).
 They carry ``method="window"`` normals, statistical outlier removal
 above 262,144 points and the staged window FPFH.
+
+``knn_grid`` searches the (2·ring+1)³ cells of the sorted voxel hash
+(``ops.voxel_hash``) around each query; ``batch_distances_squared``
+forms a full distance matrix; ``BruteForceSearch`` (alias ``KdTree``)
+wraps the exact search around a cloud.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..utils import padding
-from . import morton
+from . import morton, voxel_hash
 from .linalg import fp32_matmul
 
 
@@ -58,6 +64,17 @@ def _cross(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     for r in range(1, q.shape[1]):
         acc = torch.addcmul(acc.to(torch.float64), qd[:, r:r + 1], pd[:, r]).to(torch.float32)
     return acc
+
+
+def batch_distances_squared(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-pairs squared distances ``(A, B)`` as ‖a‖² + ‖b‖² − 2 a·bᵀ in
+    fp32 (the product as ``_cross`` forms it), clamped at 0. It forms the
+    full matrix: for large sets use ``knn`` or ``knn_window``."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    an = (a * a).sum(-1)
+    bn = (b * b).sum(-1)
+    return torch.clamp_min(an[:, None] + bn[None, :] - 2.0 * _cross(a, b), 0.0)
 
 
 def _chunk_vs_db(q, q_rows, db_points, db_norms, db_mask, k, db_tile):
@@ -389,3 +406,100 @@ def knn_window_cross(db_points: torch.Tensor, db_mask: torch.Tensor,
     dist = torch.sqrt(torch.where(valid, d2, torch.inf))
     return KnnResult(best_idx.long().clamp(0, n_db - 1),
                      torch.where(valid, dist, torch.inf), valid)
+
+
+# ---------------------------------------------------------------------------
+# grid-pruned kNN
+# ---------------------------------------------------------------------------
+
+def estimate_cell_size(points: torch.Tensor, mask: torch.Tensor, k: int) -> float:
+    """Heuristic cell size for ``knn_grid``, aiming at about k points a
+    cell: the median face area of the valid points' bounding box over
+    the point count gives a surface spacing (scans lie near 2-D
+    manifolds), scaled by √max(k, 4). Computed on the host, as the JAX
+    package does, so both give the same float."""
+    pts = points.detach().cpu().numpy()
+    pts = pts[mask.detach().cpu().numpy()]
+    n = max(len(pts), 1)
+    mn, mx = pts.min(0), pts.max(0)
+    ext = np.maximum(mx - mn, 1e-6)
+    area = np.median([ext[0] * ext[1], ext[0] * ext[2], ext[1] * ext[2]])
+    spacing = float(np.sqrt(area / n))
+    return max(spacing * max(k, 4) ** 0.5, 1e-6)
+
+
+def knn_grid(db_points: torch.Tensor, db_mask: torch.Tensor,
+             queries: torch.Tensor, query_mask: Optional[torch.Tensor],
+             k: int, cell_size, *, cap_per_cell: int = 16, ring: int = 1,
+             exclude_self: bool = False, query_chunk: int = 32768) -> KnnResult:
+    """Voxel-grid-pruned kNN: the candidates of each query are the points
+    of the (2·ring+1)³ cells around it, at most ``cap_per_cell`` a cell
+    (a fuller cell is truncated in sorted order). Exact for neighbours
+    within ``ring · cell_size``; farther ones can be missed (the slot is
+    then masked). d² is dx² + dy² + dz², each product and sum rounded to
+    fp32, so the card and the CPU form the same d² (the card's sqrt may
+    round a distance's last bit differently); ``torch.topk`` keeps the k
+    smallest, and ties may be ordered differently from the JAX package's
+    ``lax.top_k`` (lower position first)."""
+    db_points = db_points.to(torch.float32)
+    queries = queries.to(torch.float32)
+    grid = voxel_hash.build_voxel_grid(db_points, db_mask, cell_size)
+    nq = queries.shape[0]
+    negs, idxs = [], []
+    for c0 in range(0, nq, query_chunk):
+        q = queries[c0:c0 + query_chunk]
+        cand_idx, cand_ok = grid.gather_neighbors(q, cap_per_cell, ring)
+        diff = q[:, None, :] - db_points[cand_idx]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+            + diff[..., 2] * diff[..., 2]
+        neg = torch.where(cand_ok, -d2, -torch.inf)
+        if exclude_self:
+            rows = torch.arange(c0, c0 + q.shape[0], device=q.device)
+            neg = torch.where(cand_idx == rows[:, None], -torch.inf, neg)
+        kk = min(k, neg.shape[1])
+        top_neg, pos = torch.topk(neg, kk, dim=1)
+        top_idx = torch.gather(cand_idx, 1, pos)
+        if kk < k:
+            top_neg = torch.nn.functional.pad(top_neg, (0, k - kk), value=-torch.inf)
+            top_idx = torch.nn.functional.pad(top_idx, (0, k - kk))
+        negs.append(top_neg)
+        idxs.append(top_idx)
+    d2 = -torch.cat(negs)
+    valid = torch.isfinite(d2)
+    if query_mask is not None:
+        valid = valid & query_mask[:, None]
+    idx = torch.cat(idxs).clamp(0, db_points.shape[0] - 1)
+    dist = torch.sqrt(torch.where(valid, d2, torch.inf))
+    return KnnResult(idx, dist, valid)
+
+
+# ---------------------------------------------------------------------------
+# object-style wrappers of the reference's search types
+# ---------------------------------------------------------------------------
+
+class BruteForceSearch:
+    """NearestNeighborSearch over a PointCloud (the reference's
+    traits.rs:541-547): the exact blockwise search of ``knn`` and
+    ``radius_neighbors``, queries moved to the cloud's device."""
+
+    def __init__(self, cloud):
+        self.cloud = cloud
+
+    def _queries(self, queries) -> torch.Tensor:
+        q = torch.as_tensor(queries, dtype=torch.float32).to(self.cloud.device)
+        return q.reshape(1, -1) if q.ndim == 1 else q
+
+    def find_k_nearest(self, queries, k: int, **kw) -> KnnResult:
+        return knn(self.cloud.points, self.cloud.mask, self._queries(queries), None, k,
+                   **kw)
+
+    def find_radius_neighbors(self, queries, radius: float,
+                              max_neighbors: int = 64, **kw) -> KnnResult:
+        return radius_neighbors(self.cloud.points, self.cloud.mask,
+                                self._queries(queries), None, radius, max_neighbors,
+                                **kw)
+
+
+# The reference's primary index type is `KdTree`; the name is kept as an
+# alias so ported user code works, over the same exact blockwise search.
+KdTree = BruteForceSearch

@@ -1,12 +1,17 @@
-"""Timing on the card with CUDA events, and a device profile of one
-call with ``torch.profiler``."""
+"""Timing on the card with CUDA events, a device profile of one call
+with ``torch.profiler``, and the JAX package's profiling helpers mapped
+onto torch: ``sync`` (a synchronise and a checksum), ``trace`` (a
+``torch.profiler.record_function`` range), ``Timer`` (host sections),
+``device_memory_stats``, ``measure_peak_memory`` and ``program_memory``
+(the CUDA caching allocator's counters)."""
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import statistics
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -76,3 +81,113 @@ def device_profile(fn: Callable, top: int = 10, warmup: int = 1) -> Tuple[float,
         by_name[name][1] += 1
     entries = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda t: -t[1])
     return wall_ms, _union_us([(s, e) for _, s, e in events]) / 1e3, entries[:top]
+
+
+def _tensors(out) -> List[torch.Tensor]:
+    """The tensors of a nested result (tuples, lists, dicts, named tuples
+    and dataclasses), in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    elif hasattr(out, "__dataclass_fields__"):
+        out = [getattr(out, f) for f in out.__dataclass_fields__]
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in _tensors(x)]
+    return []
+
+
+def sync(out) -> float:
+    """Wait for the card (``torch.cuda.synchronize()`` when ``out`` holds
+    a CUDA tensor) and return a checksum of the first tensor of ``out``:
+    the sum of its finite values as float32 (the count of True for a
+    bool tensor), 0.0 when ``out`` holds no tensor."""
+    leaves = _tensors(out)
+    if any(t.is_cuda for t in leaves):
+        torch.cuda.synchronize()
+    if not leaves:
+        return 0.0
+    leaf = leaves[0]
+    if leaf.dtype == torch.bool:
+        return float(leaf.sum())
+    x = leaf.to(torch.float32)
+    return float(torch.where(torch.isfinite(x), x, 0.0).sum())
+
+
+@contextlib.contextmanager
+def trace(name: str = "threecrate"):
+    """A named range for ``torch.profiler`` traces
+    (``torch.profiler.record_function``)."""
+    with torch.profiler.record_function(name):
+        yield name
+
+
+class Timer:
+    """Accumulating section timer for host-side pipeline phases."""
+
+    def __init__(self) -> None:
+        self.sections: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.sections[name] = self.sections.get(name, 0.0) \
+                + time.perf_counter() - t0
+
+    def report(self) -> str:
+        total = sum(self.sections.values())
+        lines = [f"{k}: {v * 1e3:.2f} ms ({v / max(total, 1e-12):.0%})"
+                 for k, v in sorted(self.sections.items(),
+                                    key=lambda kv: -kv[1])]
+        return "\n".join(lines)
+
+
+def device_memory_stats(device=None) -> Dict[str, int]:
+    """The CUDA caching allocator's counters (``torch.cuda.memory_stats``)
+    with the JAX package's two keys added, ``bytes_in_use`` and
+    ``peak_bytes_in_use`` (allocated bytes now and at peak); {} without a
+    card."""
+    if not torch.cuda.is_available():
+        return {}
+    stats = dict(torch.cuda.memory_stats(device))
+    stats["bytes_in_use"] = torch.cuda.memory_allocated(device)
+    stats["peak_bytes_in_use"] = torch.cuda.max_memory_allocated(device)
+    return stats
+
+
+def measure_peak_memory(fn, device=None):
+    """(result, peak allocated bytes above those allocated before the
+    call) of one call of ``fn``: the peak counter is reset first. 0
+    without a card."""
+    if not torch.cuda.is_available():
+        return fn(), 0
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    sync(out)
+    return out, max(torch.cuda.max_memory_allocated(device) - before, 0)
+
+
+def program_memory(fn, *args, **kwargs) -> Dict[str, int]:
+    """The peak of one call: eager PyTorch has no compiled program whose
+    buffers could be counted ahead, as XLA's memory analysis counts them
+    in the JAX package, so this runs ``fn(*args, **kwargs)`` once and
+    returns {"argument_bytes": bytes allocated before the call,
+    "peak_bytes": the peak during it above them, "output_bytes": bytes
+    still allocated after it above them}; {} without a card."""
+    if not torch.cuda.is_available():
+        return {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args, **kwargs)
+    sync(out)
+    result = {"argument_bytes": before,
+              "peak_bytes": max(torch.cuda.max_memory_allocated() - before, 0),
+              "output_bytes": max(torch.cuda.memory_allocated() - before, 0)}
+    del out
+    return result
