@@ -247,11 +247,41 @@ parse needs the native library, which the script asserts is loaded):
     recall of the exact 10 nearest on 4,096 sampled queries at least
     the JAX package's on the CPU; validity and ids (where the distances
     are apart) equal to the port's CPU run on those queries, distances
-    within an ulp (the card's sqrt of the same d²).
+    within an ulp (the card's sqrt of the same d²);
+44. a 10M-point aerial tile (1 km² at 10 points/m²: terrain, gabled
+    roofs, tree crowns; point format 3 with intensity, GPS time and RGB
+    at scale 1e-3) written as ``.las`` and chunked ``.laz`` and read onto
+    the card: every array bit-equal between the two and to a plain NumPy
+    int·scale + offset decode of the records; 1M of it through LAS 1.4
+    format 6; file sizes, write and read times, the LASzip decompress,
+    the host parse and the upload timed;
+45. the tile as binary PLY streamed by ``read_point_cloud_iter`` in
+    65,536-point chunks (153) through ``run_pipeline`` into
+    ``StreamingVoxelFilter(0.5)`` (its state on the card),
+    ``StreamingStatistics`` and ``StreamingDeviceMap`` over
+    ``estimate_normals(k=10)``: kernels 1-2 once a chunk; voxel rows in
+    the CPU run's order within an fp32 ulp (differences counted),
+    statistics within 1e-12, the first, middle and last chunks' normals
+    at |cos| >= 0.9999 against the CPU run; busy and idle time under the
+    profiler, host syncs a chunk; then 10 Ouster OS1-128 frames in
+    2,048-point packets through ``RealtimeVoxelFilter(0.5)`` by blocking
+    send (nothing dropped, the streaming filter's keys, counts and
+    centroids), with the points a second it sustained;
+46. phase 42's street coloured from six seeded 1920x1080 uint8 views:
+    ``colorize_point_cloud`` in both modes and ``colorize_from_images``
+    over all six, the card's pixel coordinates and colours bit-equal to
+    the CPU run's;
+47. the other formats at 1M: E57 (cartesian bit-equal, spherical within
+    2 fp32 ulp), a rosbag2 ``.db3`` and an ``.mcap`` of 10 PointCloud2
+    messages of 131,072 points (xyz, intensity, rgb) read with and
+    without ``topic=``, ``.tcz`` (its 14-bit lattice), ``.glb`` of phase
+    34's mesh and ``.npz`` artifacts of a cloud, that mesh and phase 27's
+    256^3 volume, each read back onto the card.
 
-The last three lines are the card (nvidia-smi's name and power limit),
+Phases 44-47 print the card's name, power limit and SM clock beside
+their times. The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21, 23-36 and 41; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21, 23-36, 41 and 45; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 and k = 8 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -273,6 +303,8 @@ import importlib
 import json
 import math
 import re
+import sqlite3
+import struct
 import subprocess
 import sys
 import time
@@ -513,6 +545,27 @@ STREET_SAMPLE, STREET_D2_ULPS = 4096, 8
 # queries and reference on the CPU (python3 tools/io_references.py)
 GRID_K, GRID_SAMPLE, GRID_SEED = 10, 4096, 43
 JAX_GRID_RECALL = 0.609448254108429
+# The survey-tile slice (phases 44-47). Phase 44's tile: TILE_SIDE m
+# square at TILE_DENSITY points a m² from TILE_SEED (10M points), flown
+# in strips TILE_STRIP m wide, GPS time from TILE_GPS_START s at
+# TILE_RATE points a second, written at TILE_SCALE; LAS14_POINTS of it in
+# LAS 1.4 format 6
+TILE_SIDE, TILE_DENSITY, TILE_SEED, TILE_STRIP = 1000.0, 10, 44, 100.0
+TILE_GPS_START, TILE_RATE, TILE_SCALE, LAS14_POINTS = 3.0e5, 200_000.0, 1e-3, 1_000_000
+# Phase 45: the stream's chunks (153 of the tile), the voxel, the normals'
+# k; the statistics against the CPU run (relative) and the chunk normals'
+# |cos| against it; the realtime feed:
+# OUSTER_FRAMES OS1-128 frames in packets of OUSTER_PACKET points (16
+# columns of 128 beams)
+STREAM_CHUNK, STREAM_VOXEL, STREAM_K = 65536, 0.5, 10
+STATS_REL_TOL, NORMALS_COS = 1e-12, 0.9999
+OUSTER_FRAMES, OUSTER_PACKET, OUSTER_SEED = 10, 2048, 45
+# Phase 46: six 1080p uint8 views of phase 42's street (seeded images)
+COLOR_VIEWS, COLOR_HW, COLOR_SEED = 6, (1080, 1920), 46
+COLOR_INTR = (960.0, 960.0, 959.5, 539.5)
+# Phase 47: the bags' PointCloud2 messages, their topic, and the seed of
+# the street's intensity and colours
+BAG_MESSAGES, BAG_POINTS, BAG_TOPIC, FORMATS_SEED = 10, 131_072, "/os1/points", 47
 GICP_K = 20              # GicpConfig's k_correspondences: the union passes at k = 20
 ANALYSIS_K = 8           # reconstruction.pipeline.analyze_data's normals: the union passes at k = 8
 REG_ANGLE = 0.35
@@ -666,13 +719,18 @@ def street_scene():
     return points, source
 
 
-def welded_mesh(tt, dev):
-    """Phase 34's mesh: bench.py's wavy frame fused at 256^3, then
-    ``marching_cubes`` at iso 0 (the device weld)."""
+def dense_volume(tt, dev):
+    """Phase 27's volume: bench.py's wavy frame fused at 256^3."""
     depth, intr = (torch.from_numpy(x).to(dev) for x in (wavy_depth(), DEPTH_INTR))
-    vol = tt.tsdf_integrate(tt.create_tsdf_volume((TSDF_RES,) * 3, TSDF_VOXEL,
-                                                  origin=TSDF_ORIGIN, device=dev),
-                            depth, intr, torch.eye(4, device=dev))
+    return tt.tsdf_integrate(tt.create_tsdf_volume((TSDF_RES,) * 3, TSDF_VOXEL,
+                                                   origin=TSDF_ORIGIN, device=dev),
+                             depth, intr, torch.eye(4, device=dev))
+
+
+def welded_mesh(tt, dev):
+    """Phase 34's mesh: phase 27's volume through ``marching_cubes`` at
+    iso 0 (the device weld)."""
+    vol = dense_volume(tt, dev)
     return tt.marching_cubes(tt.VolumetricGrid(vol.tsdf, vol.origin, vol.voxel_size), 0.0)
 
 
@@ -1726,8 +1784,9 @@ def main() -> int:
     surf_launches, surf_report = surface_phases(dev, kernels)
     mesh_launches, mesh_report = mesh_phases(dev, kernels)
     io_launches, io_report = io_phases(dev, kernels, *phase5)
+    survey_launches, survey_report = survey_phases(dev, kernels)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
-                 depth_launches, surf_launches, mesh_launches, io_launches):
+                 depth_launches, surf_launches, mesh_launches, io_launches, survey_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1824,6 +1883,7 @@ def main() -> int:
     log(f"surface slice: {json.dumps(surf_report)}")
     log(f"mesh-processing slice: {json.dumps(mesh_report)}")
     log(f"file-to-segments slice: {json.dumps(io_report)}")
+    log(f"survey-tile slice: {json.dumps(survey_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3788,6 +3848,709 @@ def io_phases(dev, kernels, phase5_pose, phase5_launches):
     report["knn_grid"] = {"cell": cell, "recall": recall, "jax_recall": JAX_GRID_RECALL,
                           "cpu_ms": cpu_ms, **m43}
     log(f"  phase {phase_seconds()}")
+    return total, report
+
+
+
+def survey_tile():
+    """Phase 44's aerial tile: TILE_SIDE m square at TILE_DENSITY points
+    a m² from TILE_SEED, flown in strips TILE_STRIP m wide along x (each
+    strip's points in flight order, GPS time rising at TILE_RATE points a
+    second): rolling terrain, gabled roofs on a 100 m grid and tree
+    crowns on a 20 m grid. Returns the points (n, 3) float32 and their
+    intensity, RGB in [0, 1] and GPS time."""
+    rng = np.random.default_rng(TILE_SEED)
+    strips = int(TILE_SIDE / TILE_STRIP)
+    per = int(TILE_SIDE * TILE_SIDE * TILE_DENSITY) // strips
+    x = np.concatenate([np.sort(rng.uniform(0, TILE_SIDE, per)) for _ in range(strips)])
+    y = (np.repeat(np.arange(strips), per) + rng.uniform(0, 1, strips * per)) * TILE_STRIP
+    n = len(x)
+
+    def ground_at(gx, gy):
+        return (40.0 + 8.0 * np.sin(gx / 130.0) * np.cos(gy / 170.0)
+                + 2.5 * np.sin(gx / 37.0 + gy / 53.0))
+
+    ground = ground_at(x, y)
+    z = ground + rng.normal(0, 0.03, n)
+    kind = np.zeros(n, np.int8)                              # 0 ground, 1 roof, 2 tree
+    # buildings: one in 60% of the 100 m cells, 10-40 m a side, 4-20 m tall
+    cells = int(TILE_SIDE / 100)
+    has = rng.uniform(size=(cells, cells)) < 0.6
+    size = rng.uniform(10, 40, (cells, cells, 2))
+    corner = rng.uniform(5, 95 - size, (cells, cells, 2)) + 100 * np.stack(
+        np.meshgrid(np.arange(cells), np.arange(cells), indexing="ij"), -1)
+    height = rng.uniform(4, 20, (cells, cells))
+    ci, cj = (x // 100).astype(int), (y // 100).astype(int)
+    lo, hi = corner[ci, cj], corner[ci, cj] + size[ci, cj]
+    roof = has[ci, cj] & (x >= lo[:, 0]) & (x < hi[:, 0]) & (y >= lo[:, 1]) & (y < hi[:, 1])
+    base = ground_at(corner[..., 0] + size[..., 0] / 2, corner[..., 1] + size[..., 1] / 2)
+    ridge = np.abs(y - (lo[:, 1] + hi[:, 1]) / 2) * 0.4
+    z = np.where(roof, base[ci, cj] + height[ci, cj] - ridge + rng.normal(0, 0.02, n), z)
+    kind[roof] = 1
+    # trees: one in half of the 20 m cells, crowns of 2-6 m radius, 5-20 m
+    # tall; 70% of the returns inside a crown come from its canopy
+    cells = int(TILE_SIDE / 20)
+    tree = rng.uniform(size=(cells, cells)) < 0.5
+    centre = rng.uniform(4, 16, (cells, cells, 2)) + 20 * np.stack(
+        np.meshgrid(np.arange(cells), np.arange(cells), indexing="ij"), -1)
+    radius = rng.uniform(2, 6, (cells, cells))
+    top = rng.uniform(5, 20, (cells, cells))
+    ti, tj = (x // 20).astype(int), (y // 20).astype(int)
+    d2 = (x - centre[ti, tj, 0]) ** 2 + (y - centre[ti, tj, 1]) ** 2
+    r = radius[ti, tj]
+    canopy = tree[ti, tj] & ~roof & (d2 < r * r) & (rng.uniform(size=n) < 0.7)
+    crown = top[ti, tj] * (1.0 - 0.5 * d2 / (r * r)) - rng.uniform(0, 3, n)
+    z = np.where(canopy, ground + np.maximum(crown, 0.5), z)
+    kind[canopy] = 2
+    base_rgb = np.array([[0.45, 0.40, 0.32], [0.60, 0.30, 0.25], [0.20, 0.45, 0.18]])
+    rgb = np.clip(base_rgb[kind] + rng.normal(0, 0.05, (n, 3)), 0, 1).astype(np.float32)
+    base_i = np.array([0.30, 0.55, 0.15])
+    inten = np.clip(base_i[kind] + rng.normal(0, 0.05, n), 0, 1).astype(np.float32)
+    gps = TILE_GPS_START + np.arange(n) / TILE_RATE
+    return np.stack([x, y, z], -1).astype(np.float32), inten, rgb, gps
+
+
+def plain_las_decode(path):
+    """A plain NumPy decode of a LAS file's point records (formats 3 and
+    6): int·scale + offset to float32, 16-bit intensity and RGB over
+    65535, the float64 GPS time to float32 (the cloud's attribute type)."""
+    data = path.read_bytes()
+    fmt, off = data[104], struct.unpack_from("<I", data, 96)[0]
+    n = struct.unpack_from("<Q", data, 247)[0] if data[25] >= 4 else \
+        struct.unpack_from("<I", data, 107)[0]
+    sx, sy, sz, ox, oy, oz = struct.unpack_from("<6d", data, 131)
+    fields = {3: [("xyz", "<i4", 3), ("i", "<u2"), ("pad", "V6"), ("t", "<f8"),
+                  ("rgb", "<u2", 3)],
+              6: [("xyz", "<i4", 3), ("i", "<u2"), ("pad", "V8"), ("t", "<f8")]}[fmt]
+    rec = np.frombuffer(data, np.dtype([f if len(f) == 2 else (f[0], f[1], (f[2],))
+                                        for f in fields]), n, off)
+    q = rec["xyz"]
+    out = {"points": np.stack([q[:, 0] * sx + ox, q[:, 1] * sy + oy, q[:, 2] * sz + oz],
+                              -1).astype(np.float32),
+           "intensity": rec["i"].astype(np.float32) / 65535.0,
+           "gps_time": rec["t"].astype(np.float32)}
+    if fmt == 3:
+        out["colors"] = rec["rgb"].astype(np.float32) / 65535.0
+    return out
+
+
+def ouster_frames():
+    """OUSTER_FRAMES frames of an OS1-128 (128 beams over ±22.5°, 1024
+    columns) in a street 24 m wide with walls 12 m tall and the ground
+    1.8 m below the sensor, which moves 1 m a frame along x; ranges with
+    2 cm noise. Each frame's points in column order (16 columns a
+    2,048-point packet)."""
+    rng = np.random.default_rng(OUSTER_SEED)
+    el = np.deg2rad(np.linspace(-22.5, 22.5, 128))
+    az = np.linspace(0, 2 * np.pi, 1024, endpoint=False)
+    d = np.stack([np.cos(el)[None] * np.cos(az)[:, None], np.cos(el)[None] * np.sin(az)[:, None],
+                  np.broadcast_to(np.sin(el)[None], (1024, 128))], -1).reshape(-1, 3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_ground = np.where(d[:, 2] < 0, -1.8 / d[:, 2], np.inf)
+        t_wall = np.where(np.abs(d[:, 1]) > 1e-9, 12.0 / np.abs(d[:, 1]), np.inf)
+        t_top = np.where(d[:, 2] > 0, 10.2 / d[:, 2], np.inf)
+    t = np.minimum(np.minimum(t_ground, t_wall), np.minimum(t_top, 120.0))
+    frames = []
+    for f in range(OUSTER_FRAMES):
+        r = t + rng.normal(0, 0.02, len(t))
+        frames.append((d * r[:, None] + [f * 1.0, 0.0, 0.0]).astype(np.float32))
+    return frames
+
+
+def street_cameras():
+    """Phase 46's six views: cameras 2 m above the street's origin, one
+    every 60° of heading, pitched 10° down, at COLOR_INTR."""
+    out = []
+    for i in range(COLOR_VIEWS):
+        yaw, pitch = np.deg2rad(60.0 * i + 15.0), np.deg2rad(10.0)
+        fwd = np.array([np.cos(yaw) * np.cos(pitch), np.sin(yaw) * np.cos(pitch),
+                        -np.sin(pitch)])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        down = np.cross(fwd, right)
+        rot = np.stack([right, down, fwd])
+        w2c = np.eye(4)
+        w2c[:3, :3] = rot
+        w2c[:3, 3] = -rot @ np.array([0.0, 0.0, 2.0])
+        out.append(w2c.astype(np.float32))
+    return out
+
+
+def cdr_string(s: str) -> bytes:
+    b = s.encode() + b"\x00"
+    return struct.pack("<I", len(b)) + b
+
+
+def cdr_pad(buf: bytearray, align: int) -> None:
+    rem = (len(buf) - 4) % align
+    if rem:
+        buf.extend(b"\x00" * (align - rem))
+
+
+def pointcloud2_cdr(pts, inten, rgb_u8, stamp: int, frame: str = "os_lidar") -> bytes:
+    """A CDR-encoded sensor_msgs/PointCloud2 with x, y, z, intensity and
+    packed rgb float32 fields, built by hand as tests/test_io_extra.py's
+    ``make_pointcloud2_cdr`` builds its xyz messages."""
+    n = len(pts)
+    rec = np.zeros(n, np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                ("intensity", "<f4"), ("rgb", "<u4")]))
+    rec["x"], rec["y"], rec["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
+    rec["intensity"] = inten
+    c = rgb_u8.astype(np.uint32)
+    rec["rgb"] = (c[:, 0] << 16) | (c[:, 1] << 8) | c[:, 2]
+    buf = bytearray(b"\x00\x01\x00\x00")                 # CDR_LE encapsulation
+    buf += struct.pack("<iI", stamp, 0)
+    buf += cdr_string(frame)
+    cdr_pad(buf, 4)
+    buf += struct.pack("<II", 1, n)
+    buf += struct.pack("<I", 5)
+    for off, name in zip((0, 4, 8, 12, 16), ("x", "y", "z", "intensity", "rgb")):
+        buf += cdr_string(name)
+        cdr_pad(buf, 4)
+        buf += struct.pack("<I", off)
+        buf += struct.pack("<B", 7)                     # FLOAT32 (rgb: packed bits)
+        cdr_pad(buf, 4)
+        buf += struct.pack("<I", 1)
+    buf += struct.pack("<B", 0)
+    cdr_pad(buf, 4)
+    buf += struct.pack("<II", 20, 20 * n)
+    data = rec.tobytes()
+    buf += struct.pack("<I", len(data)) + data
+    buf += struct.pack("<B", 1)
+    return bytes(buf)
+
+
+def write_bag(path, messages, other):
+    """A rosbag2 .db3 (sqlite) with the PointCloud2 messages on BAG_TOPIC
+    and ``other`` blobs on an Imu topic that readers must skip."""
+    conn = sqlite3.connect(str(path))
+    conn.executescript("""
+        CREATE TABLE topics(id INTEGER PRIMARY KEY, name TEXT, type TEXT,
+            serialization_format TEXT, offered_qos_profiles TEXT);
+        CREATE TABLE messages(id INTEGER PRIMARY KEY, topic_id INTEGER,
+            timestamp INTEGER, data BLOB);""")
+    conn.execute("INSERT INTO topics VALUES (1, ?, 'sensor_msgs/msg/PointCloud2', 'cdr', '')",
+                 (BAG_TOPIC,))
+    conn.execute("INSERT INTO topics VALUES (2, '/imu', 'sensor_msgs/msg/Imu', 'cdr', '')")
+    for i, blob in enumerate(messages):
+        conn.execute("INSERT INTO messages(topic_id, timestamp, data) VALUES (1, ?, ?)",
+                     (1000 + i, blob))
+    for i, blob in enumerate(other):
+        conn.execute("INSERT INTO messages(topic_id, timestamp, data) VALUES (2, ?, ?)",
+                     (1000 + i, blob))
+    conn.commit()
+    conn.close()
+
+
+def write_mcap(path, messages, other):
+    """An uncompressed MCAP with the same two channels, the messages
+    interleaved, records built as tests/test_io_extra.py's ``_make_mcap``
+    builds them."""
+    def record(op, body):
+        return bytes([op]) + struct.pack("<Q", len(body)) + body
+
+    def s(x):
+        b = x.encode()
+        return struct.pack("<I", len(b)) + b
+
+    buf = bytearray(b"\x89MCAP0\r\n")
+    buf += record(0x03, struct.pack("<H", 1) + s("sensor_msgs/msg/PointCloud2") + s("ros2msg")
+                  + struct.pack("<I", 0))
+    buf += record(0x03, struct.pack("<H", 2) + s("sensor_msgs/msg/Imu") + s("ros2msg")
+                  + struct.pack("<I", 0))
+    buf += record(0x04, struct.pack("<HH", 7, 1) + s(BAG_TOPIC) + s("cdr") + struct.pack("<I", 0))
+    buf += record(0x04, struct.pack("<HH", 8, 2) + s("/imu") + s("cdr") + struct.pack("<I", 0))
+    for i, blob in enumerate(messages):
+        buf += record(0x05, struct.pack("<HIQQ", 7, i, 1000 + i, 1000 + i) + blob)
+        if i < len(other):
+            buf += record(0x05, struct.pack("<HIQQ", 8, i, 1000 + i, 1000 + i) + other[i])
+    buf += b"\x89MCAP0\r\n"
+    Path(path).write_bytes(bytes(buf))
+
+
+class DictVoxelFilter:
+    """The JAX package's ``StreamingVoxelFilter`` accumulator, copied as
+    plain NumPy: a host dict from the voxel triple to (sum, count), one
+    Python step a voxel of each chunk. Timed beside the port's."""
+
+    def __init__(self, voxel_size: float):
+        self.voxel = float(voxel_size)
+        self._sums: dict = {}
+
+    def process_chunk(self, chunk: np.ndarray) -> None:
+        keys = np.floor(chunk / self.voxel).astype(np.int64)
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        sums = np.zeros((len(uniq), 3))
+        cnts = np.zeros(len(uniq))
+        np.add.at(sums, inv.ravel(), chunk.astype(np.float64))
+        np.add.at(cnts, inv.ravel(), 1)
+        for k, s, c in zip(map(tuple, uniq), sums, cnts):
+            if k in self._sums:
+                s0, c0 = self._sums[k]
+                self._sums[k] = (s0 + s, c0 + c)
+            else:
+                self._sums[k] = (s, c)
+
+
+def ulps_apart(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance in float32 ulps between two equal-shaped
+    float32 arrays (0 where bit-equal)."""
+    ia, ib = (np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia = np.where(ia < 0, np.int64(-2**31) - ia, ia)
+    ib = np.where(ib < 0, np.int64(-2**31) - ib, ib)
+    return int(np.abs(ia - ib).max(initial=0))
+
+
+def survey_phases(dev, kernels):
+    """Phases 44-47: the survey-tile slice (no kernel of its own; kernels
+    1-2 through the per-chunk normals of phase 45) through its public
+    entries: LAS/LAZ, out-of-core streaming, colorization and the other
+    formats, each gated against a plain NumPy decode or the port's own
+    CPU run. Returns (launches, numbers for the log)."""
+    import tempfile
+
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch import native
+    from threecrate_tpu_torch.io import artifacts, e57, las, rosbag
+    from threecrate_tpu_torch.ops import colorization
+    from threecrate_tpu_torch.parallel import streaming
+    from threecrate_tpu_torch.utils.profiling import device_profile
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line()}
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        return f"{t:.1f} s"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def no_kernel(fn):
+        out, counts = run_counted(kernels, total, fn)
+        check(not any(counts.values()), "an entry of the survey-tile slice launched a kernel")
+        return out
+
+    def host(cloud):
+        return {"points": cloud.to_numpy(), **{k: cloud.attr_to_numpy(k) for k in cloud.attrs}}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+    def clock():
+        return f"({report['card']}, SM clock {sm_clock()})"
+
+    check(native.laz_available(), "the LASzip library did not build or load")
+    log(f"  LASzip library {native.laz_library_path().name} loaded")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp_dir:
+        tmp = Path(tmp_dir)
+
+        # -- phase 44 -------------------------------------------------------
+        log(f"phase 44: a {TILE_SIDE:.0f} m tile at {TILE_DENSITY} points/m² (terrain, roofs, "
+            f"trees; format 3 at scale {TILE_SCALE}) through .las and chunked .laz onto the card")
+        pts, inten, rgb, gps = survey_tile()
+        n_tile = len(pts)
+        tile = tt.PointCloud.from_numpy(pts, intensity=inten, colors=rgb, gps_time=gps,
+                                        device=cpu)
+        paths = {"las": tmp / "tile.las", "laz": tmp / "tile.laz"}
+        write_ms = {k: timed(lambda: tt.write_point_cloud(p, tile, scale=TILE_SCALE))[1]
+                    for k, p in paths.items()}
+        plain = plain_las_decode(paths["las"])
+        reads, read_ms = {}, {}
+        for k, p in paths.items():
+            cloud, read_ms[k] = timed(lambda: no_kernel(lambda: tt.read_point_cloud(p)))
+            check(cloud.device.type == "cuda", f"the .{k} tile did not land on the card")
+            reads[k] = host(cloud)
+            del cloud
+        las_laz = same(reads["las"], reads["laz"])
+        vs_plain = same(reads["las"], plain)
+        quant = float(np.abs(plain["points"].astype(np.float64) - pts).max())
+        data = paths["laz"].read_bytes()
+        off = struct.unpack_from("<I", data, 96)[0]
+        _, decompress_ms = timed(lambda: native.laz_decompress(data, off, n_tile, las._DEFAULT_CHUNK,
+                                                               3, 34))
+        parse_ms = {k: timed(lambda: tt.read_point_cloud(p, device=cpu))[1]
+                    for k, p in paths.items()}
+        _, upload_ms = timed(lambda: tt.PointCloud.from_numpy(
+            plain["points"], intensity=plain["intensity"], colors=plain["colors"],
+            gps_time=plain["gps_time"], device=dev))
+        sizes = {k: p.stat().st_size for k, p in paths.items()}
+        log(f"  {n_tile:,} points; .las {sizes['las'] / 2**20:.1f} MiB written in "
+            f"{write_ms['las']:.0f} ms, .laz {sizes['laz'] / 2**20:.1f} MiB "
+            f"({sizes['laz'] / sizes['las']:.3f} of it) in {write_ms['laz']:.0f} ms; read onto "
+            f"the card: .las {read_ms['las']:.0f} ms, .laz {read_ms['laz']:.0f} ms; host parse "
+            f".las {parse_ms['las']:.0f} ms, .laz {parse_ms['laz']:.0f} ms (LASzip decompress "
+            f"alone {decompress_ms:.0f} ms); upload of the parsed arrays {upload_ms:.1f} ms "
+            f"{clock()}")
+        log(f"  points, intensity, RGB and GPS time bit-equal between .las and .laz {las_laz}, "
+            f"and to a plain NumPy int·scale + offset decode of the LAS records {vs_plain}; "
+            f"largest |decoded - generated| {quant:.2e} m (half the scale: {TILE_SCALE / 2})")
+        check(las_laz and vs_plain, "the tile read back from .las/.laz differs")
+        check(quant <= TILE_SCALE / 2 + 1e-4, "the tile's decode is off the scale's lattice")
+        del reads
+        p14 = tmp / "tile14.las"
+        sub = tt.PointCloud.from_numpy(pts[:LAS14_POINTS], intensity=inten[:LAS14_POINTS],
+                                       gps_time=gps[:LAS14_POINTS], device=cpu)
+        _, w14 = timed(lambda: tt.write_point_cloud(p14, sub, point_format=6))
+        c14, r14 = timed(lambda: no_kernel(lambda: tt.read_point_cloud(p14)))
+        ok14 = same(host(c14), plain_las_decode(p14)) and \
+            np.abs(c14.to_numpy().astype(np.float64) - pts[:LAS14_POINTS]).max() <= 1e-3
+        log(f"  LAS 1.4 format 6, {LAS14_POINTS:,} points: written in {w14:.0f} ms, read onto "
+            f"{c14.device} in {r14:.0f} ms; bit-equal to the plain decode and within the scale "
+            f"{ok14}")
+        check(ok14 and c14.device.type == "cuda", "the LAS 1.4 round trip is wrong")
+        report["tile"] = {"points": n_tile, "bytes": sizes, "write_ms": write_ms,
+                          "read_ms": read_ms, "host_parse_ms": parse_ms,
+                          "laz_decompress_ms": decompress_ms, "upload_ms": upload_ms,
+                          "las14": {"write_ms": w14, "read_ms": r14}}
+        del c14, sub, tile, plain
+        log(f"  phase {phase_seconds()}")
+
+        # -- phase 45 -------------------------------------------------------
+        log(f"phase 45: the tile as binary PLY through read_point_cloud_iter(chunk_size="
+            f"{STREAM_CHUNK}) into run_pipeline: StreamingVoxelFilter({STREAM_VOXEL}), "
+            f"StreamingStatistics, StreamingDeviceMap(estimate_normals(k={STREAM_K}))")
+        ply = tmp / "tile.ply"
+        tt.write_point_cloud(ply, tt.PointCloud.from_numpy(pts, device=cpu))
+        n_chunks = -(-n_tile // STREAM_CHUNK)
+        keep = {0: None, n_chunks // 2: None, n_chunks - 1: None}
+
+        def normals_of(p, m):
+            return tt.estimate_normals(tt.PointCloud(p, m, {}), k=STREAM_K).normals
+
+        class Tee:
+            """Every chunk to each stage in turn, each stage timed to the
+            card's end of it; the first, middle and last chunks kept."""
+
+            def __init__(self, stages):
+                self.stages, self.seconds, self.i = stages, dict.fromkeys(stages, 0.0), 0
+
+            def process_chunk(self, chunk):
+                if self.i in keep:
+                    keep[self.i] = chunk
+                self.i += 1
+                for name, stage in self.stages.items():
+                    t0 = time.perf_counter()
+                    stage.process_chunk(chunk)
+                    if name != "statistics":
+                        torch.cuda.synchronize()
+                    self.seconds[name] += time.perf_counter() - t0
+
+            def finalize(self):
+                return {name: stage.finalize() for name, stage in self.stages.items()}
+
+            def memory_bytes(self):
+                return sum(stage.memory_bytes() for stage in self.stages.values())
+
+        def stages(device, normals=True):
+            st = {"voxel": streaming.StreamingVoxelFilter(STREAM_VOXEL, device=device),
+                  "statistics": streaming.StreamingStatistics()}
+            if normals:
+                st["normals"] = streaming.StreamingDeviceMap(normals_of, STREAM_CHUNK, device)
+            return st
+
+        tee = Tee(stages(dev))
+        t0 = time.perf_counter()
+        (res, stats), counts = run_counted(kernels, total, lambda: tt.run_pipeline(
+            tt.read_point_cloud_iter(ply, chunk_size=STREAM_CHUNK), tee))
+        wall = time.perf_counter() - t0
+        parse_s = timed(lambda: sum(len(c) for c in tt.read_point_cloud_iter(
+            ply, chunk_size=STREAM_CHUNK)))[1] / 1e3
+        voxels = res["voxel"]
+        n_vox = len(voxels)
+        state_bytes = tee.stages["voxel"].memory_bytes()
+        device_state = sum(t.numel() * t.element_size() for t in (
+            tee.stages["voxel"]._keys, tee.stages["voxel"]._rows, tee.stages["voxel"]._sums))
+        log(f"  {stats.chunks} chunks, {stats.points:,} points in {wall:.2f} s "
+            f"({stats.points / wall / 1e6:.2f} M points/s): host parse of the stream alone "
+            f"{parse_s:.2f} s; stages (s, to the card's end): "
+            f"{json.dumps({k: round(v, 3) for k, v in tee.seconds.items()})}; {n_vox:,} voxels, "
+            f"memory_bytes {state_bytes:,} (the card's state {device_state:,} B); launches "
+            f"{ {k: v for k, v in counts.items() if v} } {clock()}")
+        check(stats.chunks == n_chunks and stats.points == n_tile, "the stream lost chunks")
+        check(counts["union_window_a"] == counts["union_window_b"] == n_chunks
+              and only(counts, {"union_window_a": n_chunks, "union_window_b": n_chunks}),
+              "kernels 1-2 did not launch once a chunk, or others launched")
+
+        fresh = {"voxel": lambda: streaming.StreamingVoxelFilter(STREAM_VOXEL, device=dev),
+                 "normals": lambda: streaming.StreamingDeviceMap(normals_of, STREAM_CHUNK, dev)}
+        syncs = {k: host_syncs(lambda: make().process_chunk(keep[0]))
+                 for k, make in fresh.items()}
+        tee2 = Tee(stages(dev))
+        prof_wall, busy, top = device_profile(lambda: tt.run_pipeline(
+            tt.read_point_cloud_iter(ply, chunk_size=STREAM_CHUNK), tee2), warmup=0)
+        log(f"  a second run under the profiler: {prof_wall:.0f} ms wall, device busy "
+            f"{busy:.0f} ms (idle share {1 - busy / prof_wall:.3f}); host syncs a chunk "
+            f"{json.dumps(syncs)}; top device entries "
+            f"{json.dumps([(name, round(ms, 1), c) for name, ms, c in top[:5]])}")
+        del tee2
+
+        cpu_tee = Tee(stages(cpu, normals=False))
+        cpu_res, cpu_stats_ms = timed(lambda: tt.run_pipeline(
+            tt.read_point_cloud_iter(ply, chunk_size=STREAM_CHUNK), cpu_tee)[0])
+        a, b = voxels.to_numpy(), cpu_res["voxel"].to_numpy()
+        rows_equal = len(a) == len(b)
+        diff = int((a != b).any(1).sum()) if rows_equal else -1
+        ulp = ulps_apart(a, b) if rows_equal else -1
+        sa, sb = res["statistics"], cpu_res["statistics"]
+        rel = max(float(np.max(np.abs(np.asarray(sa[k], np.float64) - sb[k])
+                               / np.maximum(np.abs(sb[k]), 1e-300)))
+                  for k in ("mean", "std", "min", "max"))
+        cos = []
+        for i, chunk in keep.items():
+            lo = i * STREAM_CHUNK
+            card_n = res["normals"][lo:lo + len(chunk)]
+            c = tt.PointCloud.from_numpy(chunk, capacity=STREAM_CHUNK, device=cpu)
+            cpu_n = normals_of(c.points, c.mask)[:len(chunk)].numpy()
+            ok = np.isfinite(card_n).all(1) & np.isfinite(cpu_n).all(1) & \
+                (np.abs(cpu_n).sum(1) > 0)
+            cos.append(float(np.abs((card_n[ok] * cpu_n[ok]).sum(1)).min()))
+        log(f"  against the port's CPU run of the same stream ({cpu_stats_ms / 1e3:.1f} s, "
+            f"voxel filter and statistics; normals of chunks {list(keep)}): voxel rows "
+            f"{len(a):,} vs {len(b):,}, in the same order, {diff} rows differ, at most {ulp} "
+            f"float32 ulp (gate 1); statistics within {rel:.2e} relative (gate "
+            f"{STATS_REL_TOL}); normals |cos| min {min(cos):.6f} (gate {NORMALS_COS})")
+        check(rows_equal and ulp <= 1, "the voxel rows differ from the CPU run's")
+        check(rel <= STATS_REL_TOL and stats.points == sb["count"] == sa["count"],
+              "the statistics differ from the CPU run's")
+        check(min(cos) >= NORMALS_COS, "the chunk normals differ from the CPU run's")
+        report["stream"] = {"chunks": stats.chunks, "points": stats.points, "wall_s": wall,
+                            "host_parse_s": parse_s, "stage_s": tee.seconds, "voxels": n_vox,
+                            "memory_bytes": state_bytes, "device_state_bytes": device_state,
+                            "launches": {k: v for k, v in counts.items() if v},
+                            "profiled_wall_ms": prof_wall, "busy_ms": busy,
+                            "host_syncs_a_chunk": syncs, "cpu_s": cpu_stats_ms / 1e3,
+                            "rows_differing": diff, "max_ulp": ulp, "stats_rel": rel,
+                            "normals_cos_min": min(cos)}
+        del res, voxels, cpu_res, tee, cpu_tee
+
+        frames = ouster_frames()
+        packets = [f[i:i + OUSTER_PACKET] for f in frames for i in range(0, len(f), OUSTER_PACKET)]
+        n_rt = sum(len(p) for p in packets)
+        rt = tt.RealtimeVoxelFilter(STREAM_VOXEL, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for packet in packets:
+            rt.send(packet)
+        rt_out = rt.finish(timeout=600.0)
+        rt_s = time.perf_counter() - t0
+        m = rt.metrics
+        ref = streaming.StreamingVoxelFilter(STREAM_VOXEL, device=dev)
+        tt.run_pipeline([np.concatenate(frames)[i:i + STREAM_CHUNK]
+                         for i in range(0, n_rt, STREAM_CHUNK)], ref)
+        got = rt.pipeline
+        keys_equal = torch.equal(got._keys, ref._keys)
+        s1, s2 = got._sums[got._rows], ref._sums[ref._rows]
+        counts_equal = keys_equal and torch.equal(s1[:, 3], s2[:, 3])
+        c1 = (s1[:, :3] / s1[:, 3:]).float().cpu().numpy()
+        c2 = (s2[:, :3] / s2[:, 3:]).float().cpu().numpy()
+        rt_diff = int((c1 != c2).any(1).sum()) if keys_equal else -1
+        rt_ulp = ulps_apart(c1, c2) if keys_equal else -1
+        log(f"  RealtimeVoxelFilter({STREAM_VOXEL}) fed {OUSTER_FRAMES} OS1-128 frames "
+            f"({n_rt:,} points in {len(packets)} packets of {OUSTER_PACKET}) by blocking send: "
+            f"{rt_s:.2f} s, {n_rt / rt_s / 1e6:.3f} M points/s sustained; queued {m.queued}, "
+            f"processed {m.processed}, dropped {m.dropped}; {len(rt_out):,} voxels; against "
+            f"StreamingVoxelFilter on the same points sorted by key: keys and counts equal "
+            f"{counts_equal}, {rt_diff} centroids differ, at most {rt_ulp} float32 ulp (gate 1) "
+            f"{clock()}")
+        check(m.processed == m.queued == len(packets) and m.dropped == 0,
+              "the realtime pipeline lost packets")
+        check(counts_equal and rt_ulp <= 1, "the realtime voxels differ from the streaming ones")
+        # a chunk's merge on its own, on the card and in the JAX package's
+        # host dict (copied): the first frame in packets and in the
+        # pipeline's 256-point chunks, each from an empty state
+        per_chunk = {}
+        for size in (OUSTER_PACKET, streaming.BackpressureConfig().chunk_size):
+            chunks = [frames[0][i:i + size] for i in range(0, len(frames[0]), size)]
+            for name, make in (("card", lambda: streaming.StreamingVoxelFilter(STREAM_VOXEL,
+                                                                                 device=dev)),
+                               ("host dict", lambda: DictVoxelFilter(STREAM_VOXEL))):
+                f = make()
+                t0 = time.perf_counter()
+                for c in chunks:
+                    f.process_chunk(c)
+                torch.cuda.synchronize()
+                per_chunk[f"{name} {size}"] = 1e3 * (time.perf_counter() - t0) / len(chunks)
+        log(f"  one chunk's merge alone, ms (one frame, from an empty state): "
+            f"{json.dumps({k: round(v, 3) for k, v in per_chunk.items()})} {clock()}")
+        report["realtime"] = {"points": n_rt, "packets": len(packets), "seconds": rt_s,
+                              "points_per_s": n_rt / rt_s, "voxels": len(rt_out),
+                              "centroids_differing": rt_diff, "chunk_ms": per_chunk}
+        del rt, ref, got, frames, packets, chunks
+        log(f"  phase {phase_seconds()}")
+
+        # -- phase 46 -------------------------------------------------------
+        log(f"phase 46: phase 42's street coloured from {COLOR_VIEWS} seeded "
+            f"{COLOR_HW[1]}x{COLOR_HW[0]} uint8 views: colorize_point_cloud (nearest, bilinear) "
+            f"and colorize_from_images over all six")
+        street, _ = street_scene()
+        rng = np.random.default_rng(COLOR_SEED)
+        intr = tt.CameraIntrinsics(*COLOR_INTR)
+        views = [tt.RgbImageView(rng.integers(0, 256, (*COLOR_HW, 3), dtype=np.uint8), intr, w2c)
+                 for w2c in street_cameras()]
+        card_c = tt.PointCloud.from_numpy(street, device=dev)
+        host_c = tt.PointCloud.from_numpy(street, device=cpu)
+        same_pixels, hits = True, []
+        h, w = COLOR_HW
+        for v in views:
+            proj = [colorization._project(c.points, c.mask, *colorization._view_inputs(v, c.device)[1:],
+                                          h, w) for c in (card_c, host_c)]
+            same_pixels &= all(torch.equal(x.cpu(), y) for x, y in zip(*proj))
+            hits.append(int(proj[1][2].sum()))
+        colour = {}
+        for mode in tt.InterpolationMode:
+            for name, fn in (("view 0", lambda c: tt.colorize_point_cloud(c, views[0], mode)),
+                             ("all six", lambda c: tt.colorize_from_images(c, views, mode))):
+                card_out = no_kernel(lambda: fn(card_c))
+                equal = torch.equal(card_out.colors.cpu(), fn(host_c).colors)
+                colour[f"{name} {mode.value}"] = {"bit_equal": equal, **measure(lambda: fn(card_c))}
+        log(f"  {len(street):,} points; points in each view {hits}; the card's (u, v) and "
+            f"in-image flags bit-equal to the CPU run's in every view {same_pixels}; colours "
+            f"bit-equal {json.dumps({k: v['bit_equal'] for k, v in colour.items()})}")
+        for k, v in colour.items():
+            log(f"  {k}: {v['ms']:.2f} ms median of 3 ({v['ms'] / (6 if 'six' in k else 1):.2f} "
+                f"ms a view, images uploaded in the call), peak {v['peak_gib']:.3f} GiB, device "
+                f"busy {v['busy_ms']:.2f} ms, {v['host_syncs']} host syncs {clock()}")
+        check(same_pixels and all(v["bit_equal"] for v in colour.values()),
+              "the colours differ from the CPU run's")
+        report["colour"] = {"points": len(street), "hits": hits, **colour}
+        del card_c, host_c
+        log(f"  phase {phase_seconds()}")
+
+        # -- phase 47 -------------------------------------------------------
+        log("phase 47: the other formats at 1M: E57 (cartesian, spherical), rosbag2 .db3 and "
+            f".mcap ({BAG_MESSAGES} PointCloud2 messages of {BAG_POINTS:,}), .tcz, .glb of phase "
+            f"34's mesh, .npz artifacts of a cloud, that mesh and phase 27's volume")
+        rng = np.random.default_rng(FORMATS_SEED)
+        s_int = rng.uniform(0, 1, len(street)).astype(np.float32)
+        s_rgb = rng.uniform(0, 1, (len(street), 3)).astype(np.float32)
+        s_host = tt.PointCloud.from_numpy(street, intensity=s_int, colors=s_rgb, device=cpu)
+        formats = {}
+        for kind, kw in (("cartesian", {}), ("spherical", {"spherical": True})):
+            path = tmp / f"street_{kind}.e57"
+            _, wms = timed(lambda: e57.write_point_cloud(path, s_host, **kw))
+            back, rms = timed(lambda: no_kernel(lambda: tt.read_point_cloud(path)))
+            got = host(back)
+            if kind == "cartesian":
+                ok = same(got, {"points": street, "intensity": s_int})
+                what = "points and intensity bit-equal"
+            else:
+                ulp = ulps_apart(got["points"], street)
+                ok = ulp <= 2 and np.array_equal(got["intensity"], s_int)
+                what = f"points within {ulp} float32 ulp (gate 2: float64 trigonometry), " \
+                       f"intensity bit-equal"
+            log(f"  E57 {kind}: {path.stat().st_size / 2**20:.1f} MiB written in {wms:.0f} ms, "
+                f"read onto {back.device} in {rms:.0f} ms; {what} {ok}")
+            check(ok and back.device.type == "cuda", f"the {kind} E57 read back wrong")
+            formats[f"e57 {kind}"] = {"write_ms": wms, "read_ms": rms}
+
+        bag_pts = pts[:BAG_MESSAGES * BAG_POINTS]
+        bag_int = inten[:len(bag_pts)]
+        bag_rgb = np.round(rgb[:len(bag_pts)] * 255).astype(np.uint8)
+        msgs = [pointcloud2_cdr(bag_pts[i * BAG_POINTS:(i + 1) * BAG_POINTS],
+                                bag_int[i * BAG_POINTS:(i + 1) * BAG_POINTS],
+                                bag_rgb[i * BAG_POINTS:(i + 1) * BAG_POINTS], i)
+                for i in range(BAG_MESSAGES)]
+        imu = [rng.integers(0, 256, 300, dtype=np.uint8).tobytes() for _ in range(3)]
+        for ext, writer in (("db3", write_bag), ("mcap", write_mcap)):
+            path = tmp / f"ride.{ext}"
+            _, wms = timed(lambda: writer(path, msgs, imu))
+            for topic in (None, BAG_TOPIC):
+                back, rms = timed(lambda: no_kernel(lambda: tt.read_point_cloud(path,
+                                                                                topic=topic)))
+                ok = np.array_equal(back.to_numpy(), bag_pts) and back.device.type == "cuda"
+                log(f"  .{ext} ({path.stat().st_size / 2**20:.1f} MiB written in {wms:.0f} ms), "
+                    f"topic={topic!r}: read onto {back.device} in {rms:.0f} ms; "
+                    f"{len(back):,} points bit-equal to those written {ok}")
+                check(ok, f"the .{ext} read back wrong")
+                formats[f"{ext} topic={topic}"] = {"write_ms": wms, "read_ms": rms}
+            reader = (rosbag.Rosbag2Reader if ext == "db3" else rosbag.McapReader)(path)
+            first = reader.read_clouds(max_messages=1)[0]
+            ok = (np.array_equal(first.attr_to_numpy("intensity"), bag_int[:BAG_POINTS])
+                  and np.array_equal(first.attr_to_numpy("colors"),
+                                     bag_rgb[:BAG_POINTS].astype(np.float32) / 255.0)
+                  and first.device.type == "cuda")
+            log(f"  .{ext} first message's intensity and RGB bit-equal {ok}")
+            check(ok, f"the .{ext} message attributes read back wrong")
+            if ext == "db3":
+                reader.close()
+
+        path = tmp / "street.tcz"
+        _, wms = timed(lambda: tt.write_point_cloud(path, s_host))
+        back, rms = timed(lambda: no_kernel(lambda: tt.read_point_cloud(path)))
+        got = host(back)
+        p64 = street.astype(np.float64)
+        mn, ext = p64.min(0), np.maximum(p64.max(0) - p64.min(0), 1e-12)
+        scale = ((1 << 14) - 1) / ext
+        qa = np.round((p64 - mn) * scale).astype(np.int64)
+        qb = np.round((got["points"].astype(np.float64) - mn) * scale).astype(np.int64)
+        oa, ob = np.lexsort(qa.T[::-1]), np.lexsort(qb.T[::-1])
+        lattice = np.array_equal(qa[oa], qb[ob])
+        # the decoded points of one lattice cell are one point, within half
+        # a step (and the float32 rounding of the decode) of each original
+        bound = 0.5 / scale + np.spacing(np.abs(street).max(0)).astype(np.float64)
+        err = np.abs(got["points"][ob].astype(np.float64) - p64[oa]).max(0) if lattice \
+            else np.full(3, np.inf)
+        within = bool((err <= bound).all())
+
+        def rgb_codes(q8):
+            q8 = q8.astype(np.int64)
+            return np.sort((q8[:, 0] << 16) | (q8[:, 1] << 8) | q8[:, 2])
+        # the codec's 8-bit colours: c·255 + 0.5 truncated
+        attrs_ok = np.array_equal(np.sort(got["intensity"]), np.sort(s_int)) and np.array_equal(
+            rgb_codes(np.round(got["colors"] * 255)),
+            rgb_codes(np.clip(s_rgb * 255 + 0.5, 0, 255).astype(np.uint8)))
+        log(f"  .tcz: {path.stat().st_size / 2**20:.1f} MiB "
+            f"({path.stat().st_size / (12 * len(street)):.3f} of the xyz float32 bytes) written "
+            f"in {wms:.0f} ms, read onto {back.device} in {rms:.0f} ms; the 14-bit lattice of "
+            f"the points equal {lattice}, each within {err.tolist()} m of its cell's (bound "
+            f"half a step and an fp32 ulp: {bound.tolist()}) {within}; intensities and 8-bit "
+            f"colours equal as multisets (the codec reorders points) {attrs_ok}")
+        check(lattice and within and attrs_ok and back.device.type == "cuda",
+              "the .tcz read back wrong")
+        formats["tcz"] = {"write_ms": wms, "read_ms": rms, "bytes": path.stat().st_size}
+
+        mesh = welded_mesh(tt, dev)
+        path = tmp / "mesh.glb"
+        _, wms = timed(lambda: tt.write_mesh(path, mesh))
+        back, rms = timed(lambda: no_kernel(lambda: tt.read_mesh(path)))
+        ok = all(np.array_equal(a, b) for a, b in zip(back.to_numpy(), mesh.to_numpy()))
+        log(f"  .glb of phase 34's mesh ({int(mesh.face_count()):,} faces): written in {wms:.0f} "
+            f"ms, read onto {back.device} in {rms:.0f} ms; vertices and faces bit-equal {ok}")
+        check(ok and back.device.type == "cuda", "the .glb read back wrong")
+        formats["glb"] = {"write_ms": wms, "read_ms": rms}
+
+        card_cloud = tt.PointCloud.from_numpy(street, intensity=s_int, colors=s_rgb, device=dev)
+        volume = dense_volume(tt, dev)
+        for name, obj in (("cloud", card_cloud), ("mesh", mesh), ("volume", volume)):
+            path = tmp / f"{name}.npz"
+            _, wms = timed(lambda: artifacts.save_artifact(path, obj))
+            back, rms = timed(lambda: no_kernel(lambda: artifacts.load_artifact(path)))
+            if name == "volume":
+                pairs = list(zip(back, obj))
+            else:
+                keys = ("points", "mask") if name == "cloud" else \
+                    ("vertices", "faces", "vertex_mask", "face_mask")
+                pairs = [(getattr(back, k), getattr(obj, k)) for k in keys] + \
+                    [(back.attrs[k], obj.attrs[k]) for k in obj.attrs]
+            ok = all((x is None and y is None) or (x.device.type == "cuda" and torch.equal(x, y))
+                     for x, y in pairs) and type(back) is type(obj)
+            log(f"  .npz artifact of the {name}: {path.stat().st_size / 2**20:.1f} MiB written in "
+                f"{wms:.0f} ms, loaded onto the card in {rms:.0f} ms; every tensor equal {ok}")
+            check(ok, f"the {name} artifact loaded back wrong")
+            formats[f"npz {name}"] = {"write_ms": wms, "read_ms": rms}
+        log(f"  {clock()}")
+        report["formats"] = formats
+        del mesh, volume, card_cloud
+        log(f"  phase {phase_seconds()}")
     return total, report
 
 

@@ -43,7 +43,11 @@ within 1e-6, every count within 2 of the CPU's: the point-plane
 product may round differently at the threshold), cluster labels and
 ``knn_grid``'s validity and ids equal to the CPU's and its distances
 within an ulp (the same d², the card's sqrt), and the memory helpers
-read the card.
+read the card; the survey-tile slice: LAS, LAZ, LAS 1.4, E57 and
+``.tcz`` reads land on the card with the bits of the host read, the
+streaming voxel filter's state and rows on the card equal its CPU run's
+bit for bit, and colorization picks the CPU's pixel for every point with
+bit-equal colours (the same elementwise fused multiply-adds).
 """
 
 import numpy as np
@@ -1482,3 +1486,72 @@ def test_profiling_memory_helpers_on_card(cuda):
     assert mem["peak_bytes"] >= 16 * 2 ** 20 and set(mem) == {"argument_bytes", "peak_bytes",
                                                               "output_bytes"}
     assert profiling.sync(torch.ones(5, device=cuda)) == 5.0
+
+
+# ---------------------------------------------------------------------------
+# the survey-tile slice
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ext,kw", [("las", {}), ("laz", {}), ("las", {"point_format": 7}),
+                                    ("e57", {}), ("tcz", {})])
+def test_survey_readers_land_on_the_card_with_the_file_bits(cuda, tmp_path, ext, kw):
+    rng = np.random.default_rng(26)
+    n = 70_000                                  # two LAZ chunks
+    pts = np.cumsum(rng.normal(0, 0.05, (n, 3)), 0).astype(np.float32)
+    attrs = {"intensity": rng.uniform(0, 1, n).astype(np.float32),
+             "colors": rng.uniform(0, 1, (n, 3)).astype(np.float32)}
+    if ext != "e57":
+        attrs["gps_time"] = 3e5 + np.cumsum(rng.uniform(1e-6, 2e-4, n))
+    path = tmp_path / f"c.{ext}"
+    tt.write_point_cloud(path, tt.PointCloud.from_numpy(pts, device="cpu", **attrs), **kw)
+    card, host = tt.read_point_cloud(path), tt.read_point_cloud(path, device="cpu")
+    assert card.points.device.type == "cuda" and sorted(card.attrs) == sorted(host.attrs)
+    np.testing.assert_array_equal(card.to_numpy(), host.to_numpy())
+    for k in host.attrs:
+        assert card.attrs[k].device.type == "cuda"
+        np.testing.assert_array_equal(card.attr_to_numpy(k), host.attr_to_numpy(k))
+
+
+def test_voxel_accumulator_on_card_matches_cpu(cuda):
+    """The streaming voxel filter's state on the card: rows bit-equal to
+    its CPU run in value and order (the same sorted keys, the same
+    sequential segment sums)."""
+    from threecrate_tpu_torch.parallel import streaming
+    rng = np.random.default_rng(27)
+    pts = (rng.uniform(-40, 40, (200_000, 3)) * [1, 1, 0.1]).astype(np.float32)
+    chunks = [pts[i:i + 16384] for i in range(0, len(pts), 16384)]
+    card, host = streaming.StreamingVoxelFilter(0.5), \
+        streaming.StreamingVoxelFilter(0.5, device="cpu")
+    a, _ = streaming.run_pipeline(chunks, card)
+    b, _ = streaming.run_pipeline(chunks, host)
+    assert a.points.device.type == "cuda" and card._keys.device.type == "cuda"
+    assert torch.equal(card._keys.cpu(), host._keys) and torch.equal(card._rows.cpu(), host._rows)
+    assert torch.equal(card._sums.cpu(), host._sums)
+    np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
+    assert card.memory_bytes() == host.memory_bytes()
+
+
+@pytest.mark.parametrize("mode", ["NEAREST", "BILINEAR"])
+def test_colorization_on_card_matches_cpu(cuda, mode):
+    """The same pixel for every point on the card as on the CPU, and the
+    colours bit-equal: the projection is the same elementwise fused
+    multiply-adds on both."""
+    rng = np.random.default_rng(28)
+    pts = rng.uniform(-5, 5, (100_000, 3)).astype(np.float32) + [0, 0, 8]
+    views = []
+    for i in range(3):
+        w2c = np.eye(4, dtype=np.float32)
+        c, s = np.cos(0.2 * i), np.sin(0.2 * i)
+        w2c[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        w2c[:3, 3] = [0.3 * i, -0.1, 0.5]
+        img = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+        views.append(tt.RgbImageView(img, tt.CameraIntrinsics(1400.5, 1399.25, 959.7, 539.3),
+                                     w2c))
+    m = getattr(tt.InterpolationMode, mode)
+    out = [tt.colorize_from_images(tt.PointCloud.from_numpy(pts, device=d), views, m)
+           for d in (cuda, "cpu")]
+    assert out[0].colors.device.type == "cuda"
+    assert torch.equal(out[0].colors.cpu(), out[1].colors)
+    one = [tt.colorize_point_cloud(tt.PointCloud.from_numpy(pts, device=d), views[1], m)
+           for d in (cuda, "cpu")]
+    assert torch.equal(one[0].colors.cpu(), one[1].colors)

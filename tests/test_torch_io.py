@@ -491,7 +491,7 @@ def test_registry_errors_match_jax(tmp_path, name):
 
 
 def test_supported_extensions_are_jax_s_ported_ones():
-    later = {"las", "laz", "db3", "mcap", "tcz", "e57", "glb"}   # queued for a later slice
+    later = set()   # every format of the JAX package is ported
     assert tio.supported_extensions() == sorted(set(jio.supported_extensions()) - later)
     assert tt.supported_extensions() == tio.supported_extensions()
 
@@ -500,7 +500,11 @@ READERS = ["ply.read_point_cloud", "ply.read_mesh", "pcd.read_point_cloud",
            "obj.read_point_cloud", "obj.read_mesh", "stl.read_mesh",
            "xyz_csv.read_point_cloud", "lidar.read_kitti_bin", "lidar.read_velodyne_pcap",
            "lidar.read_ouster_pcap", "lidar.read_livox_lvx", "lidar.read_livox_lvx2",
-           "mesh_attributes.read_extended_mesh"]
+           "mesh_attributes.read_extended_mesh", "las.read_point_cloud", "e57.read_point_cloud",
+           "rosbag.read_point_cloud", "rosbag.read_point_cloud_mcap",
+           "compression.read_point_cloud", "compression.decompress_point_cloud",
+           "compression.decompress_draco", "gltf.read_mesh_glb", "ros2.from_pointcloud2",
+           "ros2.from_pointcloud2_organized", "artifacts.load_artifact"]
 
 
 @pytest.mark.parametrize("name", READERS)

@@ -2,7 +2,7 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Eight slices are ported:
+for NVIDIA Hopper (``csrc/``). Nine slices are ported:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
 ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
 batched RANSAC, then ICP), the Morton-window neighbourhood ops (FPFH
@@ -25,6 +25,10 @@ the simplifiers, smoothing and booleans); then the file-to-segments
 slice: the I/O registry (PLY, PCD, OBJ, STL, XYZ/CSV and the LiDAR
 formats, parsed on the host with the C++ helpers of ``native``), plane
 RANSAC, Euclidean clustering, ``knn_grid`` and the point-cloud ops;
+then the survey-tile slice: LAS/LAZ (the LASzip codec of ``native``),
+E57, rosbag2 and MCAP with the ROS 2 converters, GLB, ``.tcz`` and
+``.npz`` artifacts, the out-of-core streaming pipelines of ``parallel``
+(the voxel accumulator on the card) and colorization from images;
 with the data model, Morton keys, small linear algebra and exact
 neighbour search they need. Clouds built with ``PointCloud.from_numpy``
 live on the card unless the caller asks for the CPU. Modules mirror the
@@ -33,8 +37,8 @@ JAX package's layout and public names.
 
 __version__ = "0.1.0"
 
-from . import (core, interop, io, kernels, models, native, ops, reconstruction,
-               simplification, utils)
+from . import (core, interop, io, kernels, models, native, ops, parallel,
+               reconstruction, simplification, utils)
 from .core import (
     AlgorithmError,
     CameraIntrinsics,
@@ -73,6 +77,19 @@ from .ops.ground import (GroundSegmentationResult, PatchworkConfig,
 from .ops.kiss_icp import KissIcpConfig, KissIcpOdometry, kiss_icp
 from .io import (MeshChunk, read_mesh, read_mesh_iter, read_point_cloud,
                  read_point_cloud_iter, supported_extensions, write_mesh, write_point_cloud)
+from .io.compression import (CompressionConfig, compress_draco, compress_point_cloud,
+                             decompress_draco, decompress_point_cloud)
+from .io.ros2 import (PointCloud2Data, PointField, colored_normals_to_pointcloud2,
+                      colored_to_pointcloud2, from_pointcloud2, from_pointcloud2_organized,
+                      make_pointcloud2, make_pointcloud2_organized, normals_to_pointcloud2,
+                      pointcloud2_to_colored, pointcloud2_to_colored_normals,
+                      pointcloud2_to_normals, pointcloud2_to_xyz, xyz_to_pointcloud2)
+from .ops.colorization import (InterpolationMode, RgbImageView, colorize_from_images,
+                               colorize_point_cloud)
+from .parallel.streaming import (BackpressureConfig, RealtimeMetrics, RealtimePipeline,
+                                 RealtimeVoxelFilter, RunOptions, RunStats,
+                                 StreamingCollector, StreamingStatistics,
+                                 StreamingVoxelFilter, run_pipeline)
 from .ops.neighbors import (BruteForceSearch, KdTree, KnnResult, knn, knn_grid, knn_window,
                             nearest_one, radius_neighbors)
 from .ops.point_cloud_ops import (concatenate, k_nearest_neighbors, nearest_neighbor,
@@ -119,8 +136,8 @@ from .ops.tsdf_sparse import sparse_marching_cubes_soup as sparse_tsdf_marching_
 from .ops.tsdf_sparse import sparse_to_dense as sparse_tsdf_to_dense
 
 __all__ = [
-    "core", "interop", "io", "kernels", "models", "native", "ops", "reconstruction",
-    "simplification", "utils",
+    "core", "interop", "io", "kernels", "models", "native", "ops", "parallel",
+    "reconstruction", "simplification", "utils",
     "PointCloud", "Transform", "PerceptionStep", "PerceptionResult",
     "RegistrationModel", "OdometryModel", "FpfhConfig", "FpfhResult", "extract_fpfh_features",
     "extract_fpfh_features_with_normals", "match_descriptors", "ShotConfig",
@@ -165,5 +182,16 @@ __all__ = [
     "PlaneModel", "PlaneSegmentationResult", "extract_euclidean_clusters", "extract_plane",
     "segment_plane", "segment_plane_parallel", "concatenate", "k_nearest_neighbors",
     "nearest_neighbor", "neighbors_within",
+    "CompressionConfig", "compress_point_cloud", "decompress_point_cloud",
+    "compress_draco", "decompress_draco",
+    "PointField", "PointCloud2Data", "make_pointcloud2", "from_pointcloud2",
+    "make_pointcloud2_organized", "from_pointcloud2_organized", "pointcloud2_to_xyz",
+    "pointcloud2_to_normals", "pointcloud2_to_colored", "pointcloud2_to_colored_normals",
+    "xyz_to_pointcloud2", "normals_to_pointcloud2", "colored_to_pointcloud2",
+    "colored_normals_to_pointcloud2",
+    "InterpolationMode", "RgbImageView", "colorize_from_images", "colorize_point_cloud",
+    "BackpressureConfig", "RealtimeMetrics", "RealtimePipeline", "RealtimeVoxelFilter",
+    "RunOptions", "RunStats", "StreamingCollector", "StreamingStatistics",
+    "StreamingVoxelFilter", "run_pipeline",
     "__version__",
 ]

@@ -1,13 +1,14 @@
 """File I/O with extension auto-detection.
 
 Counterpart of ``threecrate_tpu.io`` for PLY, OBJ(+MTL), PCD, STL,
-XYZ/CSV/TXT and KITTI .bin readers/writers, the Velodyne/Ouster PCAP
-and Livox LVX/LVX2 decoders, the format registry with extension
+XYZ/CSV/TXT, KITTI .bin, LAS/LAZ, E57, .tcz and GLB readers/writers,
+the Velodyne/Ouster PCAP, Livox LVX/LVX2, rosbag2 (.db3) and MCAP
+decoders, ``.npz`` artifacts, the format registry with extension
 dispatch (threecrate-io/src/lib.rs:95-203) and the streaming chunk
 iterators (lib.rs:233-320). Parsing is host-side NumPy (ASCII floats,
-Velodyne packets and LZF through the C++ helpers of ``native``); the
-readers return clouds and meshes on ``device``, the card unless the
-caller asks for the CPU.
+Velodyne packets, LZF and LASzip through the C++ libraries of
+``native``); the readers return clouds and meshes on ``device``, the
+card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import numpy as np
 
 from ..core.mesh import TriangleMesh
 from ..core.point_cloud import PointCloud
-from . import lidar, mesh_attributes, mmap, obj, pcd, ply, stl, xyz_csv
+from . import (artifacts, compression, e57, gltf, las, lidar,
+               mesh_attributes, mmap, obj, pcd, ply, ros2, rosbag, stl,
+               xyz_csv)
 from .registry import REGISTRY, IoRegistry, MeshChunk
 
 # -- wire the default registry (lib.rs:95-158 lazy_static block) ----------
@@ -43,6 +46,18 @@ REGISTRY.register("bin", cloud_reader=lidar.read_kitti_bin,
 REGISTRY.register("pcap", cloud_reader=lidar.read_velodyne_pcap)
 REGISTRY.register("lvx", cloud_reader=lidar.read_livox_lvx)
 REGISTRY.register("lvx2", cloud_reader=lidar.read_livox_lvx2)
+REGISTRY.register("las", cloud_reader=las.read_point_cloud,
+                  cloud_writer=las.write_point_cloud)
+REGISTRY.register("laz", cloud_reader=las.read_point_cloud,
+                  cloud_writer=las.write_point_cloud)
+REGISTRY.register("db3", cloud_reader=rosbag.read_point_cloud)
+REGISTRY.register("mcap", cloud_reader=rosbag.read_point_cloud_mcap)
+REGISTRY.register("tcz", cloud_reader=compression.read_point_cloud,
+                  cloud_writer=compression.write_point_cloud)
+REGISTRY.register("e57", cloud_reader=e57.read_point_cloud,
+                  cloud_writer=e57.write_point_cloud)
+REGISTRY.register("glb", mesh_reader=gltf.read_mesh_glb,
+                  mesh_writer=gltf.write_mesh_glb)
 
 
 # -- top-level convenience API (lib.rs:159-203) ----------------------------
@@ -105,4 +120,5 @@ __all__ = [
     "read_point_cloud_iter", "read_mesh_iter", "supported_extensions",
     "REGISTRY", "IoRegistry", "MeshChunk",
     "ply", "obj", "pcd", "stl", "xyz_csv", "lidar", "mesh_attributes", "mmap",
+    "las", "e57", "ros2", "rosbag", "gltf", "compression", "artifacts",
 ]

@@ -1,17 +1,20 @@
 """Native (C++) I/O helpers, compiled on demand and loaded with ctypes.
 
-Counterpart of ``threecrate_tpu.native`` without its LASzip half: a
-small C++ library (``tc_native.cpp``, the same source) for the host-side
-byte crunching NumPy does poorly: ASCII float parsing, Velodyne packet
-decoding and the LZF codec of PCD's ``binary_compressed`` payload.
+Counterpart of ``threecrate_tpu.native``: two small C++ libraries, the
+same sources. ``tc_native.cpp`` does the host-side byte crunching NumPy
+does poorly: ASCII float parsing, Velodyne packet decoding and the LZF
+codec of PCD's ``binary_compressed`` payload. ``tc_laz.cpp`` is the
+LASzip codec of ``.laz`` files (compressor 2, point formats 0-3, one
+thread a chunk).
 
-``g++`` builds it at the first call, never at import, into ``build/``
-beside this file. The library's name carries a hash of the source and
+``g++`` builds each at its first call, never at import, into ``build/``
+beside this file. A library's name carries a hash of its source and
 the flags, and it is built under a temporary name and renamed into
 place, so processes that build at the same moment never load a
-half-written file. Without a compiler every function falls back to
-NumPy or Python, as the JAX package does; ``counts`` records which
-parser each ``parse_floats`` call ran ("native" or "numpy").
+half-written file. Without a compiler every function of
+``tc_native`` falls back to NumPy or Python, as the JAX package does,
+and the LASzip functions return None; ``counts`` records which parser
+each ``parse_floats`` call ran ("native" or "numpy").
 """
 
 from __future__ import annotations
@@ -29,11 +32,15 @@ from typing import Optional
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "tc_native.cpp"
+LAZ_SRC = Path(__file__).resolve().parent / "tc_laz.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+LAZ_GXX_FLAGS = GXX_FLAGS + ("-pthread",)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_laz_lib: Optional[ctypes.CDLL] = None
+_laz_tried = False
 
 # parse_floats calls by the parser that ran, since the last reset_counts()
 counts = collections.Counter()
@@ -43,14 +50,21 @@ def reset_counts() -> None:
     counts.clear()
 
 
+def _hashed_path(src: Path, flags, stem: str) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libtc_native_{h.hexdigest()[:16]}.so"
+    return _hashed_path(SRC, GXX_FLAGS, "libtc_native")
 
 
-def _build() -> Optional[Path]:
-    out = library_path()
+def laz_library_path() -> Path:
+    return _hashed_path(LAZ_SRC, LAZ_GXX_FLAGS, "libtc_laz")
+
+
+def _build(src: Path, flags, out: Path, timeout: int) -> Optional[Path]:
     if out.exists():
         return out
     try:
@@ -60,8 +74,8 @@ def _build() -> Optional[Path]:
     except OSError:
         return None
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(SRC)],
-                       check=True, capture_output=True, timeout=120)
+        subprocess.run(["g++", *flags, "-o", tmp, str(src)],
+                       check=True, capture_output=True, timeout=timeout)
         os.replace(tmp, out)
         return out
     except (OSError, subprocess.SubprocessError):
@@ -79,7 +93,7 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        so = _build()
+        so = _build(SRC, GXX_FLAGS, library_path(), timeout=120)
         if so is None:
             return None
         try:
@@ -227,3 +241,80 @@ def lzf_compress(data: bytes) -> bytes:
         out.append(len(run) - 1)
         out += run
     return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# LASzip codec (separate shared object: tc_laz.cpp)
+# ---------------------------------------------------------------------------
+
+def _load_laz() -> Optional[ctypes.CDLL]:
+    """The loaded LASzip library, built at the first call; None without
+    a compiler."""
+    global _laz_lib, _laz_tried
+    with _lock:
+        if _laz_lib is not None or _laz_tried:
+            return _laz_lib
+        _laz_tried = True
+        so = _build(LAZ_SRC, LAZ_GXX_FLAGS, laz_library_path(), timeout=240)
+        if so is None:
+            return None
+        try:
+            lib = ctypes.CDLL(str(so))
+        except OSError:
+            return None
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.tc_laz_decompress.restype = ctypes.c_long
+        lib.tc_laz_decompress.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+            ctypes.c_uint, ctypes.c_int, u8p, ctypes.c_int]
+        lib.tc_laz_compress.restype = ctypes.c_long
+        lib.tc_laz_compress.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint, ctypes.c_long, u8p, ctypes.c_long]
+        _laz_lib = lib
+        return lib
+
+
+def laz_available() -> bool:
+    """True when the LASzip library builds and loads here."""
+    return _load_laz() is not None
+
+
+def laz_decompress(file_bytes: bytes, point_off: int, n_points: int,
+                   chunk_size: int, point_format: int,
+                   rec_len: int) -> Optional[np.ndarray]:
+    """Decompress a LAZ point block → (n, rec_len) uint8 records, or
+    None when the native codec is unavailable. Raises ValueError on a
+    corrupt/unsupported stream."""
+    lib = _load_laz()
+    if lib is None:
+        return None
+    buf = np.frombuffer(file_bytes, np.uint8)
+    out = np.zeros(n_points * rec_len, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    r = lib.tc_laz_decompress(
+        buf.ctypes.data_as(u8p), len(buf), point_off, n_points,
+        chunk_size, point_format, out.ctypes.data_as(u8p), rec_len)
+    if r != 0:
+        raise ValueError(f"LASzip decode failed (code {r})")
+    return out.reshape(n_points, rec_len)
+
+
+def laz_compress(records: np.ndarray, point_format: int,
+                 chunk_size: int, block_file_off: int) -> Optional[bytes]:
+    """Compress (n, rec_len) uint8 records → LAZ point block bytes
+    ([i64 chunk-table pos][chunks][table]), or None when unavailable."""
+    lib = _load_laz()
+    if lib is None:
+        return None
+    records = np.ascontiguousarray(records, np.uint8)
+    n, rec_len = records.shape
+    cap = n * rec_len * 2 + (n // max(chunk_size, 1) + 2) * 64 + 65536
+    out = np.zeros(cap, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    r = lib.tc_laz_compress(
+        records.ctypes.data_as(u8p), n, rec_len, point_format,
+        chunk_size, block_file_off, out.ctypes.data_as(u8p), cap)
+    if r < 0:
+        raise ValueError(f"LASzip encode failed (code {r})")
+    return out[:r].tobytes()
