@@ -278,10 +278,45 @@ parse needs the native library, which the script asserts is loaded):
     34's mesh and ``.npz`` artifacts of a cloud, that mesh and phase 27's
     256^3 volume, each read back onto the card.
 
-Phases 44-47 print the card's name, power limit and SM clock beside
+The multi-shard points axis (phases 48-51; ``parallel``: eight shards of
+one mesh, all on the card, so the runs measure the algorithm and not an
+interconnect), each entry's gated call run under the profiler and timed
+with its busy time, peak, host syncs and launches:
+48. a shuffled 8,388,608-point scan (``scan(8_388_608, 0)``, the 8M of
+    docs/benchmarks.md:365-374) through ``make_distributed_morton_sort``:
+    gid a permutation, the points ``pts[gid]``, the keys and the order of
+    the stable sort of ``morton_keys`` (ties in input order); then
+    ``make_sharded_normals_window``: ``window_normals`` once a shard (8),
+    the result equal bit for bit to the ``presorted=True`` call on
+    ``morton_presort``'s layout routed back by its perm, and the planar
+    points of a 16,384-point sample within 0.5 degrees of exact k = 10
+    normals (phase 18's gate) or within ``SEAM_TOL_DEG`` of the
+    single-device one-pass ``window_fast`` (the entry makes one Morton
+    pass, phase 18's two); steady-state times of both;
+49. ``make_sharded_voxel_filter(0.2)`` on those points: the voxel rows and
+    count of ``voxel_grid_filter(0.2)``, centroids within ``VOXEL_TOL`` of
+    float64 centroids of its voxels or within twice the single-device
+    path's own error (both sum in fp32, in other orders);
+    ``make_sharded_outlier_stats(k=8)`` at 131,072 points against the mask
+    from ``neighbors.knn``'s mean distances (>= 99.9% equal);
+50. at 131,072 points (a (16,384 x 16,384) tile a ring step): ring kNN
+    (k = 10) against ``neighbors.knn`` (d2 within 4 ulps of |q|^2 + |p|^2,
+    ids equal where apart), ring normals against the exact path at k = 11
+    (|cos| >= 0.9999 on 99.9%), sharded point-to-point, point-to-plane
+    and GICP on phase 5's shift (10 iterations): the shift within 1e-3 m,
+    the rotation within 1e-3, and the single-device entry's pose within
+    1e-3; batch ICP on a 2 x 4 mesh with two 65,536-point pairs within
+    5e-3 m;
+51. the registration pair's rotation and shift at 131,072 points: sharded
+    FPFH (r = 0.5, k = 64) against the staged ``_fpfh`` on the same normals
+    (cosine median >= 0.999, mean >= 0.99), sharded matching against
+    ``match_descriptors`` (ids on 99%, d2 within 4 ulps), and ``make_sharded_global_registration``'s pose
+    within 5e-3 of the truth.
+
+Phases 44-51 print the card's name, power limit and SM clock beside
 their times. The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21, 23-36, 41 and 45; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21, 23-36, 41, 45 and 48; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 and k = 8 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -573,6 +608,25 @@ REG_SHIFT = np.array([2.0, -1.5, 0.3], np.float32)
 REG_CONFIG = dict(ransac_iterations=16384, fpfh_radius=FPFH_RADIUS,
                   distance_threshold=0.3, refine_with_icp=False,
                   hypothesis_batch=4096)
+# Phases 48-51: the multi-shard points axis, SHARDS shards of one mesh on
+# the one card. The window, sort and voxel paths run on N_SHARDED points (the
+# 8M of docs/benchmarks.md:365-374, where the sharded path takes over from
+# one chip), shuffled by SHARD_SEED; the ring paths are brute force (a
+# (16,384 x 16,384) fp32 tile a ring step at N_RING) and run on N_RING.
+SHARDS = 8
+N_SHARDED, SHARD_SEED = 8_388_608, 48
+N_RING = 131_072
+RING_K = 10                # ring kNN and ring normals (k + 1 with the self match)
+K_NORMALS = 10             # the window normals', exact normals' and FPFH normals' k
+RING_ICP_ITERS = 10
+RING_POSE_TOL = 1e-3       # m and rad: the shift, and the single-device entries' poses
+BATCH_POINTS = 65_536
+BATCH_SHIFTS = np.array([[0.05, -0.02, 0.01], [0.01, 0.03, -0.02]], np.float32)
+BATCH_POSE_TOL = 5e-3      # m: tests/test_parallel.py's bound for batch ICP and registration
+SOR_K, SOR_STD = 8, 1.0    # statistical_outlier_removal's defaults
+RING_FPFH_RADIUS, RING_FPFH_K = 0.5, 64
+D2_ULPS = 4                # ring d2 against knn's: ulps of |q|^2 + |p|^2
+SEAM_TOL_DEG = 0.05        # sharded window normals' planar angle against one device's one pass
 
 
 def log(msg: str) -> None:
@@ -1785,8 +1839,10 @@ def main() -> int:
     mesh_launches, mesh_report = mesh_phases(dev, kernels)
     io_launches, io_report = io_phases(dev, kernels, *phase5)
     survey_launches, survey_report = survey_phases(dev, kernels)
+    par_launches, par_report = parallel_phases(dev, kernels)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
-                 depth_launches, surf_launches, mesh_launches, io_launches, survey_launches):
+                 depth_launches, surf_launches, mesh_launches, io_launches, survey_launches,
+                 par_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1884,6 +1940,7 @@ def main() -> int:
     log(f"mesh-processing slice: {json.dumps(mesh_report)}")
     log(f"file-to-segments slice: {json.dumps(io_report)}")
     log(f"survey-tile slice: {json.dumps(survey_report)}")
+    log(f"multi-shard points axis: {json.dumps(par_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4551,6 +4608,350 @@ def survey_phases(dev, kernels):
         report["formats"] = formats
         del mesh, volume, card_cloud
         log(f"  phase {phase_seconds()}")
+    return total, report
+
+
+def parallel_phases(dev, kernels):
+    """Phases 48-51: the multi-shard points axis (``parallel``), eight shards
+    of one mesh on the card, each entry gated against the port's
+    single-device path on the card. Kernel 4 (``window_normals``) is the
+    slice's one kernel: once a shard in the window normals; the ring paths
+    launch none. Each entry's gated call runs under ``torch.profiler``:
+    its wall ms with a synchronise, device busy time, peak allocated and
+    the host syncs counted in that call. Returns
+    (launches, numbers for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.ops import features, morton, neighbors
+    from threecrate_tpu_torch.ops.normals import _pca_normals
+    from threecrate_tpu_torch.utils.profiling import device_profile
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line(), "shards": SHARDS}
+    mesh = tp.make_mesh(SHARDS, devices=[dev] * SHARDS)
+    t_phase = time.perf_counter()
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        return f"{t:.1f} s"
+
+    def counted(fn, expect=None):
+        """One gated call of ``fn`` under ``torch.profiler``: (output, {ms,
+        busy_ms, idle_share, peak_gib, host_syncs, launches}), the launch
+        counts checked against ``expect`` (no kernel by default). The
+        wall time is the profiled call's (CUDA activity only), host syncs
+        are counted by ``torch.cuda.set_sync_debug_mode`` in the same call."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        caught, result = [], {}
+
+        def traced():
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    result["out"] = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    caught.extend(got)
+
+        (wall, busy, _), counts = run_counted(kernels, total,
+                                              lambda: device_profile(traced, warmup=0))
+        nums = {"ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "host_syncs": sum("synchroniz" in str(w.message) for w in caught),
+                "launches": {k: n for k, n in counts.items() if n}}
+        check(only(counts, expect or {}),
+              f"launches {counts}, expected exactly {expect or 'none'}")
+        return result["out"], nums
+
+    def fmt(nums):
+        return (f"{nums['ms']:.1f} ms a call (busy {nums['busy_ms']:.1f} ms), "
+                f"peak {nums['peak_gib']:.3f} GiB, {nums['host_syncs']} host syncs, launches "
+                f"{nums['launches'] or 'none'}")
+
+    def rot_err(t, rot):
+        return float(np.abs(t[:3, :3] - rot).max())
+
+    # -- phase 48 --------------------------------------------------------------
+    log(f"phase 48: make_distributed_morton_sort and make_sharded_normals_window on "
+        f"{N_SHARDED:,} shuffled points, {SHARDS} shards on {dev} ({report['card']}, SM clock "
+        f"{sm_clock()})")
+    pts = scan(N_SHARDED, 0)[np.random.default_rng(SHARD_SEED).permutation(N_SHARDED)]
+    p = torch.from_numpy(pts).to(dev)
+    m = torch.ones(N_SHARDED, dtype=torch.bool, device=dev)
+    sort_fn = tp.make_distributed_morton_sort(mesh)
+    (spts, smask, gid), n_sort = counted(lambda: sort_fn(p, m))
+    spts, smask, gid = spts.gather(), smask.gather(), gid.gather().long()
+    keys = morton.morton_keys(p, m, 0)
+    stable = torch.sort(keys, stable=True)
+    is_perm = torch.equal(torch.sort(gid).values, torch.arange(N_SHARDED, device=dev))
+    rows = torch.equal(spts, p[gid]) and bool(smask.all())
+    key_seq = torch.equal(keys[gid], stable.values)
+    in_order = torch.equal(gid, stable.indices)
+    distinct = torch.unique(keys).numel()
+    log(f"  sort: gid a permutation {is_perm}, points == pts[gid] {rows}, keys equal to the "
+        f"stable sort's {key_seq}, ties in input order {in_order} ({distinct:,} distinct keys of "
+        f"{N_SHARDED:,}); {fmt(n_sort)}")
+    check(is_perm and rows and key_seq and in_order, "the distributed sort is not the stable sort")
+    del spts, smask, stable
+
+    nw_fn = tp.make_sharded_normals_window(mesh, k=K_NORMALS, tile=256, band=16)
+    (nrm, valid), n_win = counted(lambda: nw_fn(p, m), {"window_normals": SHARDS})
+    nrm, valid = nrm.gather(), valid.gather()
+    spts_np, smask_np, perm = tp.morton_presort(p, m, SHARDS, tile=256)
+    sp, sm = torch.from_numpy(spts_np).to(dev), torch.from_numpy(smask_np).to(dev)
+    perm = torch.from_numpy(perm).to(dev).long()
+    pre_fn = tp.make_sharded_normals_window(mesh, k=K_NORMALS, tile=256, band=16, presorted=True)
+    (nrm_s, val_s), n_pre = counted(lambda: pre_fn(sp, sm), {"window_normals": SHARDS})
+    back_n, back_v = torch.zeros_like(p), torch.zeros_like(m)
+    back_n[perm], back_v[perm] = nrm_s.gather(), val_s.gather()
+    routed = torch.equal(nrm, back_n) and torch.equal(valid, back_v)
+    # exact k = 10 normals of a strided subset, as phase 18 forms them
+    sub = torch.arange(0, N_SHARDED, N_SHARDED // 16384, device=dev)[:16384]
+    q = p[sub]
+    cand = neighbors.knn(p, m, q, None, 16)
+    d = torch.where(cand.mask, (p[cand.indices] - q[:, None]).norm(dim=-1), torch.inf)
+    d, order = torch.sort(d, dim=1)
+    idx = torch.gather(cand.indices, 1, order)[:, :K_NORMALS]
+    ok = torch.isfinite(d[:, :K_NORMALS])
+    exact_n, exact_c = _pca_normals(p[idx], ok, q, torch.zeros(3, device=dev), True)
+    both = valid[sub] & (ok.sum(1) >= 3)
+    planar = both & (exact_c < PLANAR_CURVATURE)
+    ang = angle_deg(exact_n, nrm[sub])
+    mean_all, mean_planar = ang[both].mean().item(), ang[planar].mean().item()
+    # the same kernel on one device, one Morton pass, no shard seams
+    one = tt.estimate_normals_detailed(tt.PointCloud.from_points(p), tt.NormalEstimationConfig(
+        k_neighbors=K_NORMALS, method="window_fast", window_passes=1, viewpoint=(0.0, 0.0, 0.0)))
+    one_ang = angle_deg(exact_n, one.normals[sub])
+    one_planar = one_ang[planar & one.valid[sub]].mean().item()
+    v_share = valid.float().mean().item()
+    n_win["mpts_s"] = N_SHARDED / n_win["ms"] / 1e3
+    log(f"  window normals: window_normals launched {n_win['launches']} (need {SHARDS}); valid "
+        f"share {v_share:.5f}; shuffled input equal to the presorted call routed back by perm, "
+        f"bit for bit, {routed}; mean angle to exact k=10 normals on {int(both.sum())} of 16,384 "
+        f"sampled points {mean_all:.4f} deg, on the {int(planar.sum())} planar ones (curvature < "
+        f"{PLANAR_CURVATURE}) {mean_planar:.4f} deg (need < 0.5, or within {SEAM_TOL_DEG} of the "
+        f"single-device one-pass window_fast's {one_planar:.4f}: one Morton pass, as the JAX "
+        f"entry runs); {fmt(n_win)}; presorted call {fmt(n_pre)}")
+    check(routed and v_share > 0.99 and mean_planar < max(0.5, one_planar + SEAM_TOL_DEG),
+          "sharded window normals disagree with the presorted path or the exact normals")
+    t_sort, t_win = measure(lambda: sort_fn(p, m)), measure(lambda: nw_fn(p, m))
+    log(f"  steady state (median of 3 after a warm-up): sort {t_sort['ms']:.2f} ms (busy "
+        f"{t_sort['busy_ms']:.2f}, {t_sort['host_syncs']} syncs), window normals "
+        f"{t_win['ms']:.2f} ms (busy {t_win['busy_ms']:.2f}, {t_win['host_syncs']} syncs, "
+        f"{N_SHARDED / t_win['ms'] / 1e3:.1f} Mpts/s); peak {t_win['peak_gib']:.3f} GiB")
+    report["phase48"] = {"sort": n_sort, "sort_steady": t_sort, "window_normals": n_win,
+                         "window_normals_steady": t_win, "presorted": n_pre,
+                         "distinct_keys": distinct, "valid_share": v_share,
+                         "mean_angle_deg": mean_all, "planar_mean_angle_deg": mean_planar,
+                         "one_pass_planar_mean_angle_deg": one_planar}
+    del nrm, valid, nrm_s, val_s, back_n, back_v, sp, sm, perm, cand, d, idx, one
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 49 --------------------------------------------------------------
+    log(f"phase 49: make_sharded_voxel_filter({VOXEL}) on phase 48's {N_SHARDED:,} points; "
+        f"make_sharded_outlier_stats(k={SOR_K}) at {N_RING:,}")
+    vox_fn = tp.make_sharded_voxel_filter(mesh, VOXEL)
+    (cent, cmask), n_vox = counted(lambda: vox_fn(p, m))
+    cent, cmask = cent.gather(), cmask.gather()
+    cloud = tt.PointCloud.from_points(p)
+    ref = tt.voxel_grid_filter_detailed(cloud, VOXEL)
+    same_mask = torch.equal(cmask, ref.cloud.mask)
+    # float64 centroids of the single-device path's voxels (its rows, its
+    # inverse): both fp32 paths are held against them
+    nv = int(ref.num_voxels)
+    inv = ref.voxel_index.long()
+    cnt64 = torch.bincount(inv, minlength=nv).to(torch.float64)
+    c64 = torch.zeros(nv, 3, dtype=torch.float64, device=dev).index_add_(
+        0, inv, p.to(torch.float64)) / cnt64[:, None]
+    err_single = (ref.cloud.points[:nv] - c64).abs().max().item()
+    err = (cent[:nv] - c64).abs().max().item() if same_mask else math.inf
+    t_vox = measure(lambda: vox_fn(p, m))
+    t_single = measure(lambda: tt.voxel_grid_filter(cloud, VOXEL))
+    top = [(name, round(ms, 3), n) for name, ms, n in device_profile(lambda: vox_fn(p, m), 6)[2]]
+    log(f"  voxels {int(cmask.sum()):,} (tt.voxel_grid_filter: {nv:,}), the same rows valid "
+        f"{same_mask}, centroids within {err:.3e} m of the float64 centroids (need <= "
+        f"max({VOXEL_TOL}, 2 x the single-device path's {err_single:.3e})); {fmt(n_vox)}; steady "
+        f"{t_vox['ms']:.2f} ms (busy {t_vox['busy_ms']:.2f}, {t_vox['host_syncs']} syncs) against "
+        f"tt.voxel_grid_filter's {t_single['ms']:.2f} ms (busy {t_single['busy_ms']:.2f}); "
+        f"largest device entries {top}")
+    check(same_mask and err <= max(VOXEL_TOL, 2.0 * err_single),
+          "the sharded voxel filter disagrees")
+    report["phase49"] = {"voxel": n_vox, "voxel_steady": t_vox, "single_steady": t_single,
+                         "voxels": int(cmask.sum()), "centroid_err_m": err,
+                         "single_centroid_err_m": err_single, "top": top}
+    del cent, cmask, ref, p, m, keys, gid, cloud, inv, c64, cnt64
+
+    ring = torch.from_numpy(scan(N_RING, 0)).to(dev)
+    rm = torch.ones(N_RING, dtype=torch.bool, device=dev)
+    sor_fn = tp.make_sharded_outlier_stats(mesh, SOR_K)
+    keep, n_sor = counted(lambda: sor_fn(ring, rm, SOR_STD))
+    keep = keep.gather()
+    res = neighbors.knn(ring, rm, ring, rm, SOR_K + 1)
+    fin = torch.isfinite(res.distances)
+    mean_d = torch.where(fin, res.distances, 0.0).sum(1) / (fin.sum(1) - 1).clamp_min(1)
+    mu = mean_d.mean()
+    keep_ref = mean_d <= mu + SOR_STD * ((mean_d - mu) ** 2).mean().sqrt()
+    agree = (keep == keep_ref).float().mean().item()
+    log(f"  outlier stats: kept {int(keep.sum()):,} of {N_RING:,} (neighbors.knn's mean "
+        f"distances: {int(keep_ref.sum()):,}), masks equal on {agree:.6f} (need >= 0.999); "
+        f"{fmt(n_sor)}")
+    check(agree >= 0.999, "the sharded outlier mask disagrees with knn's")
+    report["phase49"]["outlier_stats"] = {**n_sor, "kept": int(keep.sum()), "agree": agree}
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 50 --------------------------------------------------------------
+    log(f"phase 50: ring kNN, ring normals and the ICP family at {N_RING:,} points")
+    knn_fn = tp.make_sharded_knn(mesh, RING_K)
+    (rd, ri), n_knn = counted(lambda: knn_fn(ring, ring, rm))
+    rd, ri = rd.gather(), ri.gather().long()
+    ref = neighbors.knn(ring, rm, ring, rm, RING_K)
+    sq = (ring * ring).sum(1)
+    ulp = 2.0 ** -23 * (sq[:, None] + sq[ref.indices])
+    d2_ulps = ((rd ** 2 - ref.distances ** 2).abs() / ulp).max().item()
+    gap = ref.distances.diff(dim=1) > 1e-5
+    apart = torch.ones_like(gap[:, :1]).expand(-1, RING_K).clone()
+    apart[:, :-1] &= gap
+    apart[:, 1:] &= gap
+    ids_eq = (ri == ref.indices)[apart].float().mean().item()
+    log(f"  ring kNN k={RING_K}: d2 within {d2_ulps:.2f} ulps of |q|^2 + |p|^2 of knn's (need <= "
+        f"{D2_ULPS}), ids equal on {ids_eq:.6f} of the slots whose distances are apart (need "
+        f">= 0.999); {fmt(n_knn)}")
+    check(d2_ulps <= D2_ULPS and ids_eq >= 0.999, "the ring kNN disagrees with knn")
+
+    nrm_fn = tp.make_sharded_normals(mesh, k=RING_K)
+    rn, n_rn = counted(lambda: nrm_fn(ring, rm))
+    rn = rn.gather()
+    ref = tt.estimate_normals_detailed(tt.PointCloud.from_points(ring), tt.NormalEstimationConfig(
+        k_neighbors=RING_K + 1, method="exact", viewpoint=(0.0, 0.0, 0.0)))
+    ok = ref.valid & (rn.norm(dim=1) > 0)
+    cos = (rn * ref.normals).sum(1)[ok]
+    cos_share = (cos >= 0.9999).float().mean().item()
+    log(f"  ring normals k={RING_K}: |cos| >= 0.9999 (orientation included) to the exact path at "
+        f"k={RING_K + 1} (the same neighbourhood with its self match) on {cos_share:.6f} of "
+        f"{int(ok.sum()):,} valid points (need >= 0.999); {fmt(n_rn)}")
+    check(cos_share >= 0.999, "ring normals disagree with the exact path")
+    report["phase50"] = {"knn": {**n_knn, "d2_ulps": d2_ulps, "ids_equal": ids_eq},
+                         "normals": {**n_rn, "cos_share": cos_share}}
+    del rd, ri, ref, rn
+
+    src_c = tt.PointCloud.from_points(ring)
+    tgt_pts = ring + torch.from_numpy(SHIFT).to(dev)
+    tgt_c = tt.estimate_normals(tt.PointCloud.from_points(tgt_pts), k=K_NORMALS)
+    singles = {
+        "icp": lambda: tt.icp_point_to_point(src_c, tgt_c, RING_ICP_ITERS).transformation,
+        "p2plane": lambda: tt.icp_point_to_plane(src_c, tgt_c, RING_ICP_ITERS).transformation,
+        "gicp": lambda: tt.gicp(src_c, tgt_c, tt.GicpConfig(
+            max_iterations=RING_ICP_ITERS)).transformation}
+    sharded = {
+        "icp": (tp.make_sharded_icp(mesh, RING_ICP_ITERS), (ring, rm, tgt_pts, rm)),
+        "p2plane": (tp.make_sharded_icp_p2plane(mesh, RING_ICP_ITERS),
+                    (ring, rm, tgt_pts, rm, tgt_c.normals)),
+        "gicp": (tp.make_sharded_gicp(mesh, RING_ICP_ITERS, max_correspondence_distance=1.0),
+                 (ring, rm, tgt_pts, rm))}
+    for name, (fn, args) in sharded.items():
+        (t, mse, it, conv), nums = counted(lambda: fn(*args))
+        t = t.cpu().numpy()
+        ts = singles[name]().cpu().numpy()
+        shift_err = float(np.abs(t[:3, 3] - SHIFT).max())
+        vs_single = float(np.abs(t - ts).max())
+        nums.update({"iterations": int(it), "converged": bool(conv), "mse": float(mse),
+                     "shift_err_m": shift_err, "rot_err": rot_err(t, np.eye(3)),
+                     "vs_single": vs_single, "ms_an_iteration": nums["ms"] / max(int(it), 1)})
+        log(f"  sharded {name}: translation {t[:3, 3].tolist()} ({int(it)} iterations, converged "
+            f"{bool(conv)}, mse {float(mse):.3e}), shift within {shift_err:.2e} m and rotation "
+            f"within {nums['rot_err']:.2e} (need <= {RING_POSE_TOL}), the single-device pose "
+            f"within {vs_single:.2e} (need <= {RING_POSE_TOL}); {fmt(nums)}")
+        check(shift_err <= RING_POSE_TOL and nums["rot_err"] <= RING_POSE_TOL
+              and vs_single <= RING_POSE_TOL, f"sharded {name} missed the pose")
+        report["phase50"][name] = nums
+
+    bmesh = tp.Mesh(np.array([dev] * SHARDS, dtype=object).reshape(2, SHARDS // 2),
+                    ("batch", "points"))
+    base = scan(BATCH_POINTS, 1)
+    src_b = torch.from_numpy(np.stack([base, base])).to(dev)
+    tgt_b = src_b + torch.from_numpy(BATCH_SHIFTS).to(dev)[:, None, :]
+    mb = torch.ones(2, BATCH_POINTS, dtype=torch.bool, device=dev)
+    batch_fn = tp.make_sharded_batch_icp(bmesh, RING_ICP_ITERS)
+    (bt, _, bit, _), n_b = counted(lambda: batch_fn(src_b, mb, tgt_b, mb))
+    bt, bit = bt.gather().cpu().numpy(), bit.gather().cpu().numpy()
+    b_err = float(np.abs(bt[:, :3, 3] - BATCH_SHIFTS).max())
+    log(f"  sharded batch ICP on a 2 x {SHARDS // 2} mesh, two {BATCH_POINTS:,}-point pairs: "
+        f"shifts within {b_err:.2e} m (need <= {BATCH_POSE_TOL}), iterations {bit.tolist()}; "
+        f"{fmt(n_b)}")
+    check(b_err <= BATCH_POSE_TOL, "sharded batch ICP missed a shift")
+    report["phase50"]["batch_icp"] = {**n_b, "shift_err_m": b_err, "iterations": bit.tolist()}
+    del src_b, tgt_b, src_c, tgt_c
+    log(f"  ({report['card']}, SM clock {sm_clock()})")
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 51 --------------------------------------------------------------
+    log(f"phase 51: the sharded FPFH -> matching -> RANSAC chain at {N_RING:,} points, the "
+        f"registration pair's rotation ({REG_ANGLE} rad) and shift {REG_SHIFT.tolist()}")
+    tgt_np = scan(N_RING, 3)
+    c, s = np.cos(REG_ANGLE), np.sin(REG_ANGLE)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    tgt = torch.from_numpy(tgt_np).to(dev)
+    src = torch.from_numpy((tgt_np @ rot.T + REG_SHIFT).astype(np.float32)).to(dev)
+    normals_fn = tp.make_sharded_normals(mesh, k=K_NORMALS)
+    fpfh_fn = tp.make_sharded_fpfh(mesh, RING_FPFH_RADIUS, k=RING_FPFH_K)
+    tn, sn = normals_fn(tgt, rm), normals_fn(src, rm)
+    (td, tv), n_fpfh = counted(lambda: fpfh_fn(tgt, rm, tn))
+    sd, sv = fpfh_fn(src, rm, sn)
+    ref_d, ref_v = features._fpfh(tgt, rm, tn.gather(), RING_FPFH_RADIUS, RING_FPFH_K, 11)
+    tdg, tvg = td.gather(), tv.gather()
+    both = tvg & ref_v
+    na = tdg[both] / tdg[both].norm(dim=1, keepdim=True).clamp_min(1e-9)
+    nb = ref_d[both] / ref_d[both].norm(dim=1, keepdim=True).clamp_min(1e-9)
+    fcos = (na * nb).sum(1)
+    f_med, f_mean = fcos.median().item(), fcos.mean().item()
+    log(f"  sharded FPFH (r = {RING_FPFH_RADIUS}, k = {RING_FPFH_K}) against the single-device "
+        f"staged _fpfh on the same normals: valid {int(tvg.sum()):,} / {int(ref_v.sum()):,}, "
+        f"cosine median {f_med:.6f} (need >= 0.999) and mean {f_mean:.6f} (need >= 0.99; "
+        f"tests/test_parallel.py's bounds: the sharded form keeps a self pair whose expanded d2 "
+        f"rounds above 1e-18); {fmt(n_fpfh)}")
+    check(f_med >= 0.999 and f_mean >= 0.99, "sharded FPFH disagrees with the staged FPFH")
+
+    match_fn = tp.make_sharded_match_descriptors(mesh)
+    (mj, mdist, mok, mpts), n_match = counted(lambda: match_fn(sd, sv, td, tv, tgt))
+    mj, mdist, mok = mj.gather().long(), mdist.gather(), mok.gather()
+    sdg = sd.gather()
+    rj, rdist, rok = features.match_descriptors(sdg, sv.gather(), tdg, tvg)
+    same_ok = torch.equal(mok, rok)
+    ids_eq = (mj == rj)[mok].float().mean().item()
+    # d2 in ulps of |a|^2 + |b|^2: the pair's descriptors are near copies, so
+    # d is the square root of the expanded d2's rounding
+    ulp = 2.0 ** -23 * ((sdg * sdg).sum(1) + (tdg[rj] * tdg[rj]).sum(1))
+    d_ulps = ((mdist ** 2 - rdist ** 2).abs() / ulp)[mok].max().item()
+    payload = torch.equal(mpts.gather()[mok], tgt[mj[mok]])
+    log(f"  sharded matching: ok equal {same_ok}, ids equal on {ids_eq:.6f} (need >= 0.99: "
+        f"equal descriptors tie), d2 within {d_ulps:.2f} ulps of |a|^2 + |b|^2 of "
+        f"match_descriptors' (need <= {D2_ULPS}), matched points the target's rows {payload}; "
+        f"{fmt(n_match)}")
+    check(same_ok and ids_eq >= 0.99 and d_ulps <= D2_ULPS and payload,
+          "sharded matching disagrees with match_descriptors")
+
+    reg_fn = tp.make_sharded_global_registration(mesh, fpfh_radius=RING_FPFH_RADIUS,
+                                                 k_fpfh=RING_FPFH_K)
+    (t, count, ratio), n_reg = counted(lambda: reg_fn(src, rm, tgt, rm))
+    t = t.cpu().numpy()
+    # t maps the source onto the target: R' = rot^T, t' = -rot^T shift
+    t_err = float(np.abs(t[:3, 3] + rot.T @ REG_SHIFT).max())
+    r_err = rot_err(t, rot.T)
+    log(f"  sharded global registration: inliers {int(count):,} (ratio {float(ratio):.4f}), "
+        f"rotation within {r_err:.2e} and translation within {t_err:.2e} m of the truth (need <= "
+        f"{BATCH_POSE_TOL}); {fmt(n_reg)}")
+    check(r_err <= BATCH_POSE_TOL and t_err <= BATCH_POSE_TOL,
+          "sharded global registration missed the pose")
+    report["phase51"] = {"fpfh": {**n_fpfh, "cos_median": f_med, "cos_mean": f_mean},
+                         "match": {**n_match, "ids_equal": ids_eq, "d2_ulps": d_ulps},
+                         "registration": {**n_reg, "rot_err": r_err, "trans_err_m": t_err,
+                                          "inliers": int(count), "ratio": float(ratio)}}
+    log(f"  ({report['card']}, SM clock {sm_clock()})")
+    log(f"  phase {phase_seconds()}")
     return total, report
 
 

@@ -47,7 +47,14 @@ read the card; the survey-tile slice: LAS, LAZ, LAS 1.4, E57 and
 ``.tcz`` reads land on the card with the bits of the host read, the
 streaming voxel filter's state and rows on the card equal its CPU run's
 bit for bit, and colorization picks the CPU's pixel for every point with
-bit-equal colours (the same elementwise fused multiply-adds).
+bit-equal colours (the same elementwise fused multiply-adds); the
+multi-shard points axis on meshes of the card's device repeated: the
+collectives (1-D and 2-D, ppermute's zero fill) bit-equal to their CPU
+run, a 4-shard ring kNN with ``neighbors.knn``'s squared distances within
+2e-6 and its ids where the distances are apart, one shard's kernel-4
+launch with its halos bit-equal to the plain version (and 8 launches a
+call), the distributed sort on tied keys a permutation equal to the
+stable sort and to its CPU run.
 """
 
 import numpy as np
@@ -1555,3 +1562,124 @@ def test_colorization_on_card_matches_cpu(cuda, mode):
     one = [tt.colorize_point_cloud(tt.PointCloud.from_numpy(pts, device=d), views[1], m)
            for d in (cuda, "cpu")]
     assert torch.equal(one[0].colors.cpu(), one[1].colors)
+
+
+# ---------------------------------------------------------------------------
+# the multi-shard points axis: meshes of the card's device repeated
+# ---------------------------------------------------------------------------
+
+def _card_mesh(cuda, n=8):
+    from threecrate_tpu_torch import parallel as tp
+    return tp.make_mesh(n, devices=[cuda] * n)
+
+
+def test_make_mesh_defaults_to_the_cards(cuda):
+    from threecrate_tpu_torch import parallel as tp
+    mesh = tp.make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in mesh.device_list)
+    with pytest.raises(ValueError, match="requested"):
+        tp.make_mesh(torch.cuda.device_count() + 1)
+
+
+@pytest.mark.parametrize("name", ["ppermute", "psum", "pmin", "pmax", "all_gather",
+                                  "all_gather tiled"])
+@pytest.mark.parametrize("two_d", [False, True])
+def test_collectives_on_card_match_cpu(cuda, name, two_d):
+    """The collectives on eight shards of the card equal the same on eight
+    CPU shards, bit for bit; ppermute zero-fills the shards nobody sends
+    to, and on a 2-D mesh each acts along the points axis alone."""
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.parallel import collectives as col
+    perm = [(0, 1), (1, 2), (3, 0)]
+    ops = {"ppermute": lambda xs, m: col.ppermute(xs, m, "points", perm),
+           "psum": lambda xs, m: col.psum(xs, m, "points"),
+           "pmin": lambda xs, m: col.pmin(xs, m, "points"),
+           "pmax": lambda xs, m: col.pmax(xs, m, "points"),
+           "all_gather": lambda xs, m: col.all_gather(xs, m, "points"),
+           "all_gather tiled": lambda xs, m: col.all_gather(xs, m, "points", tiled=True)}
+    x = np.random.default_rng(9).normal(size=(2, 8, 5)).astype(np.float32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        if two_d:
+            mesh = tp.Mesh(np.array([dev] * 8, dtype=object).reshape(2, 4), ("batch", "points"))
+            spec = tp.P("batch", "points")
+            arg = x
+        else:
+            mesh = tp.make_mesh(8, devices=[dev] * 8)
+            spec = tp.P("points")
+            arg = x[0]
+        out = col.shard_map(lambda xs: ops[name](xs, mesh), mesh, (spec,), spec)(arg)
+        outs.append([s.cpu() for s in out.shards])
+        if dev.type == "cuda":
+            assert all(s.device.type == "cuda" for s in out.shards)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    if name == "ppermute":
+        senders = {d for _, d in perm}
+        width = 4 if two_d else 8
+        for i, s in enumerate(outs[0]):
+            assert bool(s.any()) == (i % width in senders)
+
+
+def test_ring_knn_on_card_matches_knn(cuda):
+    """A 4-shard ring kNN on the card: the exact ``knn``'s ids (where the
+    distances are apart) and its squared distances within 2e-6."""
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.ops import neighbors
+    rng = np.random.default_rng(31)
+    db = torch.from_numpy(rng.uniform(-2, 2, (8192, 3)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.uniform(-2, 2, (4096, 3)).astype(np.float32)).to(cuda)
+    mask = torch.ones(8192, dtype=torch.bool, device=cuda)
+    d, idx = tp.make_sharded_knn(_card_mesh(cuda, 4), 8)(q, db, mask)
+    d, idx = d.gather(), idx.gather()
+    ref = neighbors.knn(db, mask, q, None, 8)
+    np.testing.assert_allclose((d ** 2).cpu().numpy(), (ref.distances ** 2).cpu().numpy(),
+                               atol=2e-6, rtol=0)
+    apart = torch.ones_like(ref.distances, dtype=torch.bool)
+    gap = ref.distances.diff(dim=1) > 1e-5
+    apart[:, :-1] &= gap
+    apart[:, 1:] &= gap
+    assert torch.equal(idx.long()[apart], ref.indices[apart])
+
+
+def test_window_normals_shard_launch_matches_plain(cuda):
+    """One shard's kernel-4 launch on its slice with a one-tile halo from
+    each neighbour equals the plain version on the same extended slice,
+    and the 8-shard call launches the kernel once a shard."""
+    from threecrate_tpu_torch import parallel as tp
+    pts = _scan(8 * 4096, 3)
+    spts, smask, _ = tp.morton_presort(pts, np.ones(len(pts), bool), 8, tile=TILE)
+    p = torch.from_numpy(spts).to(cuda)
+    m = torch.from_numpy(smask).to(cuda)
+    s = p.shape[0] // 8
+    ext = p[3 * s - TILE:4 * s + TILE].T.contiguous()      # shard 3 with its halos
+    ext_m = m[3 * s - TILE:4 * s + TILE].to(torch.float32)[None].contiguous()
+    got = window_normals_tiles(ext, ext_m, K, TILE, BAND)
+    ref = window_normals_plain(ext, ext_m, K, TILE, BAND)
+    assert torch.equal(got, ref)
+    kernels.reset_launch_counts()
+    nrm, valid = tp.make_sharded_normals_window(_card_mesh(cuda), k=K, tile=TILE, band=BAND,
+                                                presorted=True)(p, m)
+    assert kernels.launch_counts()["window_normals"] == 8
+    rows = ref[:, TILE:TILE + s]
+    v3 = valid.shards[3]
+    assert torch.equal(v3, m[3 * s:4 * s] & (rows[4] >= 3))
+
+
+def test_distributed_sort_on_card_with_tied_keys(cuda):
+    """4,096 points drawn from 64: the card's sort is a permutation, equal
+    to the stable sort of the keys and to its CPU run."""
+    from threecrate_tpu_torch import parallel as tp
+    rng = np.random.default_rng(7)
+    base = rng.uniform(-3, 3, (64, 3)).astype(np.float32)
+    pts = base[rng.integers(0, 64, 4096)]
+    mask = np.ones(4096, bool)
+    out = [tuple(x.gather().cpu() for x in tp.make_distributed_morton_sort(
+        tp.make_mesh(8, devices=[d] * 8))(pts, mask)) for d in (cuda, torch.device("cpu"))]
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    gid = out[0][2].numpy()
+    np.testing.assert_array_equal(np.sort(gid), np.arange(4096))
+    keys = morton.morton_keys(torch.from_numpy(pts), torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(gid, np.argsort(keys, kind="stable"))
