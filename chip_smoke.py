@@ -313,10 +313,45 @@ with its busy time, peak, host syncs and launches:
     ``match_descriptors`` (ids on 99%, d2 within 4 ulps), and ``make_sharded_global_registration``'s pose
     within 5e-3 of the truth.
 
-Phases 44-51 print the card's name, power limit and SM clock beside
+The user-facing surface (phases 52-54): the root names of ``api`` and
+``compat`` driven from NumPy arrays as a user of the reference module
+calls them, the debug hooks and ``viz`` (no PNG: the card machine has no
+PIL), each gated against the native call or the port's CPU run:
+52. on ``scan(1_048_576, 52)`` as a NumPy array: ``tt.estimate_normals(p)``
+    and ``tt.estimate_normals(p, k_neighbors=8)`` (the union kernels once
+    each, normals on the card bit-equal to the native call on
+    ``PointCloud.from_numpy(p)``), ``tt.icp(src, tgt, 30,
+    init_transform=m4)`` (``icp_match`` once an iteration, a callable
+    4x4 equal to the native call with ``init=Transform.from_matrix(m4)``,
+    the shift within 1e-3), ``tt.extract_fpfh_features(cloud, 0.25, 10)``
+    (an (N, 33) array equal to the native descriptors' valid rows; the
+    union, banded SPFH and weight kernels once each),
+    ``tt.global_registration`` in the reference's positional convention
+    on the registration pair (the union, SPFH, weight kernels twice and
+    ``icp_match``; phase 8's gate, the native call's pose),
+    ``tt.simplify_mesh(mesh, 0.5)`` on a 25,600-face UV sphere (12,800
+    faces), ``tt.remove_statistical_outliers(p)`` (the window kNN kernel:
+    1M is above its 262,144-point threshold; the native call's mask),
+    ``tt.voxel_downsample(p, 0.05)`` and ``tt.transform_point_cloud(p,
+    m4)`` (bit-equal to the native calls) and the prelude's names; each
+    adapter's time beside its native call's;
+53. ``utils.profiling.trace(log_dir)`` around one ``PerceptionStep`` (the
+    trace names the union and ICP kernels), ``median_time(fn, sync_fn=...)``
+    (``sync_fn`` applied to every result) and ``utils.debug.nan_checks()``
+    (raises on a NaN on the card; its cost on a clean ``PerceptionStep``);
+54. ``viz`` at full width: ``render_point_cloud`` of the 1M scan at 640x480
+    and 1280x720 (``point_size=2``) against the port's CPU run (within
+    1e-6 on >= 99.5% of pixels), ``render_mesh``, ``render_mesh_pbr`` and
+    ``render_to_texture`` (both modes, against the direct call) of a
+    102,400-face UV sphere at 640x480 against the CPU raster of 2,048
+    sampled pixels (within 1e-5 on >= 99%), and ``InteractiveViewer(960, 720)`` with keys, ``render``,
+    ``frame_ansi``, ``run_plane_segmentation`` and ``run_icp`` (``icp_match``
+    once an iteration); each timed with its busy time, peak and host syncs.
+
+Phases 44-54 print the card's name, power limit and SM clock beside
 their times. The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21, 23-36, 41, 45 and 48; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21, 23-36, 41, 45, 48 and 52-54; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 and k = 8 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -627,6 +662,20 @@ SOR_K, SOR_STD = 8, 1.0    # statistical_outlier_removal's defaults
 RING_FPFH_RADIUS, RING_FPFH_K = 0.5, 64
 D2_ULPS = 4                # ring d2 against knn's: ulps of |q|^2 + |p|^2
 SEAM_TOL_DEG = 0.05        # sharded window normals' planar angle against one device's one pass
+# Phases 52-54: the user-facing surface. The root names run on N_ROOT
+# points of scan(N_ROOT, ROOT_SEED) passed as NumPy arrays; ICP starts from
+# half of phase 5's shift; simplify_mesh halves a UV sphere of 4·80² faces;
+# the renders are held against the port's CPU run (points: the whole
+# image, RENDER_PIXEL_TOL on >= RENDER_POINT_SHARE of pixels; meshes of
+# 4·160² faces: RENDER_SAMPLE pixels, RENDER_MESH_TOL on >=
+# RENDER_MESH_SHARE of them; the card's fused multiply-adds may round a
+# pixel centre or an edge test the other way)
+N_ROOT, ROOT_SEED = 1_048_576, 52
+SIMPLIFY_SUB, RENDER_SUB = 80, 160
+RENDER_SIZES = ((640, 480), (1280, 720))
+RENDER_PIXEL_TOL, RENDER_POINT_SHARE = 1e-6, 0.995
+RENDER_MESH_TOL, RENDER_MESH_SHARE, RENDER_SAMPLE = 1e-5, 0.99, 2048
+VIEWER_SIZE = (960, 720)
 
 
 def log(msg: str) -> None:
@@ -1529,6 +1578,351 @@ def fused_counts(points, mask):
     return out[:points.shape[0]]
 
 
+def root_surface_phases(dev, kernels):
+    """Phases 52-54: the user-facing surface. The root names (``compat``'s
+    adapters and ``api``'s helpers) take NumPy arrays, which land on the
+    card; each is held against the native call on a cloud built on the
+    card, and its time is logged beside that call's. Then the debug and
+    profiling hooks, and ``viz`` at full width against the port's CPU run.
+    Returns (launches of the root names' and the viewer's runs, numbers
+    for the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch import prelude
+    from threecrate_tpu_torch.models import PerceptionStep
+    from threecrate_tpu_torch.ops import features, filtering, normals, registration
+    from threecrate_tpu_torch.ops import global_registration as greg
+    from threecrate_tpu_torch.utils import debug, profiling
+    from threecrate_tpu_torch.utils.profiling import device_profile, median_time
+    from threecrate_tpu_torch.viz import InteractiveViewer
+    from threecrate_tpu_torch.viz import renderer as tr
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line()}
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        return f"{t:.1f} s"
+
+    def counted(fn, expect):
+        """fn() with the launch counters reset just before: its output and
+        launches, checked to be exactly ``expect``."""
+        out, counts = run_counted(kernels, total, fn)
+        check(only(counts, expect), f"launches {dict(counts)}, expected exactly {expect}")
+        return out, {k: n for k, n in counts.items() if n}
+
+    def side_by_side(name, adapter, native, iters=3):
+        """The adapter's and the native call's ms (CUDA-event medians, warm)."""
+        a = 1e3 * median_time(adapter, warmup=1, iters=iters)
+        b = 1e3 * median_time(native, warmup=0, iters=iters)
+        log(f"  {name}: adapter {a:.2f} ms, native {b:.2f} ms, difference {a - b:.2f} ms "
+            f"({report['card']})")
+        report.setdefault("adapter_ms", {})[name] = {"adapter": a, "native": b}
+
+    def once(fn):
+        """One more (warm) call of ``fn`` under ``torch.profiler`` (CUDA
+        activity only) with ``torch.cuda.set_sync_debug_mode("warn")``: wall
+        ms (host clock around it and a synchronise), device busy ms, peak
+        GiB and the host syncs counted in that call."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        caught = []
+
+        def traced():
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    caught.extend(got)
+
+        wall, busy, _ = device_profile(traced, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        return {"ms": wall, "busy_ms": busy, "peak_gib": peak,
+                "host_syncs": sum("synchroniz" in str(w.message) for w in caught)}
+
+    def fmt(m):
+        return (f"{m['ms']:.1f} ms, device busy {m['busy_ms']:.1f} ms (idle share "
+                f"{1 - m['busy_ms'] / m['ms']:.3f}), peak {m['peak_gib']:.3f} GiB, "
+                f"{m['host_syncs']} host syncs")
+
+    # -- phase 52 -----------------------------------------------------------
+    log(f"phase 52: the root names on {N_ROOT:,} points of scan({N_ROOT}, {ROOT_SEED}) "
+        f"passed as NumPy arrays ({report['card']}, SM clock {sm_clock()})")
+    p = scan(N_ROOT, ROOT_SEED)
+    cloud = tt.PointCloud.from_numpy(p, device=dev)
+    union = {"union_window_a": 1, "union_window_b": 1}
+    for kw, k in (({}, 10), ({"k_neighbors": 8}, 8)):
+        got, counts = counted(lambda: tt.estimate_normals(p, **kw), union)
+        ref = normals.estimate_normals(tt.PointCloud.from_numpy(p, device=dev), k)
+        same = torch.equal(got.normals, ref.normals) and torch.equal(got.mask, ref.mask)
+        log(f"  estimate_normals(p{', k_neighbors=8' if kw else ''}): on {got.device}, launches "
+            f"{counts}, normals bit-equal to the native call {same}")
+        check(got.device.type == "cuda" and same, "estimate_normals(array) disagrees")
+        side_by_side(f"estimate_normals k={k}", lambda: tt.estimate_normals(p, **kw),
+                     lambda: normals.estimate_normals(tt.PointCloud.from_numpy(p, device=dev),
+                                                      k))
+    del got, ref
+
+    src, tgt = p, p + SHIFT
+    m4 = np.eye(4, dtype=np.float32)
+    m4[:3, 3] = 0.5 * SHIFT
+    res, counts = run_counted(kernels, total, lambda: tt.icp(src, tgt, 30, init_transform=m4))
+    nat = registration.icp_point_to_point(
+        tt.PointCloud.from_numpy(src, device=dev), tt.PointCloud.from_numpy(tgt, device=dev),
+        30, init=tt.Transform.from_matrix(m4))
+    t_icp = res.transformation()
+    same = np.array_equal(t_icp, nat.transformation.cpu().numpy())
+    err = float(np.abs(t_icp[:3, 3] - SHIFT).max())
+    kind = type(res.transformation).__name__
+    log(f"  icp(src, tgt, 30, init_transform=m4): {res.iterations} iterations, launches "
+        f"{ {k: n for k, n in counts.items() if n} }, callable 4x4 {kind}, equal to the "
+        f"native call {same}, shift within {err:.2e} m")
+    check(only(counts, {"icp_match": res.iterations}) and same and err <= 1e-3
+          and isinstance(res.transformation, np.ndarray), "icp(arrays, init_transform) failed")
+    side_by_side("icp", lambda: tt.icp(src, tgt, 30, init_transform=m4),
+                 lambda: registration.icp_point_to_point(
+                     tt.PointCloud.from_numpy(src, device=dev),
+                     tt.PointCloud.from_numpy(tgt, device=dev), 30,
+                     init=tt.Transform.from_matrix(m4)))
+
+    fpfh_expect = {**union, "spfh_band_a": 1, "spfh_band_b": 1, "fpfh_weight_a": 1,
+                   "fpfh_weight_b": 1}
+    feats, counts = counted(lambda: tt.extract_fpfh_features(cloud, 0.25, 10), fpfh_expect)
+    nat = features.extract_fpfh_features(cloud, features.FpfhConfig(radius=0.25), k_normals=10)
+    ref = nat.descriptors[cloud.mask].cpu().numpy()
+    scale = np.maximum(np.abs(ref).sum(1, keepdims=True), 1.0)
+    rel = float((np.abs(feats - ref) / scale).max())
+    log(f"  extract_fpfh_features(cloud, 0.25, 10): {type(feats).__name__} {feats.shape} "
+        f"{feats.dtype}, launches {counts}; against the native descriptors' valid rows: "
+        f"bit-equal {np.array_equal(feats, ref)}, max |diff| / row scale {rel:.2e} (need <= "
+        f"{FPFH_REL_TOL})")
+    check(isinstance(feats, np.ndarray) and feats.shape == (N_ROOT, 33) and rel <= FPFH_REL_TOL,
+          "extract_fpfh_features(reference convention) disagrees")
+    side_by_side("extract_fpfh_features", lambda: tt.extract_fpfh_features(cloud, 0.25, 10),
+                 lambda: features.extract_fpfh_features(cloud, features.FpfhConfig(radius=0.25),
+                                                        k_normals=10))
+    del feats, nat, ref
+
+    rs, rt, rot = registration_pair()
+    ref_args = (REG_CONFIG["ransac_iterations"], REG_CONFIG["distance_threshold"], 0.25,
+                FPFH_RADIUS, 10, 10, True, 30)
+    res, counts = run_counted(kernels, total, lambda: tt.global_registration(rs, rt, *ref_args))
+    cfg = greg.GlobalRegistrationConfig(
+        ransac_iterations=ref_args[0], distance_threshold=ref_args[1], inlier_ratio=0.25,
+        fpfh_radius=FPFH_RADIUS, k_normals=10, refine_with_icp=True, icp_max_iterations=30)
+    nat = greg.global_registration(tt.PointCloud.from_numpy(rs, device=dev),
+                                   tt.PointCloud.from_numpy(rt, device=dev), cfg)
+    t_g = res.transformation()
+    r_err, t_err = pose_error(t_g, rot)
+    nat_diff = float(np.abs(t_g - nat.transformation.cpu().numpy()).max())
+    log(f"  global_registration(src, tgt, {', '.join(map(str, ref_args))}): launches "
+        f"{ {k: n for k, n in counts.items() if n} }; |R'R - I| {r_err:.3e} (tol 1e-3), "
+        f"|R't + t'| {t_err:.3e} m (tol 1e-2); native call's pose within {nat_diff:.2e}")
+    check(r_err <= 1e-3 and t_err <= 1e-2 and nat_diff <= 1e-5,
+          "global_registration (reference convention) missed the pose")
+    check(all(counts[k] == 2 for k in ("union_window_a", "union_window_b", "spfh_a", "spfh_b",
+                                       "fpfh_weight_a", "fpfh_weight_b"))
+          and counts["icp_match"] >= 1
+          and not any(counts[k] for k in BAND_KERNELS + ("knn_window",)),
+          "global_registration launched other kernels than its own")
+    side_by_side("global_registration", lambda: tt.global_registration(rs, rt, *ref_args),
+                 lambda: greg.global_registration(tt.PointCloud.from_numpy(rs, device=dev),
+                                                  tt.PointCloud.from_numpy(rt, device=dev),
+                                                  cfg), iters=1)
+    report["phase52"] = {"global_registration": {"rot_err": r_err, "trans_err_m": t_err,
+                                                 "native_diff": nat_diff}}
+    del rs, rt
+
+    sv, sf = uv_sphere(SIMPLIFY_SUB)
+    sphere = tt.TriangleMesh.from_numpy(sv, sf, device=dev)
+    simp, counts = counted(lambda: tt.simplify_mesh(sphere, 0.5), {})
+    n_simp = int(simp.face_count())
+    log(f"  simplify_mesh(mesh, 0.5) on a {len(sf):,}-face UV sphere: {n_simp:,} faces (need "
+        f"{round(len(sf) * 0.5):,}), on {simp.vertices.device}")
+    check(n_simp == round(len(sf) * 0.5) and simp.vertices.device.type == "cuda",
+          "simplify_mesh(ratio) missed its face count")
+
+    kept, counts = run_counted(kernels, total, lambda: tt.remove_statistical_outliers(p))
+    nat = filtering.statistical_outlier_removal(cloud, 20, 2.0)
+    same = torch.equal(kept.mask, nat.cloud.mask)
+    log(f"  remove_statistical_outliers(p): kept {int(kept.mask.sum()):,} of {N_ROOT:,}, "
+        f"launches { {k: n for k, n in counts.items() if n} }, mask equal to the native "
+        f"call's {same}")
+    check(counts["knn_window"] >= 1 and same and kept.device.type == "cuda",
+          "remove_statistical_outliers(array) disagrees or skipped the window kernel")
+    side_by_side("remove_statistical_outliers", lambda: tt.remove_statistical_outliers(p),
+                 lambda: filtering.statistical_outlier_removal(
+                     tt.PointCloud.from_numpy(p, device=dev), 20, 2.0))
+    down, _ = counted(lambda: tt.voxel_downsample(p, 0.05), {})
+    ref = tt.voxel_grid_filter(tt.PointCloud.from_numpy(p, device=dev), 0.05)
+    moved, _ = counted(lambda: tt.transform_point_cloud(p, m4), {})
+    mref = tt.PointCloud.from_numpy(p, device=dev).transform(tt.Transform.from_matrix(m4))
+    same = (torch.equal(down.points, ref.points) and torch.equal(down.mask, ref.mask),
+            torch.equal(moved.points, mref.points))
+    log(f"  voxel_downsample(p, 0.05): {len(down):,} voxels, bit-equal to voxel_grid_filter "
+        f"{same[0]}; transform_point_cloud(p, m4) bit-equal to PointCloud.transform {same[1]}")
+    check(all(same), "voxel_downsample or transform_point_cloud disagrees")
+    side_by_side("voxel_downsample", lambda: tt.voxel_downsample(p, 0.05),
+                 lambda: tt.voxel_grid_filter(tt.PointCloud.from_numpy(p, device=dev), 0.05))
+    side_by_side("transform_point_cloud", lambda: tt.transform_point_cloud(p, m4),
+                 lambda: tt.PointCloud.from_numpy(p, device=dev).transform(
+                     tt.Transform.from_matrix(m4)))
+    missing = [n for n in prelude.__all__ if getattr(prelude, n) is not getattr(tt, n)]
+    log(f"  prelude: {len(prelude.__all__)} names, all the root's objects {not missing}")
+    check(len(prelude.__all__) == 33 and not missing, f"prelude names differ: {missing}")
+    del down, ref, moved, mref, kept, nat, simp, sphere
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 53 -----------------------------------------------------------
+    log("phase 53: utils.profiling.trace, median_time(sync_fn=...) and utils.debug.nan_checks "
+        "on the card")
+    ps, pt = scan(N_SCAN, 0), scan(N_SCAN, 0) + SHIFT
+    pmask = np.ones(N_SCAN, bool)
+    step = PerceptionStep()
+    step(ps, pmask, pt, pmask)
+    log_dir = Path(__file__).resolve().parent / "build" / "trace53"
+    with profiling.trace(log_dir=str(log_dir)) as got_dir:
+        step(ps, pmask, pt, pmask)
+        torch.cuda.synchronize()
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    names = set()
+    for f in files:
+        names |= {e.get("name", "") for e in json.loads(f.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"}
+    union_k = sorted(n for n in names if "union" in n.lower())
+    icp_k = sorted(n for n in names if "icp_match" in n.lower())
+    log(f"  trace(log_dir) yielded {got_dir == str(log_dir)}, wrote {[f.name for f in files]}; "
+        f"{len(names)} kernel names, the union kernels {union_k[:2]}, icp_match {icp_k[:2]}")
+    check(got_dir == str(log_dir) and files and union_k and icp_k,
+          "trace wrote no trace naming the union and ICP kernels")
+    synced = []
+    t_sync = median_time(lambda: step(ps, pmask, pt, pmask), warmup=1, iters=3,
+                         sync_fn=lambda out: synced.append(profiling.sync(out)))
+    log(f"  median_time(step, sync_fn=...): {1e3 * t_sync:.2f} ms, sync_fn called "
+        f"{len(synced)} times (need 4: 1 warm-up + 3 runs)")
+    check(len(synced) == 4 and t_sync > 0, "median_time did not apply sync_fn to each result")
+    raised = False
+    try:
+        with debug.nan_checks():
+            torch.zeros(1, device=dev) / torch.zeros(1, device=dev)
+    except FloatingPointError:
+        raised = True
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    check(raised and _get_current_dispatch_mode() is None,
+          "nan_checks did not raise on a NaN on the card")
+
+    def checked_step():
+        with debug.nan_checks():
+            return step(ps, pmask, pt, pmask)
+
+    plain_ms = 1e3 * median_time(lambda: step(ps, pmask, pt, pmask), warmup=1, iters=3)
+    checked_ms = 1e3 * median_time(checked_step, warmup=1, iters=3)
+    log(f"  nan_checks raised FloatingPointError on a CUDA 0/0 {raised}; PerceptionStep "
+        f"{plain_ms:.2f} ms, under nan_checks {checked_ms:.2f} ms (+{checked_ms - plain_ms:.2f} "
+        f"ms, clean: no raise) ({report['card']})")
+    report["phase53"] = {"step_ms": plain_ms, "nan_checked_step_ms": checked_ms,
+                         "median_time_sync_fn_ms": 1e3 * t_sync}
+    del step, ps, pt
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 54 -----------------------------------------------------------
+    log(f"phase 54: viz at full width ({report['card']}, SM clock {sm_clock()})")
+    host = tt.PointCloud.from_numpy(p, device=cpu)
+    renders = {}
+    for w, h in RENDER_SIZES:
+        img, counts = counted(lambda: tr.render_point_cloud(cloud, width=w, height=h,
+                                                            point_size=2), {})
+        ref = tr.render_point_cloud(host, width=w, height=h, point_size=2)
+        d = np.abs(img - ref).max(-1)
+        close = float((d <= RENDER_PIXEL_TOL).mean())
+        coverage = float((np.abs(ref - np.float32(tr.BACKGROUND)).max(-1) > 0.02).mean())
+        nums = once(lambda: tr.render_point_cloud(cloud, width=w, height=h, point_size=2))
+        renders[f"points {w}x{h}"] = {**nums, "equal": float((d == 0).mean()),
+                                      "within_tol": close}
+        log(f"  render_point_cloud {w}x{h}, point_size 2: {float((d == 0).mean()):.6f} of "
+            f"pixels bit-equal to the CPU run, {close:.6f} within {RENDER_PIXEL_TOL} (need >= "
+            f"{RENDER_POINT_SHARE}), coverage {coverage:.4f}; {fmt(nums)}")
+        check(img.shape == (h, w, 3) and np.isfinite(img).all() and close >= RENDER_POINT_SHARE,
+              f"render_point_cloud {w}x{h} disagrees with the CPU run")
+    del host
+
+    mv, mf = uv_sphere(RENDER_SUB)
+    mesh = tt.TriangleMesh.from_numpy(mv, mf, device=dev)
+    mesh_cpu = tt.TriangleMesh.from_numpy(mv, mf, device=cpu)
+    w, h = RENDER_SIZES[0]
+    sample = torch.from_numpy(np.random.default_rng(54).choice(w * h, RENDER_SAMPLE,
+                                                               replace=False))
+    cam, view, intr = tr._mesh_camera(mesh_cpu, None, w, h)
+    ld = np.float32([0.4, 0.3, 0.85])
+    ld = torch.from_numpy(ld / np.linalg.norm(ld))
+    vcol = torch.tensor((0.7, 0.72, 0.78)).expand(mesh_cpu.vertices.shape)
+    flat_ref = tr.rasterize_flat(mesh_cpu.vertices, mesh_cpu.faces, mesh_cpu.face_mask, vcol,
+                                 view, intr, ld, w, h, pixels=sample).numpy()
+    cam, view, intr, m, vcol, mat_vec, light_vec = tr._pbr_inputs(mesh_cpu, None, w, h, None,
+                                                                  None)
+    pbr_ref = tr.rasterize_pbr(m.vertices, m.faces, m.face_mask, vcol, m.normals, view, intr,
+                               torch.as_tensor(np.asarray(cam.eye(), np.float32)), mat_vec,
+                               light_vec, w, h, pixels=sample).numpy()
+    for name, fn, ref, alias in (
+            ("render_mesh", lambda: tr.render_mesh(mesh, width=w, height=h), flat_ref,
+             lambda: tr.render_to_texture(mesh, width=w, height=h, shading_mode="flat")),
+            ("render_mesh_pbr", lambda: tr.render_mesh_pbr(mesh, width=w, height=h), pbr_ref,
+             lambda: tr.render_to_texture(mesh, width=w, height=h, shading_mode="pbr"))):
+        img, _ = counted(fn, {})
+        got = img.reshape(-1, 3)[sample.numpy()]
+        d = np.abs(got - ref).max(-1)
+        close = float((d <= RENDER_MESH_TOL).mean())
+        # the PBR call computes vertex normals with index_add_, whose atomics
+        # add in another order on each call: a second call is held as the CPU
+        tex = np.abs(counted(alias, {})[0] - img).max(-1)
+        tex_close = float((tex <= RENDER_MESH_TOL).mean())
+        nums = once(fn)
+        tex_equal = float((tex == 0).mean())
+        renders[f"{name} {w}x{h}"] = {**nums, "equal": float((d == 0).mean()),
+                                      "within_tol": close, "texture_equal": tex_equal}
+        log(f"  {name} {len(mf):,} faces at {w}x{h}: on {RENDER_SAMPLE} sampled pixels "
+            f"{float((d == 0).mean()):.4f} bit-equal to the CPU raster, {close:.4f} within "
+            f"{RENDER_MESH_TOL} (need >= {RENDER_MESH_SHARE}); render_to_texture's mode "
+            f"bit-equal on {tex_equal:.4f} of pixels, within {RENDER_MESH_TOL} "
+            f"on {tex_close:.4f}; {fmt(nums)}")
+        check(np.isfinite(img).all() and close >= RENDER_MESH_SHARE
+              and tex_close >= RENDER_MESH_SHARE, f"{name} disagrees with the CPU raster")
+    del mesh, mesh_cpu, flat_ref, pbr_ref
+
+    viewer = InteractiveViewer(*VIEWER_SIZE)
+    viewer.set_point_cloud(cloud)
+    for key in "adw+hk":
+        check(viewer.handle_key(key), f"viewer key {key!r} ended the session")
+    frame, _ = counted(viewer.render, {})
+    ansi, _ = counted(lambda: viewer.frame_ansi(100, 36), {})
+    plane, _ = counted(viewer.run_plane_segmentation, {})
+    target = tt.PointCloud.from_numpy(p + SHIFT, device=dev)
+    icp_res, counts = run_counted(kernels, total, lambda: viewer.run_icp(target))
+    t_v = icp_res.transformation.cpu().numpy()
+    nz = abs(float(plane.model.normal[2]))
+    log(f"  InteractiveViewer{VIEWER_SIZE}: frame {frame.shape}, ANSI frame of "
+        f"{ansi.count(chr(10)) + 1} lines; plane segmentation {int(plane.inlier_count):,} "
+        f"inliers, |n_z| {nz:.5f}; run_icp {icp_res.iterations} iterations, launches "
+        f"{ {k: n for k, n in counts.items() if n} }, shift within "
+        f"{float(np.abs(t_v[:3, 3] - SHIFT).max()):.2e} m")
+    check(frame.shape == (VIEWER_SIZE[1], VIEWER_SIZE[0], 3) and ansi.count("▀") == 3600
+          and nz > 0.99 and only(counts, {"icp_match": icp_res.iterations})
+          and np.abs(t_v[:3, 3] - SHIFT).max() <= 1e-3, "InteractiveViewer failed")
+    renders["viewer render"] = once(viewer.render)
+    renders["viewer run_icp"] = once(lambda: viewer.run_icp(target))
+    for name in ("viewer render", "viewer run_icp"):
+        log(f"  {name}: {fmt(renders[name])}")
+    report["phase54"] = renders
+    log(f"  ({report['card']}, SM clock {sm_clock()})")
+    log(f"  phase {phase_seconds()}")
+    return total, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -1840,9 +2234,10 @@ def main() -> int:
     io_launches, io_report = io_phases(dev, kernels, *phase5)
     survey_launches, survey_report = survey_phases(dev, kernels)
     par_launches, par_report = parallel_phases(dev, kernels)
+    root_launches, root_report = root_surface_phases(dev, kernels)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
                  depth_launches, surf_launches, mesh_launches, io_launches, survey_launches,
-                 par_launches):
+                 par_launches, root_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -1941,6 +2336,7 @@ def main() -> int:
     log(f"file-to-segments slice: {json.dumps(io_report)}")
     log(f"survey-tile slice: {json.dumps(survey_report)}")
     log(f"multi-shard points axis: {json.dumps(par_report)}")
+    log(f"user-facing surface: {json.dumps(root_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2445,7 +2841,7 @@ def window_fast_phases(dev, kernels):
     p2pl = dict(max_iterations=20, convergence_threshold=0.0, max_correspondence_distance=1e9)
     registration._static_corr_setup = spy
     try:
-        ires, counts = run(lambda: tt.icp_point_to_plane(pc, tgt, **p2pl))
+        ires, counts = run(lambda: registration.icp_point_to_plane(pc, tgt, **p2pl))
     finally:
         registration._static_corr_setup = real
     t = ires.transformation.cpu().numpy()
@@ -2457,8 +2853,8 @@ def window_fast_phases(dev, kernels):
     check(only(counts, {"icp_match": counts["icp_match"]})
           and 1 <= counts["icp_match"] <= 20 and set(rows) == {3},
           "point-to-plane did not launch icp_match with 3 payload rows, 1-20 times")
-    tp, peakp = timed(lambda: tt.icp_point_to_plane(pc, tgt, **p2pl))
-    p2pl_busy = busy_time(lambda: tt.icp_point_to_plane(pc, tgt, **p2pl))
+    tp, peakp = timed(lambda: registration.icp_point_to_plane(pc, tgt, **p2pl))
+    p2pl_busy = busy_time(lambda: registration.icp_point_to_plane(pc, tgt, **p2pl))
     log(f"  icp_point_to_plane {tp:.2f} ms median of 3, {tp / ires.iterations:.3f} ms per "
         f"iteration, peak {peakp:.3f} GiB, device busy {p2pl_busy:.2f} ms")
     report["point_to_plane"] = {"ms": tp, "ms_per_iteration": tp / ires.iterations,
@@ -2497,7 +2893,7 @@ def window_fast_phases(dev, kernels):
     stgt = tt.PointCloud.from_numpy(small + shift, device=dev)
     stgt = stgt.with_normals(tt.estimate_normals_detailed(stgt).normals)
     kernels.reset_launch_counts()
-    pres = tt.icp_point_to_plane(spc, stgt, max_iterations=30)
+    pres = registration.icp_point_to_plane(spc, stgt, max_iterations=30)
     vsm = tt.voxel_grid_filter(spc, 0.1)
     counts = kernels.launch_counts()
     t = pres.transformation.cpu().numpy()
@@ -2651,7 +3047,7 @@ def registration_family_phases(dev, kernels):
 
     gicp_mod._static_corr_setup = spy
     try:
-        res, counts = run(lambda: tt.gicp(src, tgt, cfg))
+        res, counts = run(lambda: gicp_mod.gicp(src, tgt, cfg))
     finally:
         gicp_mod._static_corr_setup = real
     t = res.transformation.cpu().numpy()
@@ -2668,11 +3064,11 @@ def registration_family_phases(dev, kernels):
           "with six payload rows")
     # the convergence test off, so each run takes exactly n iterations; the
     # first counted call also counts a one-time initialisation, so 6 twice
-    syncs = {n: host_syncs(lambda n=n: tt.gicp(
+    syncs = {n: host_syncs(lambda n=n: gicp_mod.gicp(
         src, tgt, tt.GicpConfig(max_iterations=n, convergence_threshold=0.0)))
         for n in (6, 6, 10)}
     per_it = (syncs[10] - syncs[6]) / 4
-    tg, peak, busy = timed(lambda: tt.gicp(src, tgt, cfg))
+    tg, peak, busy = timed(lambda: gicp_mod.gicp(src, tgt, cfg))
     log(f"  gicp {tg:.2f} ms median of 3, peak {peak:.3f} GiB, device busy {busy:.2f} ms; host "
         f"syncs {syncs[10]} at 10 iterations, {syncs[6]} at 6: {per_it:.2f} an iteration")
     check(per_it == 1.0, "GICP syncs the host other than once an iteration")
@@ -2716,7 +3112,7 @@ def registration_family_phases(dev, kernels):
     for d in (dev, torch.device("cpu")):
         s_pc = tt.PointCloud.from_numpy(npts, device=d)
         t_pc = tt.PointCloud.from_numpy(npts + SHIFT, device=d)
-        out[d.type] = (s_pc, t_pc) + run(lambda: tt.ndt_registration(s_pc, t_pc, ncfg))
+        out[d.type] = (s_pc, t_pc) + run(lambda: ndt_mod.ndt_registration(s_pc, t_pc, ncfg))
     s_pc, t_pc, nres, counts = out[dev.type]
     t = nres.transformation.cpu().numpy()
     d_cpu = float(np.abs(t - out["cpu"][2].transformation.numpy()).max())
@@ -2730,7 +3126,7 @@ def registration_family_phases(dev, kernels):
     check(np.isfinite(t).all() and d_jax <= 1e-3 and d_cpu <= 1e-4,
           "NDT disagrees with the JAX package's result or the port's CPU run")
     sub = tt.ops.registration.auto_subsample(s_pc.capacity)
-    tn, peak, busy = timed(lambda: tt.ndt_registration(s_pc, t_pc, ncfg))
+    tn, peak, busy = timed(lambda: ndt_mod.ndt_registration(s_pc, t_pc, ncfg))
     gauss = ndt_mod.build_gaussians(t_pc.points, t_pc.mask, ncfg.resolution,
                                     ncfg.min_points_per_voxel)
     t_build = 1e3 * median_time(lambda: ndt_mod.build_gaussians(
@@ -4843,8 +5239,9 @@ def parallel_phases(dev, kernels):
     tgt_c = tt.estimate_normals(tt.PointCloud.from_points(tgt_pts), k=K_NORMALS)
     singles = {
         "icp": lambda: tt.icp_point_to_point(src_c, tgt_c, RING_ICP_ITERS).transformation,
-        "p2plane": lambda: tt.icp_point_to_plane(src_c, tgt_c, RING_ICP_ITERS).transformation,
-        "gicp": lambda: tt.gicp(src_c, tgt_c, tt.GicpConfig(
+        "p2plane": lambda: tt.ops.registration.icp_point_to_plane(
+            src_c, tgt_c, RING_ICP_ITERS).transformation,
+        "gicp": lambda: tt.ops.gicp.gicp(src_c, tgt_c, tt.GicpConfig(
             max_iterations=RING_ICP_ITERS)).transformation}
     sharded = {
         "icp": (tp.make_sharded_icp(mesh, RING_ICP_ITERS), (ring, rm, tgt_pts, rm)),

@@ -168,7 +168,13 @@ def test_tensor_inputs_and_normalized_image():
 
 
 def test_root_names_are_the_module():
-    for name in ("InterpolationMode", "RgbImageView", "colorize_from_images",
-                 "colorize_point_cloud"):
+    """The root names are the module's, except ``colorize_point_cloud``,
+    which is the reference-convention adapter of ``compat``, as the JAX
+    package's root name is."""
+    import threecrate_tpu as tc
+    for name in ("InterpolationMode", "RgbImageView", "colorize_from_images"):
         assert getattr(tt, name) is getattr(tcol, name) and name in tt.__all__
+    assert tt.colorize_point_cloud is tt.compat.colorize_point_cloud
+    assert tc.colorize_point_cloud.__module__ == "threecrate_tpu.compat"
+    assert "colorize_point_cloud" in tt.__all__
     assert [m.value for m in tcol.InterpolationMode] == [m.value for m in jcol.InterpolationMode]

@@ -54,7 +54,12 @@ run, a 4-shard ring kNN with ``neighbors.knn``'s squared distances within
 2e-6 and its ids where the distances are apart, one shard's kernel-4
 launch with its halos bit-equal to the plain version (and 8 launches a
 call), the distributed sort on tied keys a permutation equal to the
-stable sort and to its CPU run.
+stable sort and to its CPU run; the user-facing surface: the root
+adapters build their clouds from NumPy arrays on the card, launch the
+native path's kernels and return the native call's bits (the FPFH rows
+as a host array), ``nan_checks``, ``median_time``'s ``sync_fn`` and
+``trace`` on the card, and the point splat within 1e-6 of its CPU run on
+>= 99.5% of pixels, the flat and PBR rasters within 1e-5 on >= 99%.
 """
 
 import numpy as np
@@ -973,8 +978,9 @@ def test_point_to_plane_on_card_matches_cpu(cuda):
         t_pc = tt.PointCloud.from_numpy(tgt, device=dev)
         t_pc = t_pc.with_normals(tt.estimate_normals_detailed(t_pc).normals)
         kernels.reset_launch_counts()
-        res = tt.icp_point_to_plane(tt.PointCloud.from_numpy(src, device=dev), t_pc,
-                                    max_iterations=15, correspondence="window")
+        res = tt.ops.registration.icp_point_to_plane(
+            tt.PointCloud.from_numpy(src, device=dev), t_pc, max_iterations=15,
+            correspondence="window")
         out[dev.type] = (res.transformation.cpu(), kernels.launch_counts())
     (g, counts), (c, _) = out["cuda"], out["cpu"]
     assert 1 <= counts["icp_match"] <= 15
@@ -1017,7 +1023,7 @@ def test_gicp_on_card_matches_cpu(cuda):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         kernels.reset_launch_counts()
-        res = tt.gicp(*_pair_on(dev, 20_000, 22), cfg)
+        res = tt.ops.gicp.gicp(*_pair_on(dev, 20_000, 22), cfg)
         out[dev.type] = (res, kernels.launch_counts())
     (g, counts), (c, _) = out["cuda"], out["cpu"]
     assert counts["union_window_a"] == counts["union_window_b"] == 2
@@ -1030,8 +1036,8 @@ def test_ndt_on_card_matches_cpu(cuda):
     """NDT (2 m cells) on a 20,000-point scan pair: no kernel; the card's
     pose within 1e-4 of the CPU run's, the same iteration count."""
     cfg = tt.NdtConfig(resolution=2.0, max_iterations=20)
-    g = tt.ndt_registration(*_pair_on(cuda, 20_000, 23), cfg)
-    c = tt.ndt_registration(*_pair_on(torch.device("cpu"), 20_000, 23), cfg)
+    g = tt.ops.ndt.ndt_registration(*_pair_on(cuda, 20_000, 23), cfg)
+    c = tt.ops.ndt.ndt_registration(*_pair_on(torch.device("cpu"), 20_000, 23), cfg)
     torch.testing.assert_close(g.transformation.cpu(), c.transformation, atol=1e-4, rtol=0)
     assert g.iterations == c.iterations
     assert abs(g.score.item() - c.score.item()) <= 1e-4 * abs(c.score.item())
@@ -1683,3 +1689,101 @@ def test_distributed_sort_on_card_with_tied_keys(cuda):
     np.testing.assert_array_equal(np.sort(gid), np.arange(4096))
     keys = morton.morton_keys(torch.from_numpy(pts), torch.from_numpy(mask)).numpy()
     np.testing.assert_array_equal(gid, np.argsort(keys, kind="stable"))
+
+
+# ---------------------------------------------------------------------------
+# the user-facing surface: root adapters from arrays, debug hooks, viz
+# ---------------------------------------------------------------------------
+
+def test_root_adapters_take_arrays_onto_the_card(cuda):
+    """The root names build their clouds from NumPy arrays on the card and
+    launch the native path's kernels: ``estimate_normals`` the union
+    passes once each (k = 10 and ``k_neighbors=8``), ``icp`` with a 4×4
+    ``init_transform`` ``icp_match`` once an iteration, the reference
+    FPFH convention the union, banded SPFH and weight kernels once each
+    (300,000 points: above the fused threshold) and
+    ``remove_statistical_outliers`` the window kNN kernel; each output
+    bit-equal to the native call on a cloud built on the card."""
+    p = _scan(300_000, 31)
+    for kw, k in (({}, 10), ({"k_neighbors": 8}, 8)):
+        kernels.reset_launch_counts()
+        got = tt.estimate_normals(p, **kw)
+        counts = kernels.launch_counts()
+        assert got.device.type == "cuda"
+        assert counts["union_window_a"] == counts["union_window_b"] == 1
+        ref = tt.ops.normals.estimate_normals(tt.PointCloud.from_numpy(p), k)
+        assert torch.equal(got.normals, ref.normals)
+    m4 = np.eye(4, dtype=np.float32)
+    m4[:3, 3] = [0.02, -0.01, 0.01]
+    shift = np.array([0.05, -0.03, 0.02], np.float32)
+    kernels.reset_launch_counts()
+    res = tt.icp(p, p + shift, 30, init_transform=m4)
+    assert kernels.launch_counts()["icp_match"] == res.iterations >= 1
+    assert isinstance(res.transformation, np.ndarray)
+    ref = tt.ops.registration.icp_point_to_point(
+        tt.PointCloud.from_numpy(p), tt.PointCloud.from_numpy(p + shift), 30,
+        init=tt.Transform.from_matrix(m4))
+    np.testing.assert_array_equal(res.transformation(), ref.transformation.cpu().numpy())
+    assert np.abs(res.transformation[:3, 3] - shift).max() <= 1e-3
+    cloud = tt.PointCloud.from_numpy(p)
+    kernels.reset_launch_counts()
+    feats = tt.extract_fpfh_features(cloud, 0.25, 10)
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 1 for k in ("union_window_a", "union_window_b", "spfh_band_a",
+                                        "spfh_band_b", "fpfh_weight_a", "fpfh_weight_b"))
+    nat = tt.ops.features.extract_fpfh_features(cloud, tt.FpfhConfig(radius=0.25), k_normals=10)
+    np.testing.assert_array_equal(feats, nat.descriptors[cloud.mask].cpu().numpy())
+    kernels.reset_launch_counts()
+    kept = tt.remove_statistical_outliers(p)
+    assert kernels.launch_counts()["knn_window"] >= 1 and kept.device.type == "cuda"
+    assert torch.equal(kept.mask, tt.ops.filtering.statistical_outlier_removal(cloud, 20, 2.0)
+                       .cloud.mask)
+
+
+def test_debug_and_profiling_on_card(cuda, tmp_path):
+    """``nan_checks`` raises on a NaN on the card and not on a clean op;
+    ``median_time`` applies ``sync_fn`` to each result; ``trace`` writes
+    a trace whose kernel events include the card's."""
+    import json
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    from threecrate_tpu_torch.utils import debug, profiling
+    with debug.nan_checks():
+        torch.ones(4, device=cuda).sum()
+        with pytest.raises(FloatingPointError):
+            torch.zeros(1, device=cuda) / torch.zeros(1, device=cuda)
+    assert _get_current_dispatch_mode() is None
+    seen = []
+    t = profiling.median_time(lambda: torch.ones(1 << 20, device=cuda) * 2, warmup=2, iters=3,
+                              sync_fn=seen.append)
+    assert t > 0 and len(seen) == 5 and all(x.is_cuda for x in seen)
+    with profiling.trace(log_dir=str(tmp_path)) as d:
+        (torch.ones(1 << 20, device=cuda) * 2).sum().item()
+    (f,) = [f for f in tmp_path.iterdir() if f.name.endswith(".pt.trace.json")]
+    assert d == str(tmp_path)
+    assert any(e.get("cat") == "kernel" for e in json.loads(f.read_text())["traceEvents"])
+
+
+def test_renderers_on_card_match_cpu(cuda):
+    """The point splat of 20,000 points at 160x120 within 1e-6 of the CPU
+    run on >= 99.5% of pixels; the flat and PBR rasters of a 5,000-face
+    sphere within 1e-5 on >= 99%; the images on the host, finite."""
+    from threecrate_tpu_torch.viz import renderer as tr
+    pts = _scan(20_000, 32) * np.float32(0.05)
+    imgs = [tr.render_point_cloud(tt.PointCloud.from_numpy(pts, device=d), width=160,
+                                  height=120) for d in (cuda, "cpu")]
+    assert (np.abs(imgs[0] - imgs[1]).max(-1) <= 1e-6).mean() >= 0.995
+    n = 36
+    th, ph = np.linspace(0.2, np.pi - 0.2, n), np.linspace(0, 2 * np.pi, 2 * n, endpoint=False)
+    v = np.stack([np.outer(np.sin(th), np.cos(ph)).ravel(),
+                  np.outer(np.sin(th), np.sin(ph)).ravel(),
+                  np.repeat(np.cos(th), 2 * n)], -1).astype(np.float32)
+    w = 2 * n
+    f = np.array([[i * w + j, i * w + (j + 1) % w, (i + 1) * w + j] for i in range(n - 1)
+                  for j in range(w)] + [[i * w + (j + 1) % w, (i + 1) * w + (j + 1) % w,
+                                         (i + 1) * w + j] for i in range(n - 1)
+                                        for j in range(w)], np.int32)
+    for fn in (tr.render_mesh, tr.render_mesh_pbr):
+        out = [fn(tt.TriangleMesh.from_numpy(v, f, device=d), width=160, height=120)
+               for d in (cuda, "cpu")]
+        assert np.isfinite(out[0]).all()
+        assert (np.abs(out[0] - out[1]).max(-1) <= 1e-5).mean() >= 0.99

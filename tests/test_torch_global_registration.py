@@ -174,7 +174,7 @@ def test_global_registration_recovers_pose():
     pts, tgt, t_true = _pose_case()
     cfg = interop.global_registration_config_from(
         jg.GlobalRegistrationConfig(refine_with_icp=True, **_CFG))
-    res = tt.global_registration(tt.PointCloud.from_numpy(pts, device="cpu"),
+    res = tg.global_registration(tt.PointCloud.from_numpy(pts, device="cpu"),
                                  tt.PointCloud.from_numpy(tgt, device="cpu"), cfg)
     assert bool(res.converged) and res.inlier_count.dtype == torch.int32
     assert 0.5 < float(res.inlier_ratio) <= 1.0

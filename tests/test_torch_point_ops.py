@@ -20,6 +20,8 @@ Stated tolerances:
 Inputs: seeded uniform, clustered and sheet clouds of 1,500-3,000 points.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -275,13 +277,20 @@ def test_timer_reports_like_jax(monkeypatch):
     assert t.sections == jt.sections and t.report() == jt.report()
 
 
-def test_trace_names_a_profiler_range():
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with tprof.trace("tc_segment") as name:
+def test_trace_names_a_profiler_range(tmp_path):
+    """``trace(log_dir)`` yields the directory, as JAX's does, and writes
+    a Chrome trace there that holds the block's operators."""
+    import json
+    log_dir = str(tmp_path / "trace")
+    with tprof.trace(log_dir=log_dir) as got:
+        with torch.profiler.record_function("tc_segment"):
             torch.ones(4).sum()
-    assert name == "tc_segment"
-    assert any(e.name == "tc_segment" for e in prof.events())
+    assert got == log_dir
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    assert len(files) == 1
+    with open(os.path.join(log_dir, files[0])) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"tc_segment", "aten::sum"} <= names
 
 
 def test_memory_helpers_without_a_card():

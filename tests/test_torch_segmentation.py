@@ -280,7 +280,13 @@ def test_config_defaults_match_jax():
 
 
 def test_root_names():
+    """The root names are the module's, except ``segment_plane``, which is
+    the reference-convention adapter of ``compat``, as the JAX package's
+    root name is."""
+    import threecrate_tpu as tc
     for name in ("ClusterResult", "EuclideanClusterConfig", "PlaneModel",
                  "PlaneSegmentationResult", "extract_euclidean_clusters", "extract_plane",
-                 "segment_plane", "segment_plane_parallel"):
+                 "segment_plane_parallel"):
         assert getattr(tt, name) is getattr(ts, name) and name in tt.__all__
+    assert tt.segment_plane is tt.compat.segment_plane and "segment_plane" in tt.__all__
+    assert tc.segment_plane.__module__ == "threecrate_tpu.compat"

@@ -14,8 +14,8 @@ from .errors import (
 from .mesh import TriangleMesh
 from .organized import CameraIntrinsics, OrganizedPointCloud
 from .point_cloud import COLORS, INTENSITY, NORMALS, PointCloud
-from .transform import (Transform, matrix_to_quaternion, quaternion_to_matrix, se3_exp,
-                        skew)
+from .transform import (Transform, axis_angle_to_matrix, matrix_to_quaternion,
+                        quaternion_to_matrix, se3_exp, skew)
 
 __all__ = [
     "AlgorithmError", "DeviceError", "InvalidDataError", "IoError",
@@ -23,5 +23,6 @@ __all__ = [
     "VisualizationError", "require", "TriangleMesh", "PointCloud", "COLORS",
     "INTENSITY", "NORMALS",
     "Transform", "se3_exp", "skew", "quaternion_to_matrix", "matrix_to_quaternion",
+    "axis_angle_to_matrix",
     "CameraIntrinsics", "OrganizedPointCloud",
 ]

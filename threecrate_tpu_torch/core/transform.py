@@ -28,6 +28,12 @@ class Transform:
 
     matrix: torch.Tensor
 
+    def __post_init__(self):
+        # a host matrix (a NumPy array, a registration result's callable
+        # 4x4 from ``compat``) is held as a tensor
+        if not isinstance(self.matrix, torch.Tensor):
+            object.__setattr__(self, "matrix", _as_matrix(self.matrix))
+
     @classmethod
     def identity(cls, device=None) -> "Transform":
         """The identity, on ``device`` (default the CPU)."""

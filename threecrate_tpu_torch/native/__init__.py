@@ -15,6 +15,11 @@ half-written file. Without a compiler every function of
 ``tc_native`` falls back to NumPy or Python, as the JAX package does,
 and the LASzip functions return None; ``counts`` records which parser
 each ``parse_floats`` call ran ("native" or "numpy").
+
+``HAS_NATIVE`` is the JAX package's flag: True when ``tc_native``
+builds and loads here. JAX's module builds at import to set it; here
+it is worked out at its first read (``available()``), so that importing
+the package builds nothing.
 """
 
 from __future__ import annotations
@@ -126,6 +131,12 @@ def _load() -> Optional[ctypes.CDLL]:
 def available() -> bool:
     """True when the native library builds and loads here."""
     return _load() is not None
+
+
+def __getattr__(name: str):
+    if name == "HAS_NATIVE":
+        return available()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def parse_floats(text) -> np.ndarray:

@@ -1,3 +1,3 @@
-from . import padding, profiling
+from . import debug, padding, profiling
 
-__all__ = ["padding", "profiling"]
+__all__ = ["debug", "padding", "profiling"]

@@ -1,7 +1,8 @@
 """Timing on the card with CUDA events, a device profile of one call
 with ``torch.profiler``, and the JAX package's profiling helpers mapped
 onto torch: ``sync`` (a synchronise and a checksum), ``trace`` (a
-``torch.profiler.record_function`` range), ``Timer`` (host sections),
+``torch.profiler`` trace of a block written into a directory, as
+``jax.profiler`` writes one), ``Timer`` (host sections),
 ``device_memory_stats``, ``measure_peak_memory`` and ``program_memory``
 (the CUDA caching allocator's counters)."""
 
@@ -9,34 +10,41 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import statistics
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 
-def median_time(fn: Callable, warmup: int = 2, iters: int = 5) -> float:
+def median_time(fn: Callable, warmup: int = 2, iters: int = 5,
+                sync_fn: Optional[Callable] = None) -> float:
     """Median seconds of ``fn()`` over ``iters`` runs after ``warmup``.
 
     Each run is bracketed by CUDA events on the current stream, so the
     time covers the device work ``fn`` enqueues and any host gaps in
-    between. There is no CPU fallback: a time is only ever measured on
-    the card.
+    between. ``sync_fn`` (default :func:`sync`) is applied to each
+    result, as the JAX package applies it, after the end event is
+    recorded: the time is ``fn``'s, and ``sync_fn``'s own work lies
+    outside it. There is no CPU fallback: a time is only ever measured
+    on the card.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("median_time measures on a CUDA device; none found")
+    sync_fn = sync if sync_fn is None else sync_fn
     for _ in range(warmup):
-        fn()
+        sync_fn(fn())
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
+        sync_fn(out)
         times.append(start.elapsed_time(end) / 1e3)
     return statistics.median(times)
 
@@ -115,11 +123,20 @@ def sync(out) -> float:
 
 
 @contextlib.contextmanager
-def trace(name: str = "threecrate"):
-    """A named range for ``torch.profiler`` traces
-    (``torch.profiler.record_function``)."""
-    with torch.profiler.record_function(name):
-        yield name
+def trace(log_dir: str = "/tmp/threecrate_trace"):
+    """A ``torch.profiler`` trace of the block (host activity, and the
+    card's where there is one), written into ``log_dir`` as a Chrome
+    trace in TensorBoard's layout (``<host>_<pid>.<stamp>.pt.trace.json``)
+    when the block ends; yields ``log_dir``, as the JAX package's
+    ``trace`` does around ``jax.profiler``."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
 
 
 class Timer:

@@ -64,9 +64,10 @@ def ndt():
     j = jax_ndt.ndt_registration(JaxCloud.from_numpy(pts),
                                  JaxCloud.from_numpy(pts + chip_smoke.SHIFT),
                                  jax_ndt.NdtConfig(**cfg))
-    t = tt.ndt_registration(tt.PointCloud.from_numpy(pts, device="cpu"),
-                            tt.PointCloud.from_numpy(pts + chip_smoke.SHIFT, device="cpu"),
-                            tt.NdtConfig(**cfg))
+    t = tt.ops.ndt.ndt_registration(tt.PointCloud.from_numpy(pts, device="cpu"),
+                                    tt.PointCloud.from_numpy(pts + chip_smoke.SHIFT,
+                                                             device="cpu"),
+                                    tt.NdtConfig(**cfg))
     jm = np.asarray(j.transformation)
     return {"section": "ndt", "points": len(pts), "jax_translation": jm[:3, 3].tolist(),
             "jax_iterations": int(j.iterations),
