@@ -346,12 +346,39 @@ PIL), each gated against the native call or the port's CPU run:
     102,400-face UV sphere at 640x480 against the CPU raster of 2,048
     sampled pixels (within 1e-5 on >= 99%), and ``InteractiveViewer(960, 720)`` with keys, ``render``,
     ``frame_ansi``, ``run_plane_segmentation`` and ``run_icp`` (``icp_match``
-    once an iteration); each timed with its busy time, peak and host syncs.
+    once an iteration); each timed with its busy time, peak and host syncs;
+55. the x-slab TSDF (``parallel.make_sharded_tsdf``) on eight shards of the
+    card: phase 28's frame into phase 28's grid, 2,048 blocks a shard, the
+    union of the shards' blocks bit-equal to the single-device
+    ``sparse_integrate`` (keys, tsdf, weights, counts), the surface points
+    and the marching-cubes triangles the single-device multisets (5
+    decimals), the halo-extended raycast at 480x640 against the
+    single-device ``sparse_tsdf_raycast`` (JAX's gates: mask disagreement
+    < 1%, depth within a voxel where both are confident, a median normal
+    dot > 0.999);
+56. ``ShardedFrameToModelOdometry()`` over phase 31's 8 wall frames: poses
+    within phase 31's tolerance of the truth, their distance from
+    ``FrameToModelOdometry()`` on the same frames, ms, busy time and host
+    syncs a frame;
+57. the sharded NDT (phase 25's pair, stride 1) against
+    ``ndt_registration`` (1e-3 m and rad), ground on phase 24's scan
+    against ``patchwork_plus_plus`` (mask >= 99%, patch normals), clusters
+    on 131,072 of phase 42's box samples (40, labels and sizes equal),
+    SHOT and USC on 131,072 points against the staged path (valid equal,
+    median cosine > 0.99999), MLS against ``mls_smooth`` (>= 98% within
+    1e-4), plane RANSAC at phase 42's 0.15 m on 1,048,576 points against
+    ``segment_plane`` (cosine > 0.9999, masks >= 99.9%) and colorize from
+    six 1080p views against ``colorize_from_images`` (bit-equal);
+58. the x-slab multigrid at 128³ on phase 35's right-hand side against
+    ``mg_solve`` (1e-6 of max|x|), the sharded fields against ``_solve``
+    and ``make_sharded_poisson(PoissonConfig(depth=7))`` on phase 35's
+    sphere (radii); phases 55-58 launch no kernel, each gated call
+    profiled: ms, busy, idle share, peak, host syncs, device ops.
 
-Phases 44-54 print the card's name, power limit and SM clock beside
+Phases 44-58 print the card's name, power limit and SM clock beside
 their times. The last three lines are the card (nvidia-smi's name and power limit),
 one JSON object with each kernel's launches (over the runs of phases 5,
-8, 11-16, 18, 20, 21, 23-36, 41, 45, 48 and 52-54; the FPFH kernels' r = 0.25 entries and
+8, 11-16, 18, 20, 21, 23-36, 41, 45, 48 and 52-58; the FPFH kernels' r = 0.25 entries and
 the union kernels' k = 20 and k = 8 entries repeat the kernel's count, each
 ``knn_window`` entry counts its own shape's launches), error, times and
 bound, then ``{"ok": true, "device":
@@ -662,6 +689,21 @@ SOR_K, SOR_STD = 8, 1.0    # statistical_outlier_removal's defaults
 RING_FPFH_RADIUS, RING_FPFH_K = 0.5, 64
 D2_ULPS = 4                # ring d2 against knn's: ulps of |q|^2 + |p|^2
 SEAM_TOL_DEG = 0.05        # sharded window normals' planar angle against one device's one pass
+# Phases 55-58: the last of parallel on SHARDS shards of the card. Phase 55:
+# phase 28's frame and grid into an x-slab TSDF of SLAB_BLOCKS blocks a shard
+# (every block updated: update_fraction 1); phase 57: clusters on N_RING of
+# the street's box samples (drawn with SLAB_SEED), SHOT/USC and MLS (radius
+# SLAB_MLS_RADIUS) on scan(N_RING, 0), plane RANSAC and colorize on
+# N_SLAB_BIG points of scan(·, 0)
+SLAB_BLOCKS, SLAB_SEED, SLAB_MLS_RADIUS, N_SLAB_BIG = 2048, 55, 0.5, 1_048_576
+# phase 55: the sharded raycast against the single-device one, JAX's gates
+# (tests/test_parallel.py:515-543: mask disagreement < 1%, depth within a
+# voxel, median normal dot > 0.999), the depth gate on the pixels both
+# calls mark confident; on all hits JAX's own sharded raycast misses it at
+# this size (tools/parallel_references.py slab: 0.15026% of the hits beyond
+# a voxel, grazing and border pixels where a slab's march stops elsewhere,
+# up to 0.0346 m), so the share is gated at JAX's, rounded up
+SLAB_RAY_OVER = 0.002
 # Phases 52-54: the user-facing surface. The root names run on N_ROOT
 # points of scan(N_ROOT, ROOT_SEED) passed as NumPy arrays; ICP starts from
 # half of phase 5's shift; simplify_mesh halves a UV sphere of 4·80² faces;
@@ -2235,9 +2277,10 @@ def main() -> int:
     survey_launches, survey_report = survey_phases(dev, kernels)
     par_launches, par_report = parallel_phases(dev, kernels)
     root_launches, root_report = root_surface_phases(dev, kernels)
+    slab_launches, slab_report = slab_phases(dev, kernels)
     for part in (reg_launches, win_launches, shot_launches, fast_launches, fam_launches,
                  depth_launches, surf_launches, mesh_launches, io_launches, survey_launches,
-                 par_launches, root_launches):
+                 par_launches, root_launches, slab_launches):
         for kname, n in part.items():
             launches[kname] = launches.get(kname, 0) + n
 
@@ -2337,6 +2380,7 @@ def main() -> int:
     log(f"survey-tile slice: {json.dumps(survey_report)}")
     log(f"multi-shard points axis: {json.dumps(par_report)}")
     log(f"user-facing surface: {json.dumps(root_report)}")
+    log(f"the last of parallel: {json.dumps(slab_report)}")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -5007,6 +5051,41 @@ def survey_phases(dev, kernels):
     return total, report
 
 
+def counted_call(kernels, total, fn, expect=None):
+    """One gated call of ``fn`` under ``torch.profiler``: (output, {ms,
+    busy_ms, idle_share, peak_gib, host_syncs, device_ops, launches}), the
+    launch counts checked against ``expect`` (no kernel by default). The
+    wall time is the profiled call's (CUDA activity only), host syncs are
+    counted by ``torch.cuda.set_sync_debug_mode`` in the same call,
+    ``device_ops`` are the call's device kernels, copies and memsets."""
+    from threecrate_tpu_torch.utils.profiling import device_profile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    caught, result = [], {}
+
+    def traced():
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result["out"] = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                caught.extend(got)
+
+    (wall, busy, entries), counts = run_counted(
+        kernels, total, lambda: device_profile(traced, top=None, warmup=0))
+    nums = {"ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_syncs": sum("synchroniz" in str(w.message) for w in caught),
+            "device_ops": sum(c for _, _, c in entries),
+            "launches": {k: n for k, n in counts.items() if n}}
+    check(only(counts, expect or {}), f"launches {counts}, expected exactly {expect or 'none'}")
+    return result["out"], nums
+
+
 def parallel_phases(dev, kernels):
     """Phases 48-51: the multi-shard points axis (``parallel``), eight shards
     of one mesh on the card, each entry gated against the port's
@@ -5033,35 +5112,7 @@ def parallel_phases(dev, kernels):
         return f"{t:.1f} s"
 
     def counted(fn, expect=None):
-        """One gated call of ``fn`` under ``torch.profiler``: (output, {ms,
-        busy_ms, idle_share, peak_gib, host_syncs, launches}), the launch
-        counts checked against ``expect`` (no kernel by default). The
-        wall time is the profiled call's (CUDA activity only), host syncs
-        are counted by ``torch.cuda.set_sync_debug_mode`` in the same call."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        caught, result = [], {}
-
-        def traced():
-            with warnings.catch_warnings(record=True) as got:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    result["out"] = fn()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                    caught.extend(got)
-
-        (wall, busy, _), counts = run_counted(kernels, total,
-                                              lambda: device_profile(traced, warmup=0))
-        nums = {"ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "host_syncs": sum("synchroniz" in str(w.message) for w in caught),
-                "launches": {k: n for k, n in counts.items() if n}}
-        check(only(counts, expect or {}),
-              f"launches {counts}, expected exactly {expect or 'none'}")
-        return result["out"], nums
+        return counted_call(kernels, total, fn, expect)
 
     def fmt(nums):
         return (f"{nums['ms']:.1f} ms a call (busy {nums['busy_ms']:.1f} ms), "
@@ -5349,6 +5400,352 @@ def parallel_phases(dev, kernels):
                                           "inliers": int(count), "ratio": float(ratio)}}
     log(f"  ({report['card']}, SM clock {sm_clock()})")
     log(f"  phase {phase_seconds()}")
+    return total, report
+
+
+def slab_phases(dev, kernels):
+    """Phases 55-58: the last of ``parallel`` on eight shards of one mesh on
+    the card (the algorithm, not an interconnect): the x-slab TSDF with its
+    raycast, ``ShardedFrameToModelOdometry``, the sharded NDT, ground,
+    clusters, SHOT / USC, plane RANSAC, MLS and colorize, and the x-slab
+    Poisson. No kernel lies on these paths. Each entry is gated against the
+    port's single-device entry on the card; its gated call runs under
+    ``torch.profiler`` (``counted_call``). Returns (launches, numbers for
+    the log)."""
+    import threecrate_tpu_torch as tt
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.ops import ndt as ndt_mod
+    from threecrate_tpu_torch.ops import tsdf_raycast as ray_mod
+    from threecrate_tpu_torch.ops import tsdf_sparse as sp_mod
+    from threecrate_tpu_torch.ops.colorization import RgbImageView
+    from threecrate_tpu_torch.reconstruction import multigrid
+    from threecrate_tpu_torch.reconstruction import poisson as poisson_mod
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    report = {"card": card_line(), "shards": SHARDS}
+    mesh = tp.make_mesh(SHARDS, devices=[dev] * SHARDS)
+    t_phase = time.perf_counter()
+    h, w = DEPTH_HW
+
+    def phase_seconds():
+        nonlocal t_phase
+        t, t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        report.setdefault("phase_s", []).append(round(t, 1))
+        return f"{t:.1f} s"
+
+    def counted(fn):
+        return counted_call(kernels, total, fn)
+
+    def fmt(nums):
+        return (f"{nums['ms']:.1f} ms (busy {nums['busy_ms']:.1f} ms, idle "
+                f"{nums['idle_share']:.3f}), peak {nums['peak_gib']:.3f} GiB, "
+                f"{nums['host_syncs']} host syncs, {nums['device_ops']} device ops, launches "
+                f"{nums['launches'] or 'none'}")
+
+    def point_set(pts, mask):
+        rows = pts[mask].cpu().numpy()
+        return np.sort(np.ascontiguousarray(rows.round(5)).view([("", np.float32)] * 3),
+                       axis=None)
+
+    # -- phase 55 --------------------------------------------------------------
+    log(f"phase 55: make_sharded_tsdf of the {h}x{w} wavy frame, {TSDF_GRID} blocks of 8 "
+        f"({TSDF_VOXEL} m voxels, {TSDF_GRID[0] // SHARDS} block columns a shard), "
+        f"{SLAB_BLOCKS} blocks a shard ({report['card']}, SM clock {sm_clock()})")
+    depth, intr, eye = (torch.from_numpy(x).to(dev) for x in
+                        (wavy_depth(), DEPTH_INTR, np.eye(4, dtype=np.float32)))
+    fac = tp.make_sharded_tsdf(mesh, TSDF_GRID, TSDF_VOXEL, origin=TSDF_ORIGIN,
+                               max_blocks_per_shard=SLAB_BLOCKS, update_fraction=1.0)
+    st0 = fac.init()
+    st, n_int = counted(lambda: fac.integrate(st0, depth, intr, eye))
+    ref = sp_mod.sparse_integrate(
+        sp_mod.create_sparse_volume(TSDF_VOXEL, origin=TSDF_ORIGIN, grid_blocks=TSDF_GRID,
+                                    max_blocks=SHARDS * SLAB_BLOCKS, device=dev),
+        depth, intr, eye, grid_blocks=TSDF_GRID, update_fraction=1.0)
+    n = int(ref.n_blocks)
+    keys = st.block_keys.gather()
+    live = keys != 2 ** 31 - 1
+    order = torch.argsort(keys[live])
+    keys_eq = torch.equal(keys[live][order], ref.block_keys[:n])
+    counts = st.n_blocks.gather().cpu().numpy()
+    t_err = (st.tsdf.gather()[live][order] - ref.tsdf[:n]).abs().max().item()
+    w_err = (st.weight.gather()[live][order] - ref.weight[:n]).abs().max().item()
+    surf, n_surf = counted(lambda: fac.extract_surface(st))
+    one = sp_mod.sparse_extract_surface(ref, TSDF_GRID)
+    surf_eq = np.array_equal(point_set(surf[0].gather(), surf[1].gather()),
+                             point_set(one.cloud.points, one.cloud.mask))
+    soup, n_mc = counted(lambda: fac.marching_cubes(st))
+    one_soup = sp_mod.sparse_marching_cubes_soup(ref, TSDF_GRID)
+    tri = triangle_set(soup[0].gather(), soup[1].gather()[::3])
+    soup_eq = np.array_equal(tri, triangle_set(one_soup.vertices, one_soup.mask))
+    m_int = measure(lambda: fac.integrate(st0, depth, intr, eye), profile=False)
+    log(f"  integrate: {n} blocks, per shard {counts.tolist()} (sum {int(counts.sum())}); union "
+        f"of the shards' keys equal to the single-device sparse_integrate's {keys_eq}, tsdf max "
+        f"|diff| {t_err:.3e}, weight {w_err:.3e} (tol 1e-6); the first call {fmt(n_int)}; "
+        f"steady state {m_int['ms']:.2f} ms median of 3, {m_int['host_syncs']} host syncs")
+    log(f"  extract_surface: {int(surf[1].gather().sum())} points, the single-device multiset "
+        f"(5 decimals) {surf_eq}; {fmt(n_surf)}")
+    log(f"  marching_cubes: {len(tri)} triangles, the single-device multiset {soup_eq}; "
+        f"{fmt(n_mc)}")
+    check(keys_eq and int(counts.sum()) == n and t_err <= 1e-6 and w_err <= 1e-6,
+          "the slab TSDF's blocks differ from the single-device fusion")
+    check(surf_eq and soup_eq and len(tri) > 10000,
+          "the slab TSDF's surface or mesh differs from the single-device one")
+    ray = dict(near=RAY_NEAR, far=RAY_FAR)
+    ray_mod.reset_counts()
+    (rd, rv, rn, rm, rc), n_ray = counted(lambda: fac.raycast(st, intr, eye, h, w, **ray))
+    march = dict(ray_mod.counts)
+    one_ray = tt.sparse_tsdf_raycast(ref, intr, eye, h, w, grid_blocks=TSDF_GRID, **ray)
+    n_one = counted(lambda: tt.sparse_tsdf_raycast(ref, intr, eye, h, w, grid_blocks=TSDF_GRID,
+                                                   **ray))[1]
+    mask_off = (rm != one_ray.mask).float().mean().item()
+    both = rm & one_ray.mask
+    err = (rd - one_ray.depth).abs()
+    sure = both & rc & one_ray.confident
+    d_err = err[sure].max().item()
+    over = (both & (err > TSDF_VOXEL)).float().sum().item() / both.float().sum().item()
+    dots = (rn * one_ray.normals)[both].sum(-1).abs().median().item()
+    log(f"  raycast {h}x{w}: hits {rm.float().mean().item():.5f}, mask disagreement with the "
+        f"single-device sparse_raycast {mask_off:.5f} (need < 0.01), depth max |diff| "
+        f"{d_err:.3e} m on pixels both call confident (need <= a voxel, {TSDF_VOXEL}), "
+        f"{over:.5f} of the hits beyond a voxel (need <= {SLAB_RAY_OVER}: JAX's sharded raycast "
+        f"0.0015026 on this frame), all hits {err[both].max().item():.3e} m, median normal "
+        f"dot {dots:.6f} (need > 0.999); march steps and exit tests over the {SHARDS} shards "
+        f"{march}; {fmt(n_ray)}; the single-device call {fmt(n_one)}")
+    check(mask_off < 0.01 and d_err <= TSDF_VOXEL and over <= SLAB_RAY_OVER and dots > 0.999,
+          "the sharded raycast disagrees with the single-device one")
+    report["phase55"] = {"integrate": n_int, "integrate_steady": m_int, "blocks": n,
+                         "shard_blocks": counts.tolist(),
+                         "extract_surface": n_surf, "marching_cubes": n_mc,
+                         "raycast": {**n_ray, "march": march, "mask_disagreement": mask_off,
+                                     "depth_err_m": d_err, "over_voxel": over,
+                                     "normal_dot_median": dots},
+                         "raycast_single_device": n_one}
+    del st0, st, ref, surf, one, soup, one_soup, rd, rv, rn, rm, rc, one_ray
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 56 --------------------------------------------------------------
+    log(f"phase 56: ShardedFrameToModelOdometry() defaults over {F2M_FRAMES} {h}x{w} wall "
+        f"frames (phase 31's), against FrameToModelOdometry() on the same frames")
+    frames = [(torch.from_numpy(dpt).to(dev), truth) for dpt, truth in wall_frames()]
+    intr_c = tt.CameraIntrinsics(*DEPTH_INTR.tolist())
+    odo = tp.ShardedFrameToModelOdometry(mesh, intr_c, h, w)
+    one = tt.FrameToModelOdometry(intr_c, h, w, device=dev)
+    frame_ms, errs, diffs = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for dpt, truth in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pose = run_counted(kernels, total, lambda: odo.register_frame(dpt))[0]
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        pose = pose.cpu().numpy()
+        errs.append(pose_errors(pose, truth))
+        diffs.append(float(np.abs(pose - one.register_frame(dpt).matrix.cpu().numpy()).max()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more frame, profiled and sync-counted, on a shallow copy: a frame
+    # replaces the state and the pose rather than writing into them
+    _, n_frame = counted(lambda: copy.copy(odo).register_frame(frames[-1][0]))
+    worst = (max(e[0] for e in errs), max(e[1] for e in errs))
+    log(f"  pose errors (m, rad) {errs} (worst {worst}, tol {F2M_TOL}); max |pose - the "
+        f"single-device pose| {[round(x, 7) for x in diffs]}; ms a frame "
+        f"{[round(x, 1) for x in frame_ms]} (after the first: mean {np.mean(frame_ms[1:]):.1f}); "
+        f"blocks a shard {odo.state.n_blocks.gather().cpu().tolist()}; peak {peak:.3f} GiB; a "
+        f"profiled frame {fmt(n_frame)}")
+    check(worst[0] <= F2M_TOL[0] and worst[1] <= F2M_TOL[1],
+          "the sharded odometry's poses are off the truth")
+    report["phase56"] = {"frame_ms": frame_ms, "ms_per_frame_after_first":
+                         float(np.mean(frame_ms[1:])), "pose_errors": errs,
+                         "single_device_diff": diffs, "peak_gib": peak, "frame": n_frame}
+    del frames, odo, one
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 57 --------------------------------------------------------------
+    log("phase 57: the sharded NDT, ground, clusters, SHOT / USC, plane RANSAC, MLS and "
+        "colorize against the single-device entries")
+    ph57 = {}
+    npts = torch.from_numpy(scan(NDT_POINTS, 7)).to(dev)
+    ntgt = npts + torch.from_numpy(SHIFT).to(dev)
+    nm = torch.ones(NDT_POINTS, dtype=torch.bool, device=dev)
+    cfg = dict(NDT_CONFIG, subsample=1)
+    ndt_fn = tp.make_sharded_ndt(mesh, **cfg)
+    (t_s, score, its, conv), n_ndt = counted(lambda: ndt_fn(npts, nm, ntgt, nm, torch.eye(4)))
+    one = ndt_mod.ndt_registration(tt.PointCloud.from_points(npts), tt.PointCloud.from_points(ntgt),
+                                   tt.NdtConfig(**cfg))
+    t_s, t_1 = t_s.cpu().numpy(), one.transformation.cpu().numpy()
+    d_t = float(np.abs(t_s[:3, 3] - t_1[:3, 3]).max())
+    d_r = pose_errors(t_s, t_1.astype(np.float64))[1]
+    log(f"  NDT at {NDT_POINTS:,} ({cfg}): translation {t_s[:3, 3].tolist()}, {d_t:.3e} m and "
+        f"{d_r:.3e} rad off ndt_registration's (tol 1e-3); {int(its)} iterations (single "
+        f"device {one.iterations}), score {float(score):.2f} ({float(one.score):.2f}); "
+        f"{fmt(n_ndt)}")
+    check(d_t <= 1e-3 and d_r <= 1e-3, "the sharded NDT disagrees with ndt_registration")
+    ph57["ndt"] = {**n_ndt, "translation_diff_m": d_t, "rotation_diff_rad": d_r}
+    del npts, ntgt, nm
+
+    gpts, labels = ground_scan()
+    gp = torch.from_numpy(gpts).to(dev)
+    gm = torch.ones(len(gpts), dtype=torch.bool, device=dev)
+    ground_fn = tp.make_sharded_ground(mesh)
+    (g, g_ok, g_nrm), n_gr = counted(lambda: ground_fn(gp, gm))
+    one = tt.patchwork_plus_plus(tt.PointCloud.from_points(gp))
+    g = g.gather()
+    agree = (g == one.ground_mask).float().mean().item()
+    both = g_ok & one.patch_valid
+    cos = (g_nrm * one.patch_normals)[both].sum(-1).abs().median().item()
+    rec, prec = recall_precision(g.cpu().numpy(), labels)
+    log(f"  ground on the {len(gpts):,}-point scan: mask agreement with patchwork_plus_plus "
+        f"{agree:.6f} (need >= 0.99), median patch-normal cosine {cos:.7f} on "
+        f"{int(both.sum())} patches (need > 0.999); recall {rec:.4f} / precision {prec:.4f}; "
+        f"{fmt(n_gr)}")
+    check(agree >= 0.99 and cos > 0.999, "the sharded ground disagrees with patchwork_plus_plus")
+    ph57["ground"] = {**n_gr, "agreement": agree, "normal_cos_median": cos}
+    del gp, gm, g, one
+
+    street, source = street_scene()
+    boxes = street[source >= 0]
+    cpts = torch.from_numpy(boxes[np.random.default_rng(SLAB_SEED).choice(
+        len(boxes), N_RING, replace=False)]).to(dev)
+    cm = torch.ones(N_RING, dtype=torch.bool, device=dev)
+    ccfg = tt.EuclideanClusterConfig(tolerance=STREET_TOLERANCE,
+                                     min_cluster_size=STREET_MIN_CLUSTER)
+    cl_fn = tp.make_sharded_clusters(mesh, ccfg)
+    (lab, n_cl, sizes), n_clu = counted(lambda: cl_fn(cpts, cm))
+    one = tt.extract_euclidean_clusters(tt.PointCloud.from_points(cpts), ccfg)
+    lab_eq = (lab.gather() == one.labels).float().mean().item()
+    sizes_eq = torch.equal(sizes, one.sizes)
+    log(f"  clusters on {N_RING:,} of the street's box samples (tolerance {STREET_TOLERANCE}): "
+        f"{int(n_cl)} clusters (single device {int(one.n_clusters)}), labels equal on "
+        f"{lab_eq:.6f}, sizes equal {sizes_eq}; {fmt(n_clu)}")
+    check(int(n_cl) == int(one.n_clusters) == STREET_BOXES and lab_eq >= 0.999 and sizes_eq,
+          "the sharded clusters disagree with extract_euclidean_clusters")
+    ph57["clusters"] = {**n_clu, "clusters": int(n_cl), "labels_equal": lab_eq}
+    del street, source, boxes, cpts, cm, lab, one
+
+    rp = torch.from_numpy(scan(N_RING, 0)).to(dev)
+    rmask = torch.ones(N_RING, dtype=torch.bool, device=dev)
+    cloud = tt.ops.normals.estimate_normals(tt.PointCloud.from_points(rp), K_NORMALS)
+    for variant in ("shot", "usc"):
+        scfg = tt.ShotConfig(method="exact")
+        sh_fn = tp.make_sharded_shot(mesh, scfg, variant=variant)
+        (desc, valid), n_sh = counted(lambda: sh_fn(rp, rmask, cloud.normals))
+        one = (tt.extract_shot_features(cloud, scfg) if variant == "shot"
+               else tt.extract_usc_features(cloud, scfg))
+        desc, valid = desc.gather(), valid.gather()
+        v_eq = torch.equal(valid, one.valid)
+        cos = (desc * one.descriptors)[one.valid].sum(-1)
+        med = cos.median().item()
+        log(f"  {variant} ({scfg.radius} m, {scfg.max_neighbors} neighbours) on {N_RING:,} "
+            f"points of scan: valid {int(valid.sum())}, equal to the staged path's {v_eq}; "
+            f"median cosine {med:.7f} (need > 0.99999), >= 0.99 on "
+            f"{(cos >= 0.99).float().mean().item():.5f}; {fmt(n_sh)}")
+        check(v_eq and med > 0.99999, f"the sharded {variant} disagrees with the staged path")
+        ph57[variant] = {**n_sh, "cos_median": med}
+        del desc, valid, one
+
+    mls_cfg = tt.MlsConfig(search_radius=SLAB_MLS_RADIUS)
+    mls_fn = tp.make_sharded_mls(mesh, mls_cfg)
+    (proj, _, mvalid), n_mls = counted(lambda: mls_fn(rp, rmask))
+    one = tt.mls_smooth(tt.PointCloud.from_points(rp), mls_cfg)
+    close = ((proj.gather() - one.points).abs().amax(1) < 1e-4).float().mean().item()
+    log(f"  MLS (radius {SLAB_MLS_RADIUS} m, {mls_cfg.max_neighbors} neighbours) on {N_RING:,} "
+        f"points of scan: valid {int(mvalid.gather().sum())}, projections within 1e-4 of "
+        f"mls_smooth's on {close:.5f} (need >= 0.98); {fmt(n_mls)}")
+    check(close >= 0.98, "the sharded MLS disagrees with mls_smooth")
+    ph57["mls"] = {**n_mls, "close_share": close}
+    del rp, rmask, cloud, proj, one
+
+    big = torch.from_numpy(scan(N_SLAB_BIG, 0)).to(dev)
+    bm = torch.ones(N_SLAB_BIG, dtype=torch.bool, device=dev)
+    pl_fn = tp.make_sharded_plane_ransac(mesh, STREET_PLANE_TOL, STREET_RANSAC)
+    pl, n_pl = counted(lambda: pl_fn(big, bm))
+    one = tt.ops.segmentation.segment_plane(tt.PointCloud.from_points(big), STREET_PLANE_TOL,
+                                           STREET_RANSAC)
+    pcos = abs(float(pl.model.normal @ one.model.normal))
+    inl = (pl.inlier_mask.gather() == one.inlier_mask).float().mean().item()
+    log(f"  plane RANSAC ({STREET_PLANE_TOL} m, {STREET_RANSAC} hypotheses) on {N_SLAB_BIG:,} "
+        f"points of scan: plane cosine with segment_plane's {pcos:.8f} (need > 0.9999), offsets "
+        f"{float(pl.model.d):.5f} / {float(one.model.d):.5f}, inliers {int(pl.inlier_count):,} "
+        f"/ {int(one.inlier_count):,}, masks equal on {inl:.6f} (need >= 0.999); {fmt(n_pl)}")
+    check(pcos > 0.9999 and inl >= 0.999, "the sharded plane RANSAC disagrees with segment_plane")
+    ph57["plane_ransac"] = {**n_pl, "cos": pcos, "mask_agreement": inl}
+    del pl, one
+
+    rng = np.random.default_rng(COLOR_SEED)
+    views = street_cameras()
+    imgs = torch.from_numpy(rng.uniform(0, 1, (COLOR_VIEWS,) + COLOR_HW + (3,))
+                            .astype(np.float32)).to(dev)
+    intrs = torch.tensor([COLOR_INTR] * COLOR_VIEWS, dtype=torch.float32, device=dev)
+    w2cs = torch.from_numpy(np.stack(views)).to(dev)
+    col_fn = tp.make_sharded_colorize(mesh, *COLOR_HW, bilinear=True)
+    (colors, assigned), n_col = counted(lambda: col_fn(big, bm, imgs, intrs, w2cs))
+    rgb_views = [RgbImageView(imgs[i], tt.CameraIntrinsics(*COLOR_INTR), w2cs[i])
+                 for i in range(COLOR_VIEWS)]
+    one = tt.colorize_from_images(tt.PointCloud.from_points(big), rgb_views,
+                                  mode=tt.InterpolationMode.BILINEAR)
+    colors, assigned = colors.gather(), assigned.gather()
+    col_eq = torch.equal(colors[assigned], one.colors[assigned])
+    log(f"  colorize {N_SLAB_BIG:,} points of scan from {COLOR_VIEWS} {COLOR_HW} views "
+        f"(bilinear): {int(assigned.sum()):,} assigned, colours bit-equal to "
+        f"colorize_from_images' {col_eq}, the rest 0 {not colors[~assigned].any().item()}; "
+        f"{fmt(n_col)}")
+    check(col_eq and not colors[~assigned].any().item() and int(assigned.sum()) > 0,
+          "the sharded colorize differs from colorize_from_images")
+    ph57["colorize"] = {**n_col, "assigned": int(assigned.sum())}
+    report["phase57"] = ph57
+    del big, bm, imgs, w2cs, colors, assigned, one
+    log(f"  ({report['card']}, SM clock {sm_clock()})")
+    log(f"  phase {phase_seconds()}")
+
+    # -- phase 58 --------------------------------------------------------------
+    log(f"phase 58: make_sharded_mg_solver at {POISSON_RES}^3 (8 V-cycles) on phase 35's "
+        f"right-hand side, make_sharded_poisson(PoissonConfig(depth=7)) on its {POISSON_N:,} "
+        f"points")
+    pts_np = scan(POISSON_N, 3)
+    pts_np = pts_np / np.maximum(np.linalg.norm(pts_np, axis=1, keepdims=True), 1e-9)
+    pts = torch.from_numpy(pts_np).to(dev)
+    pmask = torch.ones(POISSON_N, dtype=torch.bool, device=dev)
+    spacing = torch.tensor(2.4 / (POISSON_RES - 1), device=dev)
+    origin = torch.full((3,), POISSON_LO, device=dev)
+    rhs = poisson_mod._splat(pts, pts, pmask, origin, spacing, POISSON_RES)[0]
+    mg_fn = tp.make_sharded_mg_solver(mesh, POISSON_RES, cycles=8)
+    x_s, n_mg = counted(lambda: mg_fn(rhs, 1e-4))
+    x_1, n_mg1 = counted(lambda: multigrid.mg_solve(rhs, torch.tensor(1e-4, device=dev),
+                                                    cycles=8))
+    x_s = x_s.gather()
+    scale = x_1.abs().max().item()
+    mg_err = (x_s - x_1).abs().max().item()
+    log(f"  mg solver: max |x - mg_solve's x| {mg_err:.3e} of max|x| {scale:.4f} "
+        f"({mg_err / scale:.3e}; tol 1e-6), bit-equal on {(x_s == x_1).float().mean().item():.6f} "
+        f"of the voxels; sharded {fmt(n_mg)}; single device {fmt(n_mg1)}")
+    check(mg_err <= 1e-6 * scale, "the x-slab multigrid disagrees with mg_solve")
+    fields_fn = tp.make_sharded_poisson_fields(mesh, POISSON_RES, cycles=8)
+    (chi, iso, _), n_fields = counted(lambda: fields_fn(pts, pts, pmask, origin, spacing))
+    chi_1, iso_1, _ = poisson_mod._solve(pts, pts, pmask, origin, spacing, POISSON_RES, 200, 1e-4,
+                                         solver="multigrid", mg_cycles=8)
+    cscale = chi_1.abs().max().item()
+    chi_err = (chi - chi_1).abs().max().item() / cscale
+    iso_err = abs(float(iso) - float(iso_1)) / cscale
+    cloud = tt.PointCloud.from_numpy(pts_np, normals=pts_np, device=dev)
+    run = tp.make_sharded_poisson(mesh, tt.PoissonConfig(depth=7))
+    pmesh, n_pr = counted(lambda: run(cloud))
+    v, f = pmesh.to_numpy()
+    r = np.linalg.norm(v, axis=1)
+    log(f"  fields: chi within {chi_err:.3e} of max|chi| of _solve's (tol {POISSON_CHI_TOL}), iso "
+        f"{iso_err:.3e}; {fmt(n_fields)}")
+    log(f"  make_sharded_poisson: {len(v)} vertices, {len(f)} faces, radius median "
+        f"{np.median(r):.5f}, std {r.std():.5f} (tol {POISSON_RADIUS_TOL}); {fmt(n_pr)}")
+    check(chi_err <= POISSON_CHI_TOL and iso_err <= POISSON_CHI_TOL,
+          "the sharded Poisson fields disagree with _solve")
+    check(len(f) > 10000 and abs(np.median(r) - 1.0) <= POISSON_RADIUS_TOL
+          and r.std() < POISSON_RADIUS_TOL, "the sharded Poisson mesh is off the sphere")
+    report["phase58"] = {"mg_solver": {**n_mg, "max_diff": mg_err, "scale": scale},
+                         "mg_solve_single_device": n_mg1,
+                         "fields": {**n_fields, "chi_err": chi_err, "iso_err": iso_err},
+                         "poisson": {**n_pr, "faces": len(f), "radius_median": float(np.median(r)),
+                                     "radius_std": float(r.std())}}
+    log(f"  ({report['card']}, SM clock {sm_clock()})")
+    log(f"  phase {phase_seconds()}")
+    check(not any(total.values()), "phases 55-58 launched a kernel")
     return total, report
 
 

@@ -54,7 +54,13 @@ run, a 4-shard ring kNN with ``neighbors.knn``'s squared distances within
 2e-6 and its ids where the distances are apart, one shard's kernel-4
 launch with its halos bit-equal to the plain version (and 8 launches a
 call), the distributed sort on tied keys a permutation equal to the
-stable sort and to its CPU run; the user-facing surface: the root
+stable sort and to its CPU run; the last of ``parallel``: the slab
+TSDF's union of blocks bit-equal to the single-device fusion on the card
+and its raycast within JAX's gates of the single-device one, the sharded
+odometry, NDT and MLS at the CPU tests' tolerances against the CPU
+mesh's run, ground, clusters, SHOT and plane RANSAC likewise, colorize
+bit-equal, the x-slab multigrid within 1e-6 of max|x| of the
+single-device solve; the user-facing surface: the root
 adapters build their clouds from NumPy arrays on the card, launch the
 native path's kernels and return the native call's bits (the FPFH rows
 as a host array), ``nan_checks``, ``median_time``'s ``sync_fn`` and
@@ -1689,6 +1695,174 @@ def test_distributed_sort_on_card_with_tied_keys(cuda):
     np.testing.assert_array_equal(np.sort(gid), np.arange(4096))
     keys = morton.morton_keys(torch.from_numpy(pts), torch.from_numpy(mask)).numpy()
     np.testing.assert_array_equal(gid, np.argsort(keys, kind="stable"))
+
+
+def _both_meshes(cuda):
+    from threecrate_tpu_torch import parallel as tp
+    return _card_mesh(cuda), tp.make_mesh(8, devices=[torch.device("cpu")] * 8)
+
+
+def _wavy_frames(n=3, h=48, w=64):
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for i in range(n):
+        pose = np.eye(4, dtype=np.float32)
+        pose[0, 3] = 0.03 * i
+        out.append(((2.0 + 0.3 * np.sin((xx + 2.0 * i) / 10.0) * np.cos(yy / 8.0))
+                    .astype(np.float32), pose))
+    return out
+
+
+def test_sharded_tsdf_on_card(cuda):
+    """The slab TSDF on eight shards of the card: the union of the shards'
+    blocks bit-equal to the single-device ``sparse_integrate`` on the card
+    (keys, tsdf and weights), the counts summing to its count; the
+    sharded raycast against the single-device one on the card with JAX's
+    gates, and its mask equal to the CPU mesh's on >= 99.9%."""
+    from threecrate_tpu_torch.ops import tsdf_raycast as trc
+    from threecrate_tpu_torch.ops import tsdf_sparse as tsp
+    from threecrate_tpu_torch.parallel import sharded as tsh
+    grid, vox, intr = (16, 16, 16), 4.0 / 128, np.array([52.0, 52.0, 31.5, 23.5], np.float32)
+    kw = dict(origin=(-2.0, -2.0, 0.5), block=8, max_blocks_per_shard=512,
+              update_fraction=1.0)
+    outs = []
+    for mesh in _both_meshes(cuda):
+        fac = tsh.make_sharded_tsdf(mesh, grid, vox, **kw)
+        st = fac.init()
+        for d, p in _wavy_frames():
+            st = fac.integrate(st, d, intr, p)
+        outs.append((fac, st))
+    (fac, st), (cfac, cst) = outs
+    assert st.tsdf.shards[0].device.type == cuda.type
+    ref = tsp.create_sparse_volume(vox, origin=(-2.0, -2.0, 0.5), grid_blocks=grid, block=8,
+                                   max_blocks=4096, device=cuda)
+    for d, p in _wavy_frames():
+        ref = tsp.sparse_integrate(ref, d, intr, p, grid_blocks=grid, block=8,
+                                   update_fraction=1.0)
+    n = int(ref.n_blocks)
+    keys = st.block_keys.gather()
+    live = keys != 2 ** 31 - 1
+    order = torch.argsort(keys[live])
+    assert torch.equal(keys[live][order], ref.block_keys[:n])
+    assert torch.equal(st.tsdf.gather()[live][order], ref.tsdf[:n])
+    assert torch.equal(st.weight.gather()[live][order], ref.weight[:n])
+    assert int(st.n_blocks.gather().sum()) == n
+    eye = np.eye(4, dtype=np.float32)
+    ray = dict(far=6.0, max_steps=48)
+    d, v, nrm, m, c = fac.raycast(st, intr, eye, 48, 64, **ray)
+    want = trc.sparse_raycast(ref, intr, eye, 48, 64, grid_blocks=grid, block=8,
+                              materialize=False, **ray)
+    assert (m != want.mask).float().mean().item() < 0.01
+    both = m & want.mask
+    assert both.float().mean().item() > 0.5
+    assert (d[both] - want.depth[both]).abs().max().item() <= vox
+    assert (nrm[both] * want.normals[both]).sum(-1).abs().median().item() > 0.999
+    cm = cfac.raycast(cst, intr, eye, 48, 64, **ray)[3]
+    assert (m.cpu() == cm).float().mean().item() >= 0.999
+
+
+def test_sharded_odometry_on_card_matches_cpu(cuda):
+    """``ShardedFrameToModelOdometry`` over three wavy-wall frames on the
+    card's mesh: poses within 1e-4 of the CPU mesh's run."""
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.ops.frame_to_model import FrameToModelConfig
+    intr = np.array([52.0, 52.0, 31.5, 23.5], np.float32)
+    yy, xx = np.mgrid[0:48, 0:64]
+    frames = [(2.0 + 0.25 * np.sin((xx + 0.02 * i * 26.0) / 9.0) * np.cos(yy / 7.0))
+              .astype(np.float32) for i in range(3)]
+    poses = []
+    for mesh in _both_meshes(cuda):
+        odo = tp.ShardedFrameToModelOdometry(
+            mesh, intr, 48, 64, voxel_size=4.0 / 128, origin=(-2.0, -2.0, 0.5),
+            grid_blocks=(16, 16, 16), block=8, max_blocks_per_shard=512,
+            config=FrameToModelConfig(model_render_scale=1, max_steps=48, far=6.0))
+        poses.append([odo.register_frame(f).cpu().numpy() for f in frames])
+    np.testing.assert_allclose(np.stack(poses[0]), np.stack(poses[1]), rtol=0, atol=1e-4)
+
+
+def test_sharded_entries_on_card_match_cpu(cuda):
+    """NDT (pose within 1e-4), ground (mask equal on >= 99.9%), clusters
+    (labels and sizes equal), SHOT (valid equal, median cosine > 0.99999),
+    plane RANSAC (the same CPU draws: the same inliers on >= 99.9%, normal
+    within 1e-5), MLS (>= 98% of projections within 1e-4) and colorize
+    (bit-equal) on the card's mesh against the CPU mesh's run."""
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.ops.features import ShotConfig
+    from threecrate_tpu_torch.ops.segmentation import EuclideanClusterConfig
+    from threecrate_tpu_torch.reconstruction.moving_least_squares import MlsConfig
+    rng = np.random.default_rng(21)
+    xy = rng.uniform(-4, 4, (4096, 2)).astype(np.float32)
+    src = (np.column_stack([xy, 0.5 * np.sin(xy[:, 0]) * np.cos(xy[:, 1])]) * 2.0).astype(
+        np.float32)
+    tgt = src + np.array([0.08, -0.05, 0.02], np.float32)
+    ones = np.ones(4096, bool)
+    scan = _scan(16384, 5)
+    surf = src[:2048] * np.float32(0.5)
+    nrm = np.zeros_like(surf)
+    nrm[:, 2] = 1.0
+    imgs = rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32)
+    intrs = np.array([[40.0, 40.0, 32.0, 24.0], [40.0, 40.0, 36.0, 24.0]], np.float32)
+    w2cs = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    w2cs[:, 2, 3] = 3.0
+    res = []
+    for mesh in _both_meshes(cuda):
+        out = {"ndt": tp.make_sharded_ndt(mesh, 1.0, max_iterations=40, step_size=0.2)(
+            src, ones, tgt, ones, torch.eye(4))[0].cpu()}
+        out["ground"] = tp.make_sharded_ground(mesh)(scan, np.ones(16384, bool))[0].numpy()
+        lab, n_c, sizes = tp.make_sharded_clusters(mesh, EuclideanClusterConfig(
+            tolerance=0.5, max_neighbors=16, min_cluster_size=5))(src, ones)
+        out["clusters"] = (lab.numpy(), int(n_c), sizes.cpu().numpy())
+        out["shot"] = [x.numpy() for x in tp.make_sharded_shot(mesh, ShotConfig(
+            radius=0.4, max_neighbors=32, method="exact"))(surf, ones[:2048], nrm)]
+        pl = tp.make_sharded_plane_ransac(mesh, 0.05, 256)(scan, np.ones(16384, bool), seed=3)
+        out["ransac"] = (pl.model.normal.cpu().numpy(), pl.inlier_mask.numpy())
+        out["mls"] = tp.make_sharded_mls(mesh, MlsConfig(search_radius=0.5, max_neighbors=24))(
+            src, ones)[0].numpy()
+        out["color"] = [x.numpy() for x in tp.make_sharded_colorize(mesh, 48, 64, True)(
+            src * np.float32(0.1), ones, imgs, intrs, w2cs)]
+        res.append(out)
+    card, cpu = res
+    np.testing.assert_allclose(card["ndt"].numpy(), cpu["ndt"].numpy(), rtol=0, atol=1e-4)
+    assert (card["ground"] == cpu["ground"]).mean() >= 0.999
+    for a, b in zip(card["clusters"], cpu["clusters"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(card["shot"][1], cpu["shot"][1])
+    v = cpu["shot"][1]
+    assert v.sum() > 1000
+    assert np.median((card["shot"][0][v] * cpu["shot"][0][v]).sum(-1)) > 0.99999
+    na, nb = card["ransac"][0], cpu["ransac"][0]
+    np.testing.assert_allclose(na * np.sign(na @ nb), nb, rtol=0, atol=1e-5)
+    assert (card["ransac"][1] == cpu["ransac"][1]).mean() >= 0.999
+    assert (np.abs(card["mls"] - cpu["mls"]).max(1) < 1e-4).mean() >= 0.98
+    for a, b in zip(card["color"], cpu["color"]):
+        np.testing.assert_array_equal(a, b)
+    assert cpu["color"][1].sum() > 1000
+
+
+def test_sharded_poisson_on_card(cuda):
+    """The x-slab multigrid on the card's mesh within 1e-6 of max|x| of
+    the single-device ``mg_solve`` on the card, and within 1e-4 of the
+    CPU mesh's (the card's and the CPU's solves differ as much on one
+    device: phase 35's ``POISSON_CHI_TOL``), at 32³ with gather_res 8; ``make_sharded_poisson`` of a
+    4,096-point sphere at depth 5 with a median radius within 0.03 of 1."""
+    from threecrate_tpu_torch import parallel as tp
+    from threecrate_tpu_torch.reconstruction import multigrid as tmg
+    from threecrate_tpu_torch.reconstruction.poisson import PoissonConfig
+    b = np.random.default_rng(11).normal(size=(32, 32, 32)).astype(np.float32)
+    got = [tp.make_sharded_mg_solver(mesh, 32, cycles=4, gather_res=8)(b, np.float32(1e-4))
+           .gather().cpu() for mesh in _both_meshes(cuda)]
+    ref = tmg.mg_solve(torch.from_numpy(b).to(cuda), torch.tensor(1e-4, device=cuda),
+                       cycles=4).cpu()
+    scale = ref.abs().max().item()
+    assert (got[0] - ref).abs().max().item() <= 1e-6 * scale
+    assert (got[0] - got[1]).abs().max().item() <= 1e-4 * scale
+    v = np.random.default_rng(9).normal(size=(4096, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    cloud = tt.PointCloud.from_numpy(v, device=cuda).with_normals(torch.from_numpy(v).to(cuda))
+    verts, faces = tp.make_sharded_poisson(_card_mesh(cuda), PoissonConfig(depth=5))(
+        cloud).to_numpy()
+    assert len(faces) > 500
+    assert abs(np.median(np.linalg.norm(verts, axis=1)) - 1.0) < 0.03
 
 
 # ---------------------------------------------------------------------------

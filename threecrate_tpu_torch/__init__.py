@@ -2,7 +2,8 @@
 
 The same point-cloud library as ``threecrate_tpu`` (the JAX reference,
 which stays beside it), in eager PyTorch with hand-written CUDA kernels
-for NVIDIA Hopper (``csrc/``). Twelve slices are ported:
+for NVIDIA Hopper (``csrc/``). Every module of the JAX package is
+ported, slice by slice:
 ``PerceptionStep`` (union-window normals and static-sort point-to-point
 ICP), ``RegistrationModel`` (fused-window FPFH, descriptor matching,
 batched RANSAC, then ICP), the Morton-window neighbourhood ops (FPFH
@@ -32,7 +33,11 @@ E57, rosbag2 and MCAP with the ROS 2 converters, GLB, ``.tcz`` and
 then the multi-shard points axis of ``parallel`` (device meshes,
 collectives, ring kNN, the sharded ICP family, the distributed Morton
 sort with sharded window normals, the sharded filters and FPFH →
-RANSAC); then the user-facing surface: the reference-compatible root
+RANSAC); then the rest of ``parallel``: the x-slab block-sparse TSDF
+with its halo-extended sharded raycast and
+``ShardedFrameToModelOdometry``, the sharded NDT, ground, clusters,
+SHOT, plane RANSAC, MLS and colorize, and the x-slab Poisson multigrid
+(``parallel.poisson_mg``); then the user-facing surface: the reference-compatible root
 API (``compat``'s adapters of the reference module's calling
 conventions, ``api``'s helpers, ``prelude``, ``utils.debug`` and the
 typed stub ``__init__.pyi``) and ``viz`` (the point and mesh
