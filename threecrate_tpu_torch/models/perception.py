@@ -23,6 +23,7 @@ from ..core.transform import Transform
 from ..ops import global_registration, kiss_icp
 from ..ops import normals as normals_mod
 from ..ops import registration
+from ..utils import profiling
 
 
 class PerceptionResult(NamedTuple):
@@ -47,20 +48,22 @@ class PerceptionStep:
         self.conv_thresh = float(conv_thresh)
         self.device = torch.device(device)
 
+    @profiling.spanned("perception")
     def __call__(self, src, src_mask, tgt, tgt_mask) -> PerceptionResult:
         def put(x, dtype):
             return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
         src, tgt = put(src, torch.float32), put(tgt, torch.float32)
         src_mask, tgt_mask = put(src_mask, torch.bool), put(tgt_mask, torch.bool)
-        mn = torch.where(tgt_mask[:, None], tgt, 3e38).amin(0)
-        mx = torch.where(tgt_mask[:, None], tgt, -3e38).amax(0)
-        vp = normals_mod._viewpoint(mn, mx)
         n_t = tgt.shape[0]
         big_cloud = n_t >= normals_mod.AUTO_WINDOW_THRESHOLD
-        nrm, curv, _valid = normals_mod._estimate(
-            tgt, tgt_mask, self.k, False, 0.0, vp, True, moments=big_cloud,
-            window_merge="union" if big_cloud else "tighter")
+        with profiling.span("normals"):
+            mn = torch.where(tgt_mask[:, None], tgt, 3e38).amin(0)
+            mx = torch.where(tgt_mask[:, None], tgt, -3e38).amax(0)
+            vp = normals_mod._viewpoint(mn, mx)
+            nrm, curv, _valid = normals_mod._estimate(
+                tgt, tgt_mask, self.k, False, 0.0, vp, True, moments=big_cloud,
+                window_merge="union" if big_cloud else "tighter")
         use_window = (src.shape[0] * n_t
                       > registration.CORRESPONDENCE_WINDOW_THRESHOLD)
         t, mse, _it, _conv, _n = registration._icp_p2p(
@@ -110,6 +113,7 @@ class RegistrationModel:
         self.max_iterations = int(max_iterations)
         self.config = global_registration.GlobalRegistrationConfig(**global_config)
 
+    @profiling.spanned("registration")
     def __call__(self, source, target) -> registration.ICPResult:
         init = global_registration.global_registration(source, target, self.config)
         return registration.icp_point_to_point(

@@ -45,7 +45,7 @@ import torch
 from ..core.errors import InvalidDataError
 from ..core.point_cloud import PointCloud
 from ..kernels.shot import SHOT_DIM, USC_DIM
-from ..utils import padding
+from ..utils import padding, profiling
 from . import linalg, morton, neighbors
 from .linalg import fp32_matmul
 from .normals import NormalEstimationConfig, estimate_normals_detailed
@@ -269,6 +269,7 @@ def _resolve_fpfh_band(band, points, mask, radius: float):
     return None
 
 
+@profiling.spanned("fpfh")
 def extract_fpfh_features_with_normals(cloud: PointCloud,
                                        config: FpfhConfig = FpfhConfig()
                                        ) -> FpfhResult:
@@ -544,6 +545,7 @@ def extract_usc_features(cloud: PointCloud, config: ShotConfig = ShotConfig()
     return ShotResult(desc, valid)
 
 
+@profiling.spanned("match")
 def match_descriptors(desc_a, valid_a, desc_b, valid_b, mutual: bool = False):
     """Nearest neighbour of each ``desc_a`` row among the valid
     ``desc_b`` rows: ``(index into b (N,), distance, valid)``.

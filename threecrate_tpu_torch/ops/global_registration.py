@@ -25,6 +25,7 @@ import torch
 from ..core.errors import InvalidDataError
 from ..core.point_cloud import PointCloud
 from ..core.transform import Transform
+from ..utils import profiling
 from . import features, linalg, registration
 from .normals import NormalEstimationConfig, estimate_normals_detailed
 
@@ -87,7 +88,8 @@ def score_hypotheses(idx: torch.Tensor, src_pts: torch.Tensor,
     inlier = (d2 <= (thresh * thresh).item()) & corr_ok[None, :]
     counts = inlier.sum(1)
     best = torch.argmax(counts)
-    return fit[best], counts[best]
+    with profiling.host_sync("ransac.best", best, 2):     # a 0-d index is read back
+        return fit[best], counts[best]
 
 
 def global_registration_with_features(
@@ -105,37 +107,42 @@ def global_registration_with_features(
     j, dist, ok = features.match_descriptors(src_desc, src_valid, tgt_desc,
                                              tgt_valid, mutual=config.mutual_check)
 
-    # the correspondence budget: the best-matched pairs, stable order
-    order = torch.argsort(torch.where(ok, dist, torch.inf), stable=True)
-    order = order[:config.max_correspondences]
-    src_pts = src_points[order]
-    tgt_pts = target.points[j[order]]
-    corr_ok = ok[order]
+    with profiling.span("ransac"):
+        # the correspondence budget: the best-matched pairs, stable order
+        order = torch.argsort(torch.where(ok, dist, torch.inf), stable=True)
+        order = order[:config.max_correspondences]
+        src_pts = src_points[order]
+        tgt_pts = target.points[j[order]]
+        corr_ok = ok[order]
 
-    n_valid = int(corr_ok.sum())
-    if n_valid < 3:
-        raise InvalidDataError(
-            "global registration: fewer than 3 feature correspondences")
+        with profiling.host_sync("ransac.valid", corr_ok):
+            n_valid = int(corr_ok.sum())
+        if n_valid < 3:
+            raise InvalidDataError(
+                "global registration: fewer than 3 feature correspondences")
 
-    gen = torch.Generator(device=src_pts.device)
-    gen.manual_seed(config.seed)
-    batch = min(config.hypothesis_batch, config.ransac_iterations)
-    n_batches = max(1, config.ransac_iterations // batch)
-    best_t = torch.eye(4, device=src_pts.device)
-    best_count = -1
-    target_count = config.inlier_ratio * max(n_valid, 1)
-    for _ in range(n_batches):
-        idx = sample_hypotheses(gen, corr_ok, batch)
-        t, count = score_hypotheses(idx, src_pts, tgt_pts, corr_ok,
-                                    config.distance_threshold)
-        count = int(count)
-        if count > best_count:
-            best_count, best_t = count, t
-        if best_count >= target_count:   # batch-level early exit
-            break
+        gen = torch.Generator(device=src_pts.device)
+        gen.manual_seed(config.seed)
+        batch = min(config.hypothesis_batch, config.ransac_iterations)
+        n_batches = max(1, config.ransac_iterations // batch)
+        best_t = torch.eye(4, device=src_pts.device)
+        best_count = -1
+        target_count = config.inlier_ratio * max(n_valid, 1)
+        for _ in range(n_batches):
+            idx = sample_hypotheses(gen, corr_ok, batch)
+            t, count = score_hypotheses(idx, src_pts, tgt_pts, corr_ok,
+                                        config.distance_threshold)
+            profiling.count("ransac.hypotheses", batch)
+            with profiling.host_sync("ransac.count", count):
+                count = int(count)
+            if count > best_count:
+                best_count, best_t = count, t
+            if best_count >= target_count:   # batch-level early exit
+                break
 
     result_t = best_t
-    mse = torch.tensor(torch.inf, device=src_pts.device)
+    with profiling.host_sync("ransac.mse", src_pts.device):
+        mse = torch.tensor(torch.inf, device=src_pts.device)
     if config.refine_with_icp:
         icp_res = registration.icp_point_to_point(
             source, target, config.icp_max_iterations,

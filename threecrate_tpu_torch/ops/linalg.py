@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import profiling
+
 _EPS = 1e-12
 
 
@@ -191,7 +193,8 @@ def kabsch_batched(source: torch.Tensor, target: torch.Tensor,
     mu_t = (target * w[..., None]).sum(-2) / wsum
     ds = (source - mu_s[:, None]) * w[..., None]
     h = fp32_matmul(ds.transpose(-1, -2), target - mu_t[:, None])   # (H, 3, 3)
-    u, _, vt = torch.linalg.svd(h)
+    with profiling.host_sync("kabsch.svd", h, 2):    # the solver's status is read back
+        u, _, vt = torch.linalg.svd(h)
     v, ut = vt.transpose(-1, -2), u.transpose(-1, -2)
     d = torch.sign(_det3(fp32_matmul(v, ut)))
     diag = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))

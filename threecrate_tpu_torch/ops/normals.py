@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.point_cloud import PointCloud
-from ..utils import padding
+from ..utils import padding, profiling
 from . import linalg, morton, neighbors
 
 
@@ -266,6 +266,7 @@ def _viewpoint(mn, mx):
     return (mn + mx) * 0.5 + up * torch.clamp_min(mx[2] - mn[2], 1.0)
 
 
+@profiling.spanned("normals")
 def estimate_normals_detailed(cloud: PointCloud,
                               config: NormalEstimationConfig = NormalEstimationConfig()
                               ) -> NormalResult:

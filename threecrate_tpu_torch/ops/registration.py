@@ -37,7 +37,7 @@ import torch
 from ..core.errors import InvalidDataError
 from ..core.point_cloud import PointCloud
 from ..core.transform import Transform, se3_exp
-from ..utils import padding
+from ..utils import padding, profiling
 from . import filtering, linalg, morton, neighbors
 
 
@@ -214,11 +214,13 @@ def _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2,
     return match, src_extra_sorted
 
 
+@profiling.spanned("icp.setup")
 def _static_matchers(src, src_mask, tgt, tgt_mask, t_host, max_d2, w_tiles,
                      subsample, tgt_extra=None, tile=128):
     """The static-sort ``match`` functions at the host pose ``t_host``:
     (every source tile, every ``subsample``-th tile or None)."""
-    init = t_host.to(src.device)
+    with profiling.host_sync("icp.setup.pose", src):
+        init = t_host.to(src.device)
     full, _ = _static_corr_setup(src, src_mask, tgt, tgt_mask, init, max_d2, w_tiles,
                                  tgt_extra=tgt_extra, tile=tile)
     if subsample <= 1:
@@ -243,7 +245,9 @@ def _icp_loop(step, t_host, max_iterations, conv_thresh, match=None,
         mse = torch.tensor(torch.inf)
         conv, n_corr = False, 0
         while it < it_budget and not conv:
-            delta, new_mse, n_corr = step(t_mat, match_fn)
+            with profiling.span("icp.iteration"):
+                delta, new_mse, n_corr = step(t_mat, match_fn)
+            profiling.count("icp.iterations")
             t_mat = linalg.fp32_matmul(delta, t_mat)
             conv = bool(torch.abs(new_mse - mse) < thresh)
             mse = new_mse
@@ -265,6 +269,18 @@ def _pose_to(t_host: torch.Tensor, device) -> torch.Tensor:
     return t_host.pin_memory().to(device, non_blocking=True)
 
 
+def _pose_from(init: torch.Tensor) -> torch.Tensor:
+    """The initial pose on the host, where the loop keeps it, in fp32."""
+    with profiling.host_sync("icp.init", init):
+        return init.to(dtype=torch.float32).cpu()
+
+
+def _results_to(t_host: torch.Tensor, mse: torch.Tensor, device):
+    """The loop's pose and mse copied to the clouds' device."""
+    with profiling.host_sync("icp.result", device, 2):
+        return t_host.to(device), mse.to(device)
+
+
 def _limits(max_corr_dist):
     """(max distance, max d²) as Python floats holding fp32 values (the
     square an fp32 product, as the JAX package takes it): compared with
@@ -273,13 +289,14 @@ def _limits(max_corr_dist):
     return mcd32.item(), (mcd32 * mcd32).item()
 
 
+@profiling.spanned("icp")
 def _icp_p2p(src, src_mask, tgt, tgt_mask, init, max_iterations,
              conv_thresh, max_corr_dist, window=False, w_tiles=3,
              tile=128, subsample=1, full_iters=2):
     """The point-to-point ICP loop. Returns ``(t_mat, mse, it, conv,
     n_corr)`` with ``t_mat`` (4, 4) and ``mse`` () on the clouds' device."""
     device = src.device
-    t_host = init.to(dtype=torch.float32).cpu()    # the pose lives on the host
+    t_host = _pose_from(init)    # the pose lives on the host
     max_corr_dist, max_d2 = _limits(max_corr_dist)
     matchers = (_static_matchers(src, src_mask, tgt, tgt_mask, t_host, max_d2, w_tiles,
                                  subsample, tile=tile) if window else (None, None))
@@ -301,13 +318,14 @@ def _icp_p2p(src, src_mask, tgt, tgt_mask, init, max_iterations,
         w = ok.to(torch.float32)
         n_ok = w.sum()
         mse = d2.sum() / torch.clamp_min(n_ok, 1.0)
-        host = torch.cat([linalg.kabsch_moments(moved, matched, w),
-                          mse[None], n_ok[None]]).cpu()
+        host = torch.cat([linalg.kabsch_moments(moved, matched, w), mse[None], n_ok[None]])
+        with profiling.host_sync("icp.moments", host):
+            host = host.cpu()
         return linalg.kabsch_from_moments(host[:15]), host[15], int(host[16])
 
     t_host, mse, it, conv, n_corr = _icp_loop(step, t_host, max_iterations, conv_thresh,
                                               *matchers, full_iters)
-    return t_host.to(device), mse.to(device), it, conv, n_corr
+    return (*_results_to(t_host, mse, device), it, conv, n_corr)
 
 
 def icp_point_to_point(source: PointCloud, target: PointCloud,
@@ -349,6 +367,7 @@ def icp(source: PointCloud, target: PointCloud,
 # point-to-plane
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("icp")
 def _icp_p2plane(src, src_mask, tgt, tgt_mask, tgt_normals, init,
                  max_iterations, conv_thresh, max_corr_dist, window=False,
                  w_tiles=3, subsample=1, full_iters=2):
@@ -360,7 +379,7 @@ def _icp_p2plane(src, src_mask, tgt, tgt_mask, tgt_normals, init,
     kernel's match as 3 payload rows. Returns ``(t_mat, mse, it, conv,
     n_corr)`` on the clouds' device."""
     device = src.device
-    t_host = init.to(dtype=torch.float32).cpu()
+    t_host = _pose_from(init)
     max_corr_dist, max_d2 = _limits(max_corr_dist)
     matchers = (_static_matchers(src, src_mask, tgt, tgt_mask, t_host, max_d2, w_tiles,
                                  subsample, tgt_extra=tgt_normals) if window else (None, None))
@@ -384,13 +403,15 @@ def _icp_p2plane(src, src_mask, tgt, tgt_mask, tgt_normals, init,
         g = -linalg.fp32_matmul(aw.T, r[:, None])[:, 0]
         n_ok = w.sum()
         mse = torch.where(ok, r * r, 0.0).sum() / torch.clamp_min(n_ok, 1.0)
-        host = torch.cat([h.reshape(36), g, mse[None], n_ok[None]]).cpu()
+        host = torch.cat([h.reshape(36), g, mse[None], n_ok[None]])
+        with profiling.host_sync("icp.moments", host):
+            host = host.cpu()
         xi = linalg.solve_psd(host[:36].reshape(6, 6), host[36:42], damping=1e-6)
         return se3_exp(xi), host[42], int(host[43])
 
     t_host, mse, it, conv, n_corr = _icp_loop(step, t_host, max_iterations, conv_thresh,
                                               *matchers, full_iters)
-    return t_host.to(device), mse.to(device), it, conv, n_corr
+    return (*_results_to(t_host, mse, device), it, conv, n_corr)
 
 
 def icp_point_to_plane(source: PointCloud, target: PointCloud,

@@ -1,17 +1,33 @@
 """Timing on the card with CUDA events, a device profile of one call
-with ``torch.profiler``, and the JAX package's profiling helpers mapped
-onto torch: ``sync`` (a synchronise and a checksum), ``trace`` (a
-``torch.profiler`` trace of a block written into a directory, as
-``jax.profiler`` writes one), ``Timer`` (host sections),
+with ``torch.profiler``, the program's stage spans and counters, and
+the JAX package's profiling helpers mapped onto torch: ``sync`` (a
+synchronise and a checksum), ``trace`` (a ``torch.profiler`` trace of a
+block written into a directory, as ``jax.profiler`` writes one, with
+the stage spans in it), ``Timer`` (host sections),
 ``device_memory_stats``, ``measure_peak_memory`` and ``program_memory``
-(the CUDA caching allocator's counters)."""
+(the CUDA caching allocator's counters).
+
+Stage spans and counters: ``span(name)`` brackets a stage of the
+program (``spanned(name)`` a whole function), ``count(name, n)`` adds
+to a counter, ``host_sync(site, on)`` brackets a copy that makes the
+host wait for the device (counter and leaf span ``sync.<site>``), and
+``recording()`` switches span recording on for a block and yields the
+``Records``. Off, a span is one flag test and a shared no-op context;
+counters always count. Stamps are ``time.time_ns()``, the Unix-epoch
+clock on which ``torch.profiler`` puts its host and device events, so
+spans and device intervals compare without conversion; while a profiler
+is active each span also opens a ``record_function`` range of its name.
+"""
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
+import itertools
 import os
 import statistics
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -133,7 +149,8 @@ def trace(log_dir: str = "/tmp/threecrate_trace"):
     """A ``torch.profiler`` trace of the block (host activity, and the
     card's where there is one), written into ``log_dir`` as a Chrome
     trace in TensorBoard's layout (``<host>_<pid>.<stamp>.pt.trace.json``)
-    when the block ends; yields ``log_dir``, as the JAX package's
+    when the block ends, the stage spans recorded (``recording``) as
+    ranges of their names; yields ``log_dir``, as the JAX package's
     ``trace`` does around ``jax.profiler``."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
@@ -141,8 +158,132 @@ def trace(log_dir: str = "/tmp/threecrate_trace"):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+    with recording(), profile(activities=activities,
+                              on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield log_dir
+
+
+class Span:
+    """One recorded stage: its ``name``, ``id``, its ``parent``'s id (None
+    for a root), the ``call`` id (its root's id: the spans of one call
+    share it) and its ``start_ns`` / ``end_ns`` stamps (``time.time_ns``)."""
+
+    __slots__ = ("name", "id", "parent", "call", "start_ns", "end_ns")
+
+    def __init__(self, name: str, id: int, parent: Optional[int], call: int, start_ns: int):
+        self.name, self.id, self.parent, self.call = name, id, parent, call
+        self.start_ns, self.end_ns = start_ns, start_ns
+
+
+class Records:
+    """What ``recording()`` kept: ``spans`` in the order they ended,
+    ``counters`` (what each counter counted inside the block) and
+    ``calls`` (the root spans, one a call, in the order they began)."""
+
+    def __init__(self) -> None:
+        self.spans: List[Span] = []
+        self.counters: Dict[str, int] = {}
+
+    @property
+    def calls(self) -> List[Span]:
+        return sorted((s for s in self.spans if s.parent is None), key=lambda s: s.start_ns)
+
+
+counters: Dict[str, int] = collections.defaultdict(int)   # every count since import
+_recording = False                                  # the flag a span tests
+_active: List[Records] = []
+_local = threading.local()                          # .stack: the open spans
+_ids = itertools.count(1)
+_OFF = contextlib.nullcontext()
+
+
+class _Open:
+    __slots__ = ("name", "span", "fn")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent = stack[-1] if stack else None
+        self.fn = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.fn = torch.ops.profiler._record_function_enter_new(self.name, None)
+        start = time.time_ns()
+        sid = next(_ids)
+        self.span = Span(self.name, sid, parent.id if parent else None,
+                         parent.call if parent else sid, start)
+        stack.append(self.span)
+        return self.span
+
+    def __exit__(self, *exc):
+        if self.fn is not None:
+            torch.ops.profiler._record_function_exit._RecordFunction(self.fn)
+        sp = self.span
+        sp.end_ns = time.time_ns()
+        _local.stack.pop()
+        for r in _active:
+            r.spans.append(sp)
+        return False
+
+
+def span(name: str):
+    """A context bracketing one stage of the program; recorded (name, ids,
+    stamps) only inside ``recording()``, else a shared no-op."""
+    if not _recording:
+        return _OFF
+    return _Open(name)
+
+
+def spanned(name: str):
+    """Decorate a function so that each call is a ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (always on)."""
+    counters[name] += n
+
+
+def host_sync(site: str, on, n: int = 1):
+    """The context of ``n`` copies that make the host wait for the device
+    ``on`` (a tensor's or a device): a read onto the host, or a write from
+    pageable host memory. Where ``on`` is off the CPU it counts ``n`` to
+    ``sync.<site>`` and is a leaf span of that name; on the CPU nothing
+    waits and nothing counts."""
+    if on.is_cpu if isinstance(on, torch.Tensor) else torch.device(on).type == "cpu":
+        return _OFF
+    name = "sync." + site
+    counters[name] += n
+    return span(name)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the spans opened in the block, on every thread, and what the
+    counters count there: yields the ``Records``, filled as spans end
+    (``counters`` when the block ends). Blocks may nest; each keeps all
+    that ends inside it."""
+    global _recording
+    rec = Records()
+    before = dict(counters)
+    _active.append(rec)
+    _recording = True
+    try:
+        yield rec
+    finally:
+        _active.remove(rec)
+        _recording = bool(_active)
+        rec.counters = {k: v - before.get(k, 0) for k, v in counters.items()
+                        if v != before.get(k, 0)}
 
 
 class Timer:
