@@ -39,7 +39,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the sorted 1M scan (k = 10, tile 256) at band 16 (``window_fast``'s
    shape) and band 0 (the exact body);
 4. time each kernel and its plain version (CUDA-event medians), with the
-   card's SM clock read beside each;
+   card's SM clock read beside each; then descriptor matching's kernel
+   (``match_nearest``, ``csrc/match.cu``) at the relocalize cell's
+   shapes, 16,384 x 2^20 x 33 each direction, against its plain version
+   (the tiled ``neighbors.knn``; rows equal on >= 99.9%, d2 within
+   ``D2_ULPS`` ulps of |q|^2 + |p|^2 where they are), timed beside it,
+   beside its bound and beside a library yardstick the port never calls
+   (a chunked cuBLAS product with the norms and ``argmin``);
 5. run ``PerceptionStep()`` on a 1M-point scan pair (target = source +
    (0.05, -0.03, 0.02)) with every launch counter reset just before:
    the shift must come back within 1e-3, valid normals must be unit
@@ -50,11 +56,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (source = target rotated 0.35 rad about z and shifted by
    (2.0, -1.5, 0.3) m) with every launch counter reset just before: the
    pose must come back (|R'R - I| <= 1e-3, |R't + t'| <= 1e-2 m), each
-   FPFH and union kernel must launch twice (once per cloud),
-   ``icp_match`` at least once, the banded and window kNN kernels never;
+   FPFH and union kernel must launch twice (once per cloud), the matching
+   kernel twice (once a direction), ``icp_match`` at least once, the
+   banded and window kNN kernels never;
 9. time that call (median of 3 after one warm-up), its peak memory, and
    each stage alone: normals, FPFH, matching, RANSAC, ICP;
-10. run ``RegistrationModel`` on 700 points (the exact FPFH path);
+10. run ``RegistrationModel`` on 700 points (the exact FPFH path; the
+    matching kernel the only one, twice);
 11. ``extract_fpfh_features(target)`` with default settings on the 1M
     registration target: ``band="auto"`` must resolve to a rung (48
     there), union, band and weight kernels launch once each, the
@@ -396,6 +404,7 @@ r2, the nearest d² or the k-th d²), counted on this run's inputs; phase
 from __future__ import annotations
 
 import copy
+import functools
 import importlib
 import json
 import math
@@ -688,6 +697,8 @@ BATCH_POSE_TOL = 5e-3      # m: tests/test_parallel.py's bound for batch ICP and
 SOR_K, SOR_STD = 8, 1.0    # statistical_outlier_removal's defaults
 RING_FPFH_RADIUS, RING_FPFH_K = 0.5, 64
 D2_ULPS = 4                # ring d2 against knn's: ulps of |q|^2 + |p|^2
+# descriptor matching at the relocalize cell's shapes: queries, database, dims
+MATCH_SHAPE = (16_384, 1 << 20, 33)
 SEAM_TOL_DEG = 0.05        # sharded window normals' planar angle against one device's one pass
 # Phases 55-58: the last of parallel on SHARDS shards of the card. Phase 55:
 # phase 28's frame and grid into an x-slab TSDF of SLAB_BLOCKS blocks a shard
@@ -1769,7 +1780,7 @@ def root_surface_phases(dev, kernels):
           "global_registration (reference convention) missed the pose")
     check(all(counts[k] == 2 for k in ("union_window_a", "union_window_b", "spfh_a", "spfh_b",
                                        "fpfh_weight_a", "fpfh_weight_b"))
-          and counts["icp_match"] >= 1
+          and counts["icp_match"] >= 1 and counts["match_nearest"] == 2
           and not any(counts[k] for k in BAND_KERNELS + ("knn_window",)),
           "global_registration launched other kernels than its own")
     side_by_side("global_registration", lambda: tt.global_registration(rs, rt, *ref_args),
@@ -2209,6 +2220,8 @@ def main() -> int:
     del out_a, ref_a, out_b, ref_b, icp_args, times, ids_a, knn_args, shot_calls, k_calls
     del fpfh_args, band_args, pa, pb, p2a, p2b, pos_b, perm_a, v_a, v_b, got, ref, args
     torch.cuda.empty_cache()
+    match_rows = match_kernel_row(dev)
+    torch.cuda.empty_cache()
 
     log("phase 5: PerceptionStep() on the 1M scan pair")
     src = scan(N_SCAN, 0)
@@ -2354,6 +2367,9 @@ def main() -> int:
              "launches": launches.get(launch_key.get(kname, kname.split()[0]), 0),
              "max_abs_err": errs[kname], "ms": ms[kname][0], "plain_ms": ms[kname][1],
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    for row in match_rows:
+        row["launches"] = reg_launches["match_nearest"]
+        report["kernels"].append(row)
     usc_ms = {k: ms[f"{k} usc"] for k in ("shot_hist_a", "shot_hist_b", "shot_hist_b placed",
                                           "shot_hist_a add")}
     usc_bound = {k: bound(*work[f"{k} usc"]) for k in usc_ms}
@@ -2386,6 +2402,78 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fpfh_like(n, gen, dev):
+    """(n, 33) rows shaped as FPFH histograms: three groups of 11
+    non-negative bins, each summing to 100."""
+    h = torch.rand((n, 3, 11), generator=gen, device=dev) ** 3
+    return (100.0 * h / h.sum(2, keepdim=True)).reshape(n, 33)
+
+
+def match_kernel_row(dev):
+    """Descriptor matching's kernel at ``MATCH_SHAPE``, each direction:
+    checked against the plain version (``neighbors.knn``, the tiled path)
+    and timed beside it, beside its bound (2·Q·N·D operations) and beside
+    a chunked library yardstick (cuBLAS fp32 product, norms, argmin) that
+    the port never calls. Returns the report's kernel rows."""
+    from threecrate_tpu_torch.kernels import match
+    from threecrate_tpu_torch.ops import neighbors
+    from threecrate_tpu_torch.utils.profiling import median_time
+
+    q, n, d = MATCH_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    tgt = fpfh_like(n, gen, dev)
+    src = tgt[torch.randperm(n, generator=gen, device=dev)[:q]]
+    src = src + torch.rand(src.shape, generator=gen, device=dev)      # near copies
+    v_src = torch.rand(q, generator=gen, device=dev) > 0.02
+    v_tgt = torch.rand(n, generator=gen, device=dev) > 0.02
+
+    def library(queries, db, db_valid, chunk):
+        # the yardstick: (|q|^2 + |p|^2) - 2 q.p by cuBLAS, then argmin
+        pn = torch.where(db_valid, (db * db).sum(1), torch.inf)
+        for c in range(0, queries.shape[0], chunk):
+            qc = queries[c:c + chunk]
+            ((qc * qc).sum(1)[:, None] + pn[None]).addmm_(qc, db.T, alpha=-2.0).argmin(1)
+
+    rows = []
+    for direction, (qs, db, db_valid, chunk) in {
+            "forward": (src, tgt, v_tgt, 1024), "mutual": (tgt, src, v_src, 16_384)}.items():
+        d2, j = match.unpack(match._nearest(qs, db, db_valid))
+        ref = neighbors.knn(db, db_valid, qs, None, 1)
+        torch.cuda.synchronize()
+        rj, rd = ref.indices[:, 0], ref.distances[:, 0]
+        same = rj == j
+        ulp = 2.0 ** -23 * ((qs * qs).sum(1) + (db[j] * db[j]).sum(1))
+        d2_ulps = ((d2 - rd * rd).abs() / ulp)[same].max().item()
+        ids_eq = same.float().mean().item()
+        log(f"  match_nearest {direction}: {qs.shape[0]:,} x {db.shape[0]:,} x {d}, rows equal "
+            f"to neighbors.knn's on {ids_eq:.7f} (need >= 0.999: near-ties may flip), d2 within "
+            f"{d2_ulps:.2f} ulps of |q|^2 + |p|^2 (need <= {D2_ULPS}, with the plain's sqrt "
+            f"squared back)")
+        check(ids_eq >= 0.999 and d2_ulps <= D2_ULPS, f"match_nearest {direction} disagrees")
+        kern = functools.partial(match._nearest, qs, db, db_valid)
+        plain = functools.partial(neighbors.knn, db, db_valid, qs, None, 1)
+        lib = functools.partial(library, qs, db, db_valid, chunk)
+        # plain, kernel, kernel, plain; the library yardstick between
+        p1 = median_time(plain, warmup=1, iters=1)
+        k1 = median_time(kern, warmup=1, iters=10)
+        lib_ms = 1e3 * median_time(lib, warmup=1, iters=3)
+        k2 = median_time(kern, warmup=0, iters=10)
+        p2 = median_time(plain, warmup=0, iters=1)
+        bound_ms, bound_by = bound(4.0 * (qs.shape[0] + db.shape[0]) * (d + 1) + 8 * qs.shape[0],
+                                   2.0 * qs.shape[0] * db.shape[0] * d)
+        ms = 1e3 * (k1 + k2) / 2
+        log(f"  match_nearest {direction}: kernel {1e3 * k1:.3f} / {1e3 * k2:.3f} ms, plain "
+            f"{1e3 * p1:.1f} / {1e3 * p2:.1f} ms, library {lib_ms:.2f} ms, bound {bound_ms:.2f} "
+            f"ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); SM clock {sm_clock()}")
+        rows.append({"name": f"match_nearest {direction}", "route": "cuda",
+                     "source": "threecrate_tpu_torch/csrc/match.cu", "replaces": None,
+                     "launches": None, "max_abs_err": (d2 - rd * rd)[same].abs().max().item(),
+                     "ms": ms, "plain_ms": 1e3 * (p1 + p2) / 2, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
 
 
 def registration_phases(dev, kernels):
@@ -2422,6 +2510,7 @@ def registration_phases(dev, kernels):
     check(launches["union_window_a"] == 2 and launches["union_window_b"] == 2,
           "union kernels not launched once per cloud")
     check(launches["icp_match"] >= 1, "icp_match not launched")
+    check(launches["match_nearest"] == 2, "the matching kernel not launched once a direction")
     check(not any(launches[k] for k in BAND_KERNELS + ("knn_window",)),
           "banded SPFH or window kNN kernels launched (fpfh_band=None)")
 
@@ -2481,7 +2570,8 @@ def registration_phases(dev, kernels):
     log(f"  pose max abs err {err_small:.3e} (tol 0.05), launches "
         f"{kernels.launch_counts()}")
     check(err_small <= 0.05, "700-point pose not recovered")
-    check(sum(kernels.launch_counts().values()) == 0, "exact path launched a kernel")
+    check(only(kernels.launch_counts(), {"match_nearest": 2}),
+          "exact path launched another kernel than matching's")
     report = {"model_ms": 1e3 * total, "peak_gib": peak / 2**30,
               "pose_err": [r_err, t_err], "stage_ms": stage_ms}
     return launches, report

@@ -82,6 +82,7 @@ from threecrate_tpu_torch.kernels.knn import (  # noqa: E402
     window_union_a_tiles, window_union_b_plain, window_union_b_tiles)
 from threecrate_tpu_torch.kernels.knn_window import (  # noqa: E402
     knn_window_plain, knn_window_tiles)
+from threecrate_tpu_torch.kernels.match import match_nearest_tiles  # noqa: E402
 from threecrate_tpu_torch.ops import features as tf  # noqa: E402
 from threecrate_tpu_torch.ops import morton  # noqa: E402
 from threecrate_tpu_torch.ops import normals as tn  # noqa: E402
@@ -264,6 +265,7 @@ def test_wrappers_count_launches(cuda):
     shot.shot_hist_a_tiles(p7, lrf, 0.1, 16, TILE, "usc")
     shot.shot_hist_b_tiles(torch.zeros(8, 512, device=cuda), lrf, 0.1, 16, TILE)
     window_normals_tiles(x, v, K, TILE, 16)
+    match_nearest_tiles(x.T, v[0] > 0, x.T, v[0] > 0)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"union_window_a": 1, "union_window_b": 1,
                                        "icp_match": 1, "spfh_a": 1, "spfh_b": 1,
@@ -271,7 +273,8 @@ def test_wrappers_count_launches(cuda):
                                        "spfh_band_a": 1, "spfh_band_b": 1,
                                        "knn_window": 1, "shot_moments_a": 1,
                                        "shot_moments_b": 1, "shot_hist_a": 1,
-                                       "shot_hist_b": 1, "window_normals": 1}
+                                       "shot_hist_b": 1, "window_normals": 1,
+                                       "match_nearest": 1}
     assert knn_window_tiles.shape_launches == {(4, False, False): 1}
 
 
@@ -460,8 +463,9 @@ def test_band_kernels_edges(cuda, band, tile):
 
 def test_registration_model_on_card(cuda, monkeypatch):
     """A 16,640-point RegistrationModel with every size threshold lowered,
-    so all four FPFH kernels run (once per cloud), then the same on the
-    CPU's plain versions: both recover the pose."""
+    so all four FPFH kernels run (once per cloud) and the matching kernel
+    once a direction, then the same on the CPU's plain versions: both
+    recover the pose."""
     monkeypatch.setattr(tn, "AUTO_WINDOW_THRESHOLD", 4096)
     monkeypatch.setattr(tf, "FUSED_FPFH_THRESHOLD", 4096)
     monkeypatch.setattr(tr, "CORRESPONDENCE_WINDOW_THRESHOLD", 2 ** 20)
@@ -483,7 +487,7 @@ def test_registration_model_on_card(cuda, monkeypatch):
             assert all(counts[k] == 2 for k in ("spfh_a", "spfh_b", "fpfh_weight_a",
                                                 "fpfh_weight_b", "union_window_a",
                                                 "union_window_b"))
-            assert counts["icp_match"] >= 1
+            assert counts["icp_match"] >= 1 and counts["match_nearest"] == 2
         else:
             assert not any(counts.values())
 

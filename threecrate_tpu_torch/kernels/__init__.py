@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each with
 its plain PyTorch version and a launch counter on its wrapper."""
 
-from . import fpfh, icp, knn, knn_window, shot
+from . import fpfh, icp, knn, knn_window, match, shot
 from .fpfh import (fpfh_weight_a_tiles, fpfh_weight_b_tiles, spfh_a_tiles,
                    spfh_b_tiles, spfh_band_a_tiles, spfh_band_b_tiles)
 from .icp import icp_match_tiles
 from .knn import window_normals_tiles, window_union_a_tiles, window_union_b_tiles
 from .knn_window import knn_window_tiles
+from .match import match_nearest_tiles
 from .shot import (shot_hist_a_tiles, shot_hist_b_tiles, shot_moments_a_tiles,
                    shot_moments_b_tiles)
 
@@ -27,6 +28,7 @@ WRAPPERS = {
     "shot_hist_a": shot_hist_a_tiles,
     "shot_hist_b": shot_hist_b_tiles,
     "window_normals": window_normals_tiles,
+    "match_nearest": match_nearest_tiles,
 }
 
 

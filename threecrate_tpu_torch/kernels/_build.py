@@ -59,6 +59,8 @@ _SIGNATURES = {
     "tc_shot_hist_b": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P),
     # pts, valid, ids, neg, ids_out, crd, n, tile, k, with_coords, exclude_self, stream
     "tc_knn_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # queries (D, ldq), their norms, database (D, ldn), its norms, out, q, ldq, ldn, D, stream
+    "tc_match_nearest": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

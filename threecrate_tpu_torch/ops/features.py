@@ -19,8 +19,9 @@ chosen as in the JAX package:
   or PCL-style soft binning) and the weighted neighbour sum, in blocks
   of 16,384 points.
 
-``match_descriptors`` is the nearest neighbour in descriptor space, one
-matmul for small problems and the tiled ``knn`` above 2^26 pairs.
+``match_descriptors`` is the nearest neighbour in descriptor space: the
+matching kernel (``kernels.match``) on the card, one matmul for small
+problems and the tiled ``knn`` above 2^26 pairs on the CPU.
 
 SHOT and USC also take two routes. Above ``FUSED_SHOT_THRESHOLD``
 points (or ``method="window"``; SHOT also needs 11 cos bins) the fused
@@ -44,10 +45,10 @@ import torch
 
 from ..core.errors import InvalidDataError
 from ..core.point_cloud import PointCloud
+from ..kernels.match import match_nearest_tiles
 from ..kernels.shot import SHOT_DIM, USC_DIM
 from ..utils import padding, profiling
 from . import linalg, morton, neighbors
-from .linalg import fp32_matmul
 from .normals import NormalEstimationConfig, estimate_normals_detailed
 
 FPFH_DIM = 33
@@ -549,28 +550,12 @@ def extract_usc_features(cloud: PointCloud, config: ShotConfig = ShotConfig()
 def match_descriptors(desc_a, valid_a, desc_b, valid_b, mutual: bool = False):
     """Nearest neighbour of each ``desc_a`` row among the valid
     ``desc_b`` rows: ``(index into b (N,), distance, valid)``.
-    ``mutual=True`` keeps only cross-checked pairs. Up to 2^26 pair
-    products it is one fp32 matmul; above, the tiled ``neighbors.knn``,
-    which never forms a distance matrix wider than its ``db_tile``."""
-    na, nb = desc_a.shape[0], desc_b.shape[0]
-    rows_a = torch.arange(na, device=desc_a.device)
-    if na * nb > 2 ** 26:
-        res = neighbors.knn(desc_b, valid_b, desc_a, valid_a, 1)
-        j = res.indices[:, 0]
-        dist = res.distances[:, 0]
-        ok = valid_a & res.mask[:, 0] & torch.isfinite(dist)
-        if mutual:
-            back = neighbors.knn(desc_a, valid_a, desc_b, valid_b, 1)
-            ok = ok & (back.indices[:, 0][j] == rows_a)
-        return j, torch.where(ok, dist, torch.inf), ok
-    an = (desc_a * desc_a).sum(1)
-    bn = (desc_b * desc_b).sum(1)
-    d2 = an[:, None] + bn[None, :] - 2.0 * fp32_matmul(desc_a, desc_b.T)
-    d2 = torch.where(valid_b[None, :], d2, torch.inf)
-    j = torch.argmin(d2, dim=1)
-    dist = torch.sqrt(torch.clamp_min(torch.gather(d2, 1, j[:, None])[:, 0], 0.0))
+    ``mutual=True`` keeps only cross-checked pairs. On the card one
+    launch of the matching kernel a direction (``kernels.match``), which
+    never writes a distance matrix; on the CPU one fp32 matmul up to 2^26
+    pair products, above it the tiled ``neighbors.knn``."""
+    j, dist, back = match_nearest_tiles(desc_a, valid_a, desc_b, valid_b, mutual)
     ok = valid_a & torch.isfinite(dist)
     if mutual:
-        back = torch.argmin(torch.where(valid_a[:, None], d2, torch.inf), dim=0)
-        ok = ok & (back[j] == rows_a)
+        ok = ok & (back[j] == torch.arange(desc_a.shape[0], device=desc_a.device))
     return j, torch.where(ok, dist, torch.inf), ok
